@@ -1,0 +1,28 @@
+from .base import (MoveCounts, SamplerResult, StepOut, independence_mh_move,
+                   isir_move, local_rw_move, run_segmented)
+from .chain import ChainCarry, init_chain_carry, sample_with_step
+from .global_mcmc import (GlobalMCMCConfig, build_global_mcmc_step,
+                          run_global_mcmc)
+from .glmcmc import GLMCMCConfig, build_glmcmc_step, run_glmcmc
+from .glmcmc_fused import run_glmcmc_fused, run_global_mcmc_fused
+
+__all__ = [
+    "MoveCounts",
+    "SamplerResult",
+    "StepOut",
+    "independence_mh_move",
+    "isir_move",
+    "local_rw_move",
+    "run_segmented",
+    "ChainCarry",
+    "init_chain_carry",
+    "sample_with_step",
+    "GlobalMCMCConfig",
+    "build_global_mcmc_step",
+    "run_global_mcmc",
+    "GLMCMCConfig",
+    "build_glmcmc_step",
+    "run_glmcmc",
+    "run_glmcmc_fused",
+    "run_global_mcmc_fused",
+]

@@ -1,0 +1,68 @@
+"""Checkpoint/resume for the fused-kernel drivers.
+
+Port of ``glabc_tpu/samplers/_fused_io.py`` (fused loop only; the adaptive
+drivers' epoch checkpoints wait for M8/M10).  The loop state is the kernel's
+state tensors plus host counters, saved as the port's own ``.npz`` of named
+arrays.
+
+Alignment rule: the kernel always runs ``steps_per_call`` transitions, so
+after a ragged final segment the carry is ahead of the recorded history.
+Only aligned segments are checkpointed; a resume continues from the last
+aligned point and replays the ragged tail bitwise, since every draw is a
+function of (seed, chain, absolute step).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ..utils.io import carry_path, load_carry, save_carry
+
+__all__ = ["save_fused_ckpt", "restore_fused_ckpt"]
+
+_STATE = ("theta", "y", "logk")
+_COUNTERS = ("g_att", "g_acc", "l_acc")
+
+
+def save_fused_ckpt(path, state, counters, steps_run, call_idx, seed, done,
+                    take, steps_per_call, meta=None):
+    """Snapshot the fused loop after an aligned launch (a ragged final
+    segment is not saved).  ``meta`` holds the configuration, which
+    :func:`restore_fused_ckpt` checks."""
+    if take != steps_per_call:
+        return
+    arrays = dict(zip(_STATE, state))
+    arrays.update(zip(_COUNTERS, counters))
+    arrays.update(steps_run=steps_run, call_idx=call_idx, seed=seed)
+    for k, v in (meta or {}).items():
+        arrays[f"meta.{k}"] = v
+    save_carry(path, arrays, step=done)
+
+
+def restore_fused_ckpt(path, expect_meta=None, device=None):
+    """``(state, (g_att, g_acc, l_acc), steps_run, call_idx, seed, done)``,
+    or ``None`` when there is no checkpoint.  State tensors go to
+    ``device``; counters come back as float64 numpy.  Raises ``ValueError``
+    when the saved configuration differs from ``expect_meta``: the saved
+    tiles would be read in the wrong layout."""
+    if not os.path.exists(carry_path(path)):
+        return None
+    arrays, done = load_carry(path)
+    if expect_meta is not None:
+        mismatches = {}
+        for k, v in expect_meta.items():
+            saved = arrays.get(f"meta.{k}")
+            if saved is None or saved.item() != v:
+                mismatches[k] = (None if saved is None else saved.item(), v)
+        if mismatches:
+            raise ValueError(
+                "checkpoint configuration mismatch (saved vs current): "
+                f"{mismatches}; delete the checkpoint or restore the original "
+                "configuration")
+    state = tuple(torch.as_tensor(arrays[k], device=device) for k in _STATE)
+    counters = tuple(np.asarray(arrays[k], np.float64) for k in _COUNTERS)
+    return (state, counters, int(arrays["steps_run"]),
+            int(arrays["call_idx"]), int(arrays["seed"]), int(done))

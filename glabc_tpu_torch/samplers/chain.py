@@ -1,0 +1,110 @@
+"""Chain carry and the multi-chain sample driver of the plain samplers.
+
+Port of ``glabc_tpu/samplers/chain.py``.  The carry holds every chain as one
+batched tensor and the run's single ``torch.Generator``; a checkpoint stores
+the tensors and the generator's state as named arrays.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .._device import check_generator, resolve_device
+from ..utils.io import carry_path, load_carry, save_carry
+from .base import MoveCounts, SamplerResult, run_segmented
+
+__all__ = ["ChainCarry", "init_chain_carry", "sample_with_step"]
+
+
+class ChainCarry(NamedTuple):
+    theta: torch.Tensor        # (C, d)
+    y: torch.Tensor            # (C, d_y)
+    log_kernel: torch.Tensor   # (C,) cached log K_eps(discrepancy(y))
+    generator: torch.Generator
+    counts: MoveCounts
+
+    def to_arrays(self) -> dict:
+        out = {"theta": self.theta, "y": self.y, "log_kernel": self.log_kernel,
+               "rng_state": self.generator.get_state()}
+        out.update({f"counts.{k}": v
+                    for k, v in self.counts._asdict().items()})
+        return out
+
+    @classmethod
+    def from_arrays(cls, arrays: dict, generator: torch.Generator,
+                    device) -> "ChainCarry":
+        t = lambda k: torch.as_tensor(arrays[k], device=device)
+        generator.set_state(torch.as_tensor(arrays["rng_state"]))
+        counts = MoveCounts(*(t(f"counts.{k}") for k in MoveCounts._fields))
+        return cls(t("theta"), t("y"), t("log_kernel"), generator, counts)
+
+
+def init_chain_carry(problem, generator, theta0, y0=None,
+                     num_chains: int = 1, device=None) -> ChainCarry:
+    """Batched carry.  ``theta0`` ``(d,)`` broadcasts to every chain, or is
+    ``(C, d)``.  ``y0=None`` simulates each chain's initial dataset
+    (``Mixture.py:66``)."""
+    dev = resolve_device(device)
+    check_generator(generator, dev)
+    theta0 = torch.as_tensor(np.asarray(theta0, np.float32), device=dev)
+    if theta0.dim() == 1:
+        theta0 = theta0.expand(num_chains, theta0.shape[0])
+    theta0 = theta0.contiguous()
+    C = theta0.shape[0]
+    if y0 is None:
+        y0 = problem.simulate(theta0, generator)
+    else:
+        y0 = torch.as_tensor(np.asarray(y0, np.float32),
+                             device=dev).reshape(-1, problem.y_dim)
+        if y0.shape[0] == 1:
+            y0 = y0.expand(C, problem.y_dim).contiguous()
+    log_kernel = problem.kernel_log_prob(problem.discrepancy(y0))
+    return ChainCarry(theta0, y0, log_kernel, generator,
+                      MoveCounts.zeros(C, dev))
+
+
+def sample_with_step(problem, step: Callable, generator, num_ite: int, theta0,
+                     y0=None, num_chains: int = 1, segment_size: int = 10_000,
+                     on_segment: Optional[Callable] = None,
+                     checkpoint_path: Optional[str] = None,
+                     resume: bool = False, mesh=None,
+                     device=None) -> SamplerResult:
+    """Run the batched ``step(carry) -> (carry, StepOut)`` for ``num_ite - 1``
+    transitions; the chains have length ``num_ite`` with the initial state at
+    index 0 (``GLMCMC.py:43-47``).
+
+    With ``checkpoint_path`` the carry (tensors, counters, generator state)
+    is saved after every segment; ``resume=True`` restores it and the result
+    holds only the remaining transitions."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
+            "Queue 1, M12)")
+    dev = resolve_device(device)
+    start = 0
+    carry = None
+    if resume and checkpoint_path is not None and os.path.exists(
+            carry_path(checkpoint_path)):
+        arrays, start = load_carry(checkpoint_path)
+        carry = ChainCarry.from_arrays(arrays, check_generator(generator, dev),
+                                       dev)
+    if carry is None:
+        carry = init_chain_carry(problem, generator, theta0, y0, num_chains,
+                                 dev)
+    theta_init = carry.theta.cpu().numpy()[:, None, :]
+    save = None
+    if checkpoint_path is not None:
+        save = lambda c, done: save_carry(checkpoint_path, c.to_arrays(), done)
+    carry, thetas = run_segmented(step, carry, (num_ite - 1) - start,
+                                  segment_size, on_segment, save,
+                                  step_offset=start)
+    if thetas.size and start == 0:
+        thetas = np.concatenate([theta_init, thetas], axis=1)
+    elif not thetas.size:
+        thetas = theta_init
+    return SamplerResult(thetas=thetas, counts=carry.counts.numpy(),
+                         final_carry=carry)
