@@ -1,4 +1,5 @@
 from .distributions import DiagGaussian, Gamma, GaussianMixture, Uniform
+from .kde import KernelDensity
 from .problems import ABCProblem, HighDimMixtureProblem, MixtureProblem
 
 __all__ = [
@@ -6,6 +7,7 @@ __all__ = [
     "Gamma",
     "DiagGaussian",
     "GaussianMixture",
+    "KernelDensity",
     "ABCProblem",
     "MixtureProblem",
     "HighDimMixtureProblem",

@@ -1,10 +1,18 @@
 """Hand-written CUDA kernels (``csrc/``) with their plain torch versions."""
 
+from .kde_logprob_kernel import (BatchedMixtureLogProb, batched_kde_log_prob,
+                                 kde_logprob_inputs)
 from .mixture_kernel import FusedMixtureGLMCMC, FusedStats, fused_state_init
 from .packed_kernel import (PackedMixtureGLMCMC, PackedStats,
                             packed_state_init, unpack_history)
+from .pool_isir_kernel import PoolISIR, pack_pool_logw, pack_pool_theta
+from .pool_isir_mixed_kernel import (PoolISIRMixed, ResidentProposal,
+                                     resident_from_gaussian, resident_from_kde)
 
 __all__ = [
+    "BatchedMixtureLogProb",
+    "batched_kde_log_prob",
+    "kde_logprob_inputs",
     "FusedMixtureGLMCMC",
     "FusedStats",
     "fused_state_init",
@@ -12,4 +20,11 @@ __all__ = [
     "PackedStats",
     "packed_state_init",
     "unpack_history",
+    "PoolISIR",
+    "pack_pool_logw",
+    "pack_pool_theta",
+    "PoolISIRMixed",
+    "ResidentProposal",
+    "resident_from_gaussian",
+    "resident_from_kde",
 ]

@@ -1,0 +1,329 @@
+"""Fused pool-iSIR + Mixture random-walk transitions (AGLMCMC at
+global_frequency < 1, shared adaptation): the CUDA kernel's wrapper and its
+plain torch version.
+
+Port of ``glabc_tpu/ops/pallas/pool_isir_mixed_kernel.py``
+(``PoolISIRMixed``, K5, and ``ResidentProposal``, ``resident_from_gaussian``,
+``resident_from_kde``); the kernel is ``csrc/pool_isir_mixed.cu``.  Each
+step a per-chain coin picks
+
+* global: iSIR over pool slice ``t``.  The current state may have arrived
+  by a local move, so its log-weight is recomputed: its density under the
+  resident shared mixture (the epoch's shared KDE, or the initial Gaussian
+  proposal before the first epoch), a logsumexp over its S components;
+* local: the Mixture-family random-walk MH move (``y = |theta| + sigma z``,
+  Gaussian epsilon-kernel), the arithmetic of ``mixture_kernel.transition``.
+
+Pool cadence is slice-per-step: slice ``t`` belongs to step ``t`` and is
+skipped when that step's coin is local.  Layouts are the card's: pool theta
+and datasets ``(T, B, d, C)``, pool log-weights and kernel values
+``(T, B, C)``, state ``(d, C)``, ``logk`` and counters ``(C,)``, history
+``(T, d, C)``.  The TileProgram variant (``program=``) waits for M11.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .mixture_kernel import MixtureConfig, _gauss_lp, _kern_lp, _sum_dims
+from .philox import gumbel, normal_pair, philox4x32, seed_key, uniform_from_bits
+
+__all__ = ["PoolISIRMixed", "ResidentProposal", "resident_from_gaussian",
+           "resident_from_kde", "resident_log_q", "MixedNoise",
+           "draw_mixed_noise", "mixed_transition", "run_plain"]
+
+_LOG_2PI = math.log(2.0 * math.pi)
+_NEG = -1.0e30
+
+
+class ResidentProposal(NamedTuple):
+    """A Gaussian mixture kept resident in the kernel's shared memory:
+    ``log q(theta) = logsumexp_i(pre_i + mu_scaled_i . theta)
+    - 0.5 sum_k theta_k^2 inv2h_k`` with ``mu_scaled = mu / h^2`` and
+    ``pre_i = log_w_i - 0.5 sum_k mu_ik^2 / h_k^2 - sum_k log h_k
+    - (d/2) log 2 pi``."""
+
+    mu_scaled: torch.Tensor  # (S, d)
+    pre: torch.Tensor        # (S,)
+    inv2h: torch.Tensor      # (d,)
+
+
+def _build_resident(mu, h, log_w) -> ResidentProposal:
+    mu = torch.as_tensor(mu, dtype=torch.float32)                 # (n, d)
+    h = torch.as_tensor(h, dtype=torch.float32, device=mu.device)  # (d,)
+    d = mu.shape[1]
+    const = -torch.sum(torch.log(h)) - 0.5 * d * _LOG_2PI
+    inv_h2 = 1.0 / (h * h)
+    pre = log_w + const - 0.5 * torch.sum(mu * mu * inv_h2, dim=-1)
+    return ResidentProposal((mu * inv_h2).contiguous(), pre.contiguous(),
+                            inv_h2.contiguous())
+
+
+def resident_from_gaussian(loc, scale, device=None) -> ResidentProposal:
+    """A diagonal Gaussian (the first epoch's proposal) as a one-component
+    mixture of weight 1, without the KDE's ``+1e-10`` stabilizer: the exact
+    parametric density."""
+    loc = torch.as_tensor(np.asarray(loc, np.float32).reshape(1, -1),
+                          device=device)
+    d = loc.shape[1]
+    scale = torch.as_tensor(np.broadcast_to(np.asarray(scale, np.float32),
+                                            (d,)).copy(), device=device)
+    return _build_resident(loc, scale, torch.zeros(1, device=loc.device))
+
+
+def resident_from_kde(kde) -> ResidentProposal:
+    """An unbatched (shared) fitted KDE as the resident mixture, with the
+    ``log(w + 1e-10)`` stabilizer of ``KernelDensity.log_prob``."""
+    return _build_resident(kde.X, kde.bandwidth,
+                           torch.log(kde.weights + 1e-10))
+
+
+def resident_log_q(res: ResidentProposal, theta: torch.Tensor) -> torch.Tensor:
+    """``log q`` of ``theta (C, d)`` as the kernel computes it: the affine
+    terms left to right, the max over components (floored at -1e30), then
+    the float32 sum of ``exp(sc - m)``.  The kernel sums in another order,
+    so the two agree to float32 rounding of the sum."""
+    d = theta.shape[1]
+    dot = None
+    for f in range(d):
+        p = res.mu_scaled[None, :, f] * theta[:, f:f + 1]
+        dot = p if dot is None else dot + p
+    sc = dot + res.pre[None, :]                                    # (C, S)
+    m = torch.clamp_min(torch.amax(sc, dim=-1), _NEG)
+    s = torch.sum(torch.exp(sc - m[:, None]), dim=-1)
+    q2 = _sum_dims((theta * theta) * res.inv2h)
+    return (torch.log(s) + m) - 0.5 * q2
+
+
+class MixedNoise(NamedTuple):
+    """One step's random numbers for C chains."""
+
+    gumbel: torch.Tensor    # (C, B+1): candidates 0..B-1, the current B
+    u_local: torch.Tensor   # (C,)
+    u_coin: torch.Tensor    # (C,)
+    l1: torch.Tensor        # (C, d) local step normals
+    l2: torch.Tensor        # (C, d) local simulator normals
+
+
+def mixed_noise_from_uniforms(scalars, pairs, B: int) -> MixedNoise:
+    """``scalars (C, B+3)`` in slot order and ``pairs (C, d, 2)`` Box-Muller
+    uniforms -> :class:`MixedNoise`."""
+    n1, n2 = normal_pair(pairs[..., 0], pairs[..., 1])
+    return MixedNoise(gumbel(scalars[:, :B + 1]), scalars[:, B + 1],
+                      scalars[:, B + 2], n1, n2)
+
+
+def draw_mixed_noise(seed: int, num_chains: int, step: int, B: int, d: int,
+                     device=None) -> MixedNoise:
+    """The kernel's random numbers at absolute step ``step``: scalar blocks
+    ``[0, S_b)``, then dim ``j``'s pair in block ``S_b + j // 2``."""
+    k0, k1 = seed_key(seed)
+    sb = -(-(B + 3) // 4)
+    nblk = sb + -(-d // 2)
+    i64 = dict(dtype=torch.int64, device=device)
+    chain = torch.arange(num_chains, **i64)
+    blocks = torch.arange(nblk, **i64)
+    words = philox4x32(chain[:, None], torch.full((1, 1), int(step), **i64),
+                       blocks[None, :], torch.zeros((1, 1), **i64), k0, k1)
+    u = uniform_from_bits(torch.stack(words, dim=-1).reshape(num_chains,
+                                                             4 * nblk))
+    pairs = u[:, 4 * sb:4 * sb + 2 * d].reshape(num_chains, d, 2)
+    return mixed_noise_from_uniforms(u[:, :B + 3], pairs, B)
+
+
+def mixed_transition(state, pool_slice, res: ResidentProposal,
+                     noise: MixedNoise, cfg: MixtureConfig):
+    """One step for every chain.  ``state = (theta (C, d), y (C, d),
+    logk (C,))``; ``pool_slice = (theta (B, d, C), x (B, d, C),
+    logw (B, C), logk (B, C))``.  Returns the new state and the counter
+    increments ``(global_attempt, global_accept, local_accept)``."""
+    theta, y, logk = state
+    ptheta, px, plogw, plogk = pool_slice
+    B = plogw.shape[0]
+    y_obs = torch.tensor(cfg.y_obs, dtype=torch.float32, device=theta.device)
+    prior = lambda th: _gauss_lp(th, cfg.prior_loc, cfg.inv_prior_scale,
+                                 cfg.c_prior)
+    # ---- 1. current state's log-weight under the resident proposal
+    lp_theta = prior(theta)
+    logw_cur = (lp_theta + logk) - resident_log_q(res, theta)
+    # ---- 2. global: iSIR over the slice, strict > keeps ties
+    best = logw_cur + noise.gumbel[:, B]
+    b_th, b_y, b_lk = theta, y, logk
+    moved = torch.zeros_like(logk, dtype=torch.bool)
+    for j in range(B):
+        score = plogw[j] + noise.gumbel[:, j]
+        upd = score > best
+        best = torch.where(upd, score, best)
+        b_th = torch.where(upd[:, None], ptheta[j].T, b_th)
+        b_y = torch.where(upd[:, None], px[j].T, b_y)
+        b_lk = torch.where(upd, plogk[j], b_lk)
+        moved = moved | upd
+    # ---- 3. local random-walk MH
+    thl = theta + cfg.lp_scale * noise.l1
+    yl = thl.abs() + cfg.sigma * noise.l2
+    lkl = _kern_lp(yl, y_obs, cfg)
+    l_acc = torch.log(noise.u_local) < ((prior(thl) + lkl) - lp_theta) - logk
+    # ---- 4. coin
+    is_g = noise.u_coin < cfg.gf
+    new_theta = torch.where(is_g[:, None], b_th,
+                            torch.where(l_acc[:, None], thl, theta))
+    new_y = torch.where(is_g[:, None], b_y,
+                        torch.where(l_acc[:, None], yl, y))
+    new_lk = torch.where(is_g, b_lk, torch.where(l_acc, lkl, logk))
+    f = lambda m: m.to(torch.float32)
+    return (new_theta, new_y, new_lk), (f(is_g), f(is_g & moved),
+                                        f(~is_g & l_acc))
+
+
+def run_plain(res: ResidentProposal, ptheta, px, plogw, plogk, theta, y,
+              logk, cfg: MixtureConfig, noise: Callable[[int], MixedNoise],
+              collect_history: bool = True):
+    """The launch's T steps on explicit noise (``noise(t)``), in the
+    kernel's layouts; the results of :meth:`PoolISIRMixed.run` up to the
+    float32 rounding of the resident logsumexp."""
+    T = plogw.shape[0]
+    state = (theta.T, y.T, logk)
+    counters = [torch.zeros_like(logk) for _ in range(3)]
+    hist = (torch.empty((T, *theta.shape), dtype=torch.float32,
+                        device=theta.device) if collect_history else None)
+    for t in range(T):
+        state, inc = mixed_transition(
+            state, (ptheta[t], px[t], plogw[t], plogk[t]), res, noise(t), cfg)
+        counters = [c + i for c, i in zip(counters, inc)]
+        if collect_history:
+            hist[t] = state[0].T
+    return (state[0].T.contiguous(), state[1].T.contiguous(), state[2],
+            *counters, hist)
+
+
+class PoolISIRMixed:
+    """Fused pool-iSIR + Mixture local-RW kernel (``global_frequency <
+    1``).  ``launches`` counts launches of the CUDA kernel (class-wide) and
+    rises for nothing else; ``block_chains`` (threads per CUDA block) does
+    not change the results."""
+
+    launches = 0
+
+    def __init__(self, theta_dim: int, y_obs, *, epsilon: float = 0.05,
+                 sigma: float = 0.05, global_frequency: float = 0.5,
+                 batch_size: int = 5, steps_per_call: int = 400,
+                 lp_scale: float = 0.35, prior_loc: float = 0.0,
+                 prior_scale: float = 1.0, block_chains: int = 256,
+                 collect_history: bool = True, program=None):
+        if program is not None:
+            raise NotImplementedError(
+                "program= (a TileProgram local move) is not ported yet "
+                "(ROADMAP Queue 1, M11)")
+        self.d = int(theta_dim)
+        if self.d < 1:
+            raise ValueError(f"theta_dim must be >= 1, got {theta_dim}")
+        self.B = int(batch_size)
+        if not 1 <= self.B <= 7:
+            raise ValueError(f"batch_size must be in [1, 7], got {batch_size}")
+        self.T = int(steps_per_call)
+        self.C_blk = int(block_chains)
+        if self.C_blk % 32 or not 32 <= self.C_blk <= 1024:
+            raise ValueError("block_chains must be a multiple of 32 in "
+                             f"[32, 1024], got {block_chains}")
+        self.collect_history = bool(collect_history)
+        self.cfg = MixtureConfig.create(
+            self.d, y_obs, epsilon=epsilon, sigma=sigma,
+            global_frequency=global_frequency, batch_size=self.B,
+            prior_loc=prior_loc, prior_scale=prior_scale, ip_loc=0.0,
+            ip_scale=1.0, lp_scale=lp_scale, algorithm="glmcmc")
+        self._y_obs_on = {}   # device -> y_obs tensor the kernel reads
+
+    def _check(self, res, ptheta, px, plogw, plogk, theta, y, logk) -> int:
+        dev = theta.device
+        named = (("mu_scaled", res.mu_scaled), ("pre", res.pre),
+                 ("inv2h", res.inv2h), ("pool_theta", ptheta),
+                 ("pool_x", px), ("pool_logw", plogw), ("pool_logk", plogk),
+                 ("theta", theta), ("y", y), ("logk", logk))
+        for name, x in named:
+            if not isinstance(x, torch.Tensor):
+                raise TypeError(f"{name} must be a torch.Tensor")
+            if x.dtype != torch.float32:
+                raise TypeError(f"{name} must be float32, got {x.dtype}")
+            if not x.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+            if x.device != dev:
+                raise ValueError(f"{name} is on {x.device}, theta on {dev}")
+        d, T, B = self.d, self.T, self.B
+        if theta.dim() != 2 or theta.shape[0] != d:
+            raise ValueError(f"theta must be ({d}, C), got "
+                             f"{tuple(theta.shape)}")
+        C = theta.shape[1]
+        S = res.pre.shape[0]
+        want = {"mu_scaled": (S, d), "inv2h": (d,),
+                "pool_theta": (T, B, d, C), "pool_x": (T, B, d, C),
+                "pool_logw": (T, B, C), "pool_logk": (T, B, C),
+                "y": (d, C), "logk": (C,)}
+        for name, x in named:
+            if name in want and tuple(x.shape) != want[name]:
+                raise ValueError(f"{name} must be {want[name]}, got "
+                                 f"{tuple(x.shape)}")
+        return C
+
+    def run(self, seed: int, res: ResidentProposal, ptheta, px, plogw, plogk,
+            theta, y, logk, *, step0: int = 0):
+        """``steps_per_call`` transitions from absolute step ``step0``.
+        Returns ``(theta, y, logk, gatt, gacc, lacc, history or None)``."""
+        args = (res, ptheta, px, plogw, plogk, theta, y, logk)
+        self._check(*args)
+        if theta.device.type == "cuda":
+            return self._launch(seed, *args, step0)
+        if theta.device.type == "cpu":
+            return self.plain(seed, *args, step0=step0)
+        raise ValueError(f"no kernel for device {theta.device}")
+
+    def plain(self, seed: int, res: ResidentProposal, ptheta, px, plogw,
+              plogk, theta, y, logk, *, step0: int = 0,
+              noise: Optional[Callable[[int], MixedNoise]] = None):
+        """The plain torch version of :meth:`run`, on any device: the same
+        random numbers (or ``noise(t)``); the results of :func:`run_plain`."""
+        C = self._check(res, ptheta, px, plogw, plogk, theta, y, logk)
+        if noise is None:
+            noise = lambda t: draw_mixed_noise(seed, C, step0 + t, self.B,
+                                               self.d, theta.device)
+        return run_plain(res, ptheta, px, plogw, plogk, theta, y, logk,
+                         self.cfg, noise, self.collect_history)
+
+    def _launch(self, seed, res, ptheta, px, plogw, plogk, theta, y, logk,
+                step0):
+        from ._build import load_library
+
+        if self.d > 32:
+            raise ValueError(f"the CUDA kernel takes theta_dim <= 32, got "
+                             f"{self.d}")
+        lib = load_library("pool_isir_mixed")
+        cfg, dev = self.cfg, theta.device
+        C, S = theta.shape[1], res.pre.shape[0]
+        th_o, y_o = torch.empty_like(theta), torch.empty_like(y)
+        outs = [torch.empty_like(logk) for _ in range(4)]   # logk + counters
+        hist = (torch.empty((self.T, self.d, C), dtype=torch.float32,
+                            device=dev) if self.collect_history else None)
+        y_obs = self._y_obs_on.get(dev)
+        if y_obs is None:   # a copy from the host waits for the stream: once
+            y_obs = self._y_obs_on[dev] = torch.tensor(
+                cfg.y_obs, dtype=torch.float32, device=dev)
+        k0, k1 = seed_key(seed)
+        ptr = lambda x: None if x is None else x.data_ptr()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.glabc_pool_isir_mixed(
+                *(ptr(x) for x in (res.mu_scaled, res.pre, res.inv2h, y_obs,
+                                   ptheta, px, plogw, plogk, theta, y, logk,
+                                   th_o, y_o, *outs, hist)),
+                self.d, C, self.T, self.B, S, int(self.collect_history),
+                cfg.prior_loc, cfg.inv_prior_scale, cfg.c_prior,
+                cfg.lp_scale, cfg.sigma, cfg.c_kern, cfg.a_kern, cfg.gf,
+                k0, k1, int(step0), self.C_blk, stream)
+        if rc != 0:
+            raise RuntimeError(f"pool_isir_mixed launch failed: CUDA error "
+                               f"{rc}")
+        type(self).launches += 1
+        return (th_o, y_o, *outs, hist)

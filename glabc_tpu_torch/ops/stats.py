@@ -96,15 +96,18 @@ def rhat(chains) -> torch.Tensor:
 def weighted_std(x, weights, unbiased: bool = True,
                  dim: int = 0) -> torch.Tensor:
     """Weighted standard deviation with the reliability-weight correction
-    ``1 / clamp(1 - sum(w^2), min=1e-10)`` (``kernel_density.py:39-68``)."""
+    ``1 / clamp(1 - sum(w^2), min=1e-10)`` (``kernel_density.py:39-68``).
+    Leading axes of ``weights`` are batch axes (one chain each): the weights
+    are normalized over their last axis, which ``dim`` of ``x`` indexes."""
     x, weights = _t(x), _t(weights)
-    w = weights / torch.sum(weights)
+    w = weights / torch.sum(weights, dim=-1, keepdim=True)
     w_ex = w.unsqueeze(-1) if x.dim() > w.dim() else w
-    mean = torch.sum(w_ex * x, dim=dim)
+    mean = torch.sum(w_ex * x, dim=dim, keepdim=True)
     diff = x - mean
-    var = torch.sum(w_ex * diff * diff, dim=dim)
+    var = torch.sum(w_ex * (diff * diff), dim=dim)
     if unbiased:
-        var = var / torch.clamp(1.0 - torch.sum(w * w), min=1e-10)
+        corr = torch.clamp(1.0 - torch.sum(w * w, dim=-1), min=1e-10)
+        var = var / (corr.unsqueeze(-1) if var.dim() > corr.dim() else corr)
     return torch.sqrt(var)
 
 

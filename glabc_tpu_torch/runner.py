@@ -6,9 +6,10 @@ writing and end-of-run summary, plus ``num_chains``, a seed, and an explicit
 ``device``.  The runner holds one ``torch.Generator`` on its device; each run
 draws a fresh child generator from it unless one is passed.
 
-This slice ports ``run_global_mcmc`` and ``run_glmcmc`` (``method='scan'``,
-the plain torch path, and ``method='fused'``, the CUDA kernel).  The other
-three methods raise ``NotImplementedError`` naming their ROADMAP item.
+Ported: ``run_global_mcmc``, ``run_glmcmc`` and ``run_aglmcmc``, each with
+``method='scan'`` (the plain torch path) and ``method='fused'`` (the CUDA
+kernels).  ``run_glmala`` and ``run_glmcmc_nf`` raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import torch
 
 from ._device import resolve_device
 from .ops.stats import chain_summary
+from .samplers.aglmcmc import run_aglmcmc
+from .samplers.aglmcmc_fused import run_aglmcmc_fused
 from .samplers.glmcmc import run_glmcmc
 from .samplers.glmcmc_fused import run_global_mcmc_fused, run_glmcmc_fused
 from .samplers.global_mcmc import run_global_mcmc
@@ -177,9 +180,56 @@ class MCMCRunner:
             raise ValueError(f"method must be 'scan' or 'fused', got {method!r}")
         return self._finish(res, "GLMCMC")
 
-    def run_aglmcmc(self, *args, **kwargs):
-        raise NotImplementedError("AGLMCMC is not ported yet (ROADMAP Queue 1, "
-                                  "M8)")
+    def run_aglmcmc(self, num_iterations, initial_theta, initial_y,
+                    global_frequency, local_proposal, Initial_ISIR_prop,
+                    batch_size, step_size, alpha, hat_eps_T,
+                    output_file: Optional[str] = "aglmcmc_results.csv",
+                    generator=None, method: str = "scan", **kwargs):
+        """AGLMCMC (reference ``MCMCRunner.py:55-76``).  ``method='fused'``
+        runs the pool-iSIR kernel at ``global_frequency == 1`` (any problem;
+        per-chain adaptation epochs) and the mixed kernel below it
+        (Mixture-family problems, shared adaptation, RW scale from
+        ``local_proposal`` unless ``lp_scale`` is given); ``'scan'`` the
+        plain torch path."""
+        on_segment = self._writer(output_file, initial_theta)
+        gen = self._next_generator(generator)
+        if method == "fused":
+            extra = dict(kwargs)
+            if float(global_frequency) < 1.0:
+                # the mixed kernel implies shared adaptation: reject the
+                # scan path's per-chain options rather than ignore them
+                if extra.pop("shared_adaptation", True) is False:
+                    raise ValueError(
+                        "method='fused' at global_frequency < 1 runs the "
+                        "mixed pool-iSIR kernel, which requires shared "
+                        "(cross-chain) adaptation; per-chain adaptation at "
+                        "gf < 1 is only available with method='scan'")
+                if "epoch_chunk" in extra:
+                    raise ValueError(
+                        "epoch_chunk applies to per-chain epochs; the gf<1 "
+                        "fused path adapts shared (tune redraw_chunk and "
+                        "shared_support instead)")
+                extra.setdefault(
+                    "lp_scale",
+                    self._isotropic(local_proposal, "local proposal")[1])
+            res = run_aglmcmc_fused(
+                self.abc_set, gen, num_iterations, initial_theta,
+                Initial_ISIR_prop, batch_size=batch_size,
+                step_size=step_size, alpha=alpha, hat_eps_T=hat_eps_T,
+                y0=initial_y, num_chains=self.num_chains,
+                on_segment=on_segment,
+                global_frequency=float(global_frequency),
+                device=self.device, **extra)
+        elif method == "scan":
+            res = run_aglmcmc(
+                self.abc_set, gen, num_iterations, initial_theta,
+                local_proposal, Initial_ISIR_prop, global_frequency,
+                batch_size, step_size, alpha, hat_eps_T, y0=initial_y,
+                num_chains=self.num_chains, on_segment=on_segment,
+                device=self.device, **kwargs)
+        else:
+            raise ValueError(f"method must be 'scan' or 'fused', got {method!r}")
+        return self._finish(res, "AGLMCMC")
 
     def run_glmala(self, *args, **kwargs):
         raise NotImplementedError("GLMALA is not ported yet (ROADMAP Queue 1, "

@@ -1,3 +1,7 @@
+from .aglmcmc import (AGLCarry, AGLMCMCConfig, AGLResult, Pool,
+                      default_pool_slack, make_epoch_fn, make_shared_epoch_fn,
+                      run_aglmcmc)
+from .aglmcmc_fused import run_aglmcmc_fused, run_aglmcmc_fused_mixed
 from .base import (MoveCounts, SamplerResult, StepOut, independence_mh_move,
                    isir_move, local_rw_move, run_segmented)
 from .chain import ChainCarry, init_chain_carry, sample_with_step
@@ -7,6 +11,16 @@ from .glmcmc import GLMCMCConfig, build_glmcmc_step, run_glmcmc
 from .glmcmc_fused import run_glmcmc_fused, run_global_mcmc_fused
 
 __all__ = [
+    "AGLCarry",
+    "AGLMCMCConfig",
+    "AGLResult",
+    "Pool",
+    "default_pool_slack",
+    "make_epoch_fn",
+    "make_shared_epoch_fn",
+    "run_aglmcmc",
+    "run_aglmcmc_fused",
+    "run_aglmcmc_fused_mixed",
     "MoveCounts",
     "SamplerResult",
     "StepOut",

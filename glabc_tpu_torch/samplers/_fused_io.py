@@ -1,9 +1,8 @@
-"""Checkpoint/resume for the fused-kernel drivers.
+"""Checkpoint/resume for the fused-kernel and adaptive samplers.
 
-Port of ``glabc_tpu/samplers/_fused_io.py`` (fused loop only; the adaptive
-drivers' epoch checkpoints wait for M8/M10).  The loop state is the kernel's
-state tensors plus host counters, saved as the port's own ``.npz`` of named
-arrays.
+Port of ``glabc_tpu/samplers/_fused_io.py``.  The loop state is the kernel's
+state tensors plus host counters (fused loop), or any mapping of names to
+arrays (adaptive epochs), saved as the port's own ``.npz`` of named arrays.
 
 Alignment rule: the kernel always runs ``steps_per_call`` transitions, so
 after a ragged final segment the carry is ahead of the recorded history.
@@ -21,7 +20,8 @@ import torch
 
 from ..utils.io import carry_path, load_carry, save_carry
 
-__all__ = ["save_fused_ckpt", "restore_fused_ckpt"]
+__all__ = ["save_fused_ckpt", "restore_fused_ckpt", "save_epoch_ckpt",
+           "restore_epoch_ckpt"]
 
 _STATE = ("theta", "y", "logk")
 _COUNTERS = ("g_att", "g_acc", "l_acc")
@@ -42,27 +42,59 @@ def save_fused_ckpt(path, state, counters, steps_run, call_idx, seed, done,
     save_carry(path, arrays, step=done)
 
 
+def _check_meta(arrays, expect_meta):
+    """Raise ``ValueError`` when the saved configuration differs from
+    ``expect_meta``: the saved tensors would be read in the wrong shapes."""
+    mismatches = {}
+    for k, v in (expect_meta or {}).items():
+        saved = arrays.get(f"meta.{k}")
+        if saved is None or saved.item() != v:
+            mismatches[k] = (None if saved is None else saved.item(), v)
+    if mismatches:
+        raise ValueError(
+            "checkpoint configuration mismatch (saved vs current): "
+            f"{mismatches}; delete the checkpoint or restore the original "
+            "configuration")
+
+
 def restore_fused_ckpt(path, expect_meta=None, device=None):
     """``(state, (g_att, g_acc, l_acc), steps_run, call_idx, seed, done)``,
     or ``None`` when there is no checkpoint.  State tensors go to
     ``device``; counters come back as float64 numpy.  Raises ``ValueError``
-    when the saved configuration differs from ``expect_meta``: the saved
-    tiles would be read in the wrong layout."""
+    when the saved configuration differs from ``expect_meta``."""
     if not os.path.exists(carry_path(path)):
         return None
     arrays, done = load_carry(path)
-    if expect_meta is not None:
-        mismatches = {}
-        for k, v in expect_meta.items():
-            saved = arrays.get(f"meta.{k}")
-            if saved is None or saved.item() != v:
-                mismatches[k] = (None if saved is None else saved.item(), v)
-        if mismatches:
-            raise ValueError(
-                "checkpoint configuration mismatch (saved vs current): "
-                f"{mismatches}; delete the checkpoint or restore the original "
-                "configuration")
+    _check_meta(arrays, expect_meta)
     state = tuple(torch.as_tensor(arrays[k], device=device) for k in _STATE)
     counters = tuple(np.asarray(arrays[k], np.float64) for k in _COUNTERS)
     return (state, counters, int(arrays["steps_run"]),
             int(arrays["call_idx"]), int(arrays["seed"]), int(done))
+
+
+# The adaptive samplers (AGLMCMC) interleave segments with adaptation epochs.
+# Their checkpoints hold the loop state before the epoch that follows an
+# aligned segment; a resumed run does that epoch first (the generator
+# state is saved with it, so the epoch replays bitwise) and goes on with no
+# history overlap.
+
+def save_epoch_ckpt(path, state, done, take, seg_len, meta=None):
+    """Snapshot an adaptive sampler's loop state (a mapping of names to
+    tensors, arrays or numbers) after an aligned segment (``take ==
+    seg_len``; a ragged final segment is not saved)."""
+    if take != seg_len:
+        return
+    arrays = dict(state)
+    for k, v in (meta or {}).items():
+        arrays[f"meta.{k}"] = v
+    save_carry(path, arrays, step=done)
+
+
+def restore_epoch_ckpt(path, expect_meta=None):
+    """``(arrays, done)`` as saved by :func:`save_epoch_ckpt` (numpy), or
+    ``None`` when there is no checkpoint; validates ``expect_meta``."""
+    if not os.path.exists(carry_path(path)):
+        return None
+    arrays, done = load_carry(path)
+    _check_meta(arrays, expect_meta)
+    return arrays, int(done)

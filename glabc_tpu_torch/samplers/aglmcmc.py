@@ -1,0 +1,492 @@
+"""AGLMCMC: adaptive global proposal (weighted KDE) with epsilon annealing,
+plain torch path and the adaptation epochs the fused samplers share.
+
+Port of ``glabc_tpu/samplers/aglmcmc.py`` (reference ``glabcmcmc/
+AGLMCMC.py:44-289``):
+
+* global moves are iSIR over a precomputed per-chain proposal pool, one
+  ``batch_size`` slice per move (``AGLMCMC.py:130-164``);
+* after every ``round(step_size / gf)`` steps an adaptation epoch
+  (``:170-249``): anneal ``hat_eps`` by the quantile rule ``q = clamp(alpha
+  #{dis < hat_eps} / n, 0, 1)``, ``hat_eps = max(quantile(dis, q),
+  hat_eps_T)``; weight the pool at ``hat_eps`` for training; fit a weighted
+  Silverman KDE; draw a 4x-oversampled pool from it, keep prior-supported
+  draws (``prior > log 1e-10``), re-simulate and re-weight at the target
+  epsilon;
+* ``shared_adaptation=True``: one quantile over all chains' pools and one
+  KDE, on ``shared_support`` points resampled systematically from all
+  pools, from which every chain draws its own pool.
+
+Every function steps all chains at once as batched tensors (``(C, P, d)``
+pools) where the JAX package vmaps.  Randomness comes from one
+``torch.Generator``.  The quantile is ``sort`` + linear interpolation at
+``q (n - 1)`` (``jnp.quantile``'s default): ``torch.quantile`` rejects more
+than 2^24 values and a per-chain ``q``.  The redrawn pool's per-chain
+density is the K4 kernel (:func:`batched_kde_log_prob`; its plain version
+for CPU tensors).  The JAX epoch's ``logprob_backend`` choice is not carried
+over.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .._device import check_generator, resolve_device
+from ..models.kde import KernelDensity
+from ..ops.kernels.kde_logprob_kernel import batched_kde_log_prob
+from ..ops.resampling import (categorical_from_log_weights,
+                              stable_partition_take, systematic_resample)
+from ..utils.io import carry_path
+from ._fused_io import restore_epoch_ckpt, save_epoch_ckpt
+from .base import MoveCounts, SamplerResult, _select, local_rw_move
+from .chain import init_chain_carry
+
+__all__ = ["AGLMCMCConfig", "default_pool_slack", "Pool", "AGLCarry",
+           "AGLResult", "quantile", "make_epoch_fn", "make_shared_epoch_fn",
+           "run_aglmcmc"]
+
+_NAN_DIS = 1.0e6 - 5.0                 # reference sentinel for NaN (:101)
+_PRIOR_CUTOFF = float(np.log(1e-10))   # reference KDE prior filter (:224)
+
+
+@dataclasses.dataclass(frozen=True)
+class AGLMCMCConfig:
+    global_frequency: float = 1.0
+    batch_size: int = 5
+    step_size: int = 200
+    alpha: float = 0.8
+    hat_eps_T: float = 0.2
+    oversample: int = 4           # reference 4x (AGLMCMC.py:220)
+    support_retries: int = 0
+    pool_slack: int = 0           # extra pool slices beyond step_size
+
+    @property
+    def pool_slices(self) -> int:
+        return self.step_size + self.pool_slack
+
+
+def default_pool_slack(step_size: int, global_frequency: float) -> int:
+    """Slack slices so that a fixed ``round(step_size/gf)``-step segment
+    overshoots the pool with probability ~1e-9 per chain-epoch (5 sigma of
+    the ``Binomial(seg_len, gf)`` consumed-slice count, plus 8).  0 at
+    gf=1, where consumption is deterministic."""
+    gf = float(global_frequency)
+    if gf >= 1.0 or gf <= 0.0:
+        return 0
+    seg_len = max(1, int(round(step_size / gf)))
+    sigma = float(np.sqrt(seg_len * gf * (1.0 - gf)))
+    return int(np.ceil(5.0 * sigma)) + 8
+
+
+class Pool(NamedTuple):
+    """Per-chain proposal pools: ``theta (C, P, d)``, ``x (C, P, d_y)``,
+    ``dis (C, P)`` (NaN masked to the sentinel), ``log_q (C, P)`` (proposal
+    density at draw time), ``log_w (C, P)`` (MCMC log-weight at the target
+    epsilon)."""
+
+    theta: torch.Tensor
+    x: torch.Tensor
+    dis: torch.Tensor
+    log_q: torch.Tensor
+    log_w: torch.Tensor
+
+    def rows(self, lo: int, hi: int) -> "Pool":
+        """Pool slots ``[lo, hi)`` of every chain."""
+        return Pool(*(a[:, lo:hi] for a in self))
+
+    def chains(self, lo: int, hi: int) -> "Pool":
+        return Pool(*(a[lo:hi] for a in self))
+
+    @staticmethod
+    def cat(pools) -> "Pool":
+        return Pool(*(torch.cat(xs, dim=0) for xs in zip(*pools)))
+
+
+class AGLCarry(NamedTuple):
+    theta: torch.Tensor        # (C, d)
+    y: torch.Tensor            # (C, d_y)
+    log_kernel: torch.Tensor   # (C,)
+    kk: torch.Tensor           # (C,) pool cursor: slices consumed this epoch
+    generator: torch.Generator
+    counts: MoveCounts
+
+
+@dataclasses.dataclass
+class AGLResult(SamplerResult):
+    kde: Optional[KernelDensity] = None      # batched over chains, or shared
+    hat_eps: Optional[np.ndarray] = None     # (C,) or () final thresholds
+    hat_eps_hist: Optional[np.ndarray] = None  # (epochs, C) or (epochs,)
+    # fused samplers: the kernel state (theta (d, C), y, log K[, log w])
+    fused_state: Optional[tuple] = None
+
+
+# ------------------------------------------------------------------ epochs
+def quantile(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``jnp.quantile(x, q)`` over the last axis, 'linear' method, with
+    ``q`` broadcast to ``x.shape[:-1]``: sort, then interpolate between
+    the order statistics at ``floor`` and ``ceil`` of ``q (n - 1)``,
+    computed in float32 as JAX does."""
+    n = x.shape[-1]
+    xs = torch.sort(x, dim=-1).values
+    q = torch.as_tensor(q, dtype=torch.float32, device=x.device)
+    pos = q * torch.tensor(float(n - 1), dtype=torch.float32)
+    low = torch.floor(pos)
+    hw = pos - low
+    lw = 1.0 - hw
+    lo_i = torch.clamp(low, 0, n - 1).to(torch.int64)
+    hi_i = torch.clamp(torch.ceil(pos), 0, n - 1).to(torch.int64)
+    shape = x.shape[:-1]
+    lo_v = torch.gather(xs, -1, lo_i.expand(shape)[..., None])[..., 0]
+    hi_v = torch.gather(xs, -1, hi_i.expand(shape)[..., None])[..., 0]
+    return lo_v * lw + hi_v * hw
+
+
+def _anneal(dis: torch.Tensor, hat_eps: torch.Tensor,
+            cfg: AGLMCMCConfig) -> torch.Tensor:
+    """One annealing step of ``hat_eps`` (``AGLMCMC.py:174-196``) over the
+    last axis of ``dis``; thresholds at ``hat_eps_T`` stay."""
+    num_a = torch.sum(dis < hat_eps[..., None], dim=-1)
+    q = torch.clamp(cfg.alpha * num_a / dis.shape[-1], 0.0, 1.0)
+    new = torch.clamp_min(quantile(dis, q), cfg.hat_eps_T)
+    return torch.where(hat_eps > cfg.hat_eps_T, new, hat_eps)
+
+
+def _pool_from_proposals(problem, generator, theta_prop, log_q) -> Pool:
+    """Simulate and weight proposals ``(..., d)`` (``AGLMCMC.py:84-112``)."""
+    nan_row = torch.isnan(theta_prop).any(dim=-1)
+    theta_safe = torch.where(nan_row[..., None],
+                             torch.zeros_like(theta_prop), theta_prop)
+    x = problem.simulate(theta_safe, generator)
+    dis = problem.discrepancy(x)
+    dis = torch.where(torch.isnan(dis) | nan_row,
+                      torch.full_like(dis, _NAN_DIS), dis)
+    log_k = problem.kernel_log_prob(dis)      # target epsilon (:104)
+    log_w = problem.prior_log_prob(theta_prop) + log_k - log_q
+    log_w = torch.where(nan_row | torch.isnan(log_w),
+                        torch.full_like(log_w, -math.inf), log_w)
+    return Pool(theta_safe, x, dis, log_q, log_w)
+
+
+def _init_pools(problem, generator, proposal, num_chains: int,
+                pool_rows: int) -> Pool:
+    """``pool_rows`` draws per chain from the initial iSIR proposal."""
+    th, log_q = proposal(num_chains * pool_rows, generator)
+    return _pool_from_proposals(
+        problem, generator, th.reshape(num_chains, pool_rows, -1),
+        log_q.reshape(num_chains, pool_rows))
+
+
+def _training_log_w(problem, pools: Pool, hat_eps) -> torch.Tensor:
+    """The pool's log-weights at the annealed ``hat_eps``
+    (``AGLMCMC.py:199-204``)."""
+    return (problem.prior_log_prob(pools.theta)
+            + problem.kernel_log_prob(pools.dis, hat_eps) - pools.log_q)
+
+
+def _redraw(problem, cfg: AGLMCMCConfig, generator, kde: KernelDensity,
+            num_rows: int, batch: tuple = ()) -> torch.Tensor:
+    """Oversampled KDE draws, prior-supported rows first
+    (``AGLMCMC.py:220-229``): ``(C, num_rows, d)``.  Rows out of support
+    stay after the valid ones when fewer than ``num_rows`` are valid, as in
+    the JAX package."""
+    cand = kde.sample(generator, cfg.oversample * num_rows, batch=batch)
+    ok = problem.prior_log_prob(cand) > _PRIOR_CUTOFF
+    return stable_partition_take(cand, ok, num_rows)
+
+
+def _epoch_update(problem, cfg: AGLMCMCConfig, generator, pools: Pool,
+                  hat_eps: torch.Tensor):
+    """Per-chain adaptation epoch for chains ``(C, ...)`` -> ``(new pools,
+    batched KDE, hat_eps (C,))``."""
+    P = pools.theta.shape[1]
+    hat_eps = _anneal(pools.dis, hat_eps, cfg)
+    w = torch.exp(_training_log_w(problem, pools, hat_eps[:, None]))
+    w = torch.where(torch.isnan(w), torch.zeros_like(w), w)
+    kde = KernelDensity.fit(pools.theta, w, bandwidth="silverman")
+    new_theta = _redraw(problem, cfg, generator, kde, P)
+    new_log_q = batched_kde_log_prob(kde, new_theta)          # K4
+    return (_pool_from_proposals(problem, generator, new_theta, new_log_q),
+            kde, hat_eps)
+
+
+def make_epoch_fn(problem, cfg: AGLMCMCConfig, num_chains: int,
+                  epoch_chunk: int = 0):
+    """The per-chain adaptation epoch ``(generator, pools, hat_eps) ->
+    (pools, kdes, hat_eps)``.  ``epoch_chunk > 0`` runs the chains in
+    sequential chunks of that many (a memory bound for large runs; the
+    draws then come from the generator chunk by chunk)."""
+    C = num_chains
+    chunk = epoch_chunk if (epoch_chunk and epoch_chunk < C) else C
+
+    def epoch(generator, pools: Pool, hat_eps: torch.Tensor):
+        if chunk == C:
+            return _epoch_update(problem, cfg, generator, pools, hat_eps)
+        outs = [_epoch_update(problem, cfg, generator,
+                              pools.chains(c0, c0 + chunk),
+                              hat_eps[c0:c0 + chunk])
+                for c0 in range(0, C, chunk)]
+        kdes = KernelDensity(*(torch.cat([getattr(o[1], f) for o in outs])
+                               for f in ("X", "weights", "bandwidth")))
+        return (Pool.cat([o[0] for o in outs]), kdes,
+                torch.cat([o[2] for o in outs]))
+
+    return epoch
+
+
+def _shared_support(problem, pools: Pool, hat_eps, num: int,
+                    generator) -> torch.Tensor:
+    """``num`` pool rows ``(num, d)`` resampled systematically from all
+    ``C * P`` rows by their training weights at ``hat_eps``.  The CDF runs
+    in float64: a float32 running sum near 1 drops every increment below
+    half an ulp (3e-8), and at 16,384 chains x 2,000 rows the mean weight
+    is 3e-8, so a float32 scan would seldom pick the lighter rows."""
+    P = pools.dis.shape[1]
+    w = torch.exp(_training_log_w(problem, pools, hat_eps).to(torch.float64))
+    w = torch.where(torch.isnan(w), torch.zeros_like(w), w)
+    w = w / torch.sum(w)
+    idx = systematic_resample(w.reshape(-1), num, generator)
+    return pools.theta[idx // P, idx % P]
+
+
+def _shared_epoch_update(problem, cfg: AGLMCMCConfig, shared_support: int,
+                         generator, pools: Pool, hat_eps: torch.Tensor,
+                         redraw_chunk: int = 0):
+    """Shared adaptation epoch: one quantile over all ``C * P`` pool
+    discrepancies, one KDE on ``shared_support`` points systematically
+    resampled from the training weights of all pools, and per-chain pools
+    drawn from it in chunks of ``redraw_chunk`` chains (the density of a
+    chunk's draws is a ``(chunk P, shared_support)`` matrix).  Returns
+    ``(pools, kde (unbatched), hat_eps ())``."""
+    C, P = pools.dis.shape
+    hat_eps = _anneal(pools.dis.reshape(-1), hat_eps, cfg)
+    support = _shared_support(problem, pools, hat_eps, shared_support,
+                              generator)
+    kde = KernelDensity.fit(support, None, bandwidth="silverman")
+    chunk = redraw_chunk if (redraw_chunk and redraw_chunk < C) else C
+    if C % chunk:
+        raise ValueError(f"num_chains={C} must be divisible by "
+                         f"redraw_chunk={redraw_chunk}")
+    parts = []
+    for _ in range(0, C, chunk):
+        new_theta = _redraw(problem, cfg, generator, kde, P, batch=(chunk,))
+        parts.append(_pool_from_proposals(problem, generator, new_theta,
+                                          kde.log_prob(new_theta)))
+    return Pool.cat(parts), kde, hat_eps
+
+
+def make_shared_epoch_fn(problem, cfg: AGLMCMCConfig, shared_support: int,
+                         redraw_chunk: int = 0):
+    """The shared adaptation epoch ``(generator, pools, hat_eps) ->
+    (pools, kde, hat_eps)``."""
+
+    def epoch(generator, pools: Pool, hat_eps: torch.Tensor):
+        return _shared_epoch_update(problem, cfg, shared_support, generator,
+                                    pools, hat_eps, redraw_chunk)
+
+    return epoch
+
+
+# -------------------------------------------------------------- scan path
+def _build_step(problem, local_proposal, initial_proposal,
+                cfg: AGLMCMCConfig):
+    """Batched transition ``step(pool, kde, carry) -> carry`` plus the new
+    thetas.  ``kde=None`` before the first epoch: the current state's
+    density is the initial proposal's (``AGLMCMC.py:137-140``)."""
+    gf, B = cfg.global_frequency, cfg.batch_size
+
+    def step(pool: Pool, kde, carry: AGLCarry):
+        gen = carry.generator
+        theta, y, lk = carry.theta, carry.y, carry.log_kernel
+        C = theta.shape[0]
+        dev = theta.device
+        is_global = torch.rand(C, generator=gen, device=dev) < gf
+        # fresh slice per global move; the clamp fires only on the rare
+        # binomial overshoot of a fixed-length segment (pool_slack)
+        start = torch.clamp(carry.kk, max=cfg.pool_slices - 1) * B
+        idx = start[:, None].to(torch.int64) + torch.arange(B, device=dev)
+        take = lambda a: torch.gather(
+            a, 1, idx.reshape(C, B, *([1] * (a.dim() - 2))).expand(
+                C, B, *a.shape[2:]))
+        th_s, x_s, dis_s, lw_s = (take(pool.theta), take(pool.x),
+                                  take(pool.dis), take(pool.log_w))
+        if kde is None:
+            log_q_old = initial_proposal.log_prob(theta)
+        elif kde.batch_shape:
+            log_q_old = kde.log_prob(theta[:, None, :])[:, 0]
+        else:
+            log_q_old = kde.log_prob(theta)
+        log_w_old = problem.prior_log_prob(theta) + lk - log_q_old
+        ind = categorical_from_log_weights(
+            torch.cat([log_w_old[:, None], lw_s], dim=1), gen)
+        rows = torch.arange(C, device=dev)
+        g = (torch.cat([theta[:, None], th_s], dim=1)[rows, ind],
+             torch.cat([y[:, None], x_s], dim=1)[rows, ind],
+             torch.cat([lk[:, None], problem.kernel_log_prob(dis_s)],
+                       dim=1)[rows, ind],
+             ind != 0)
+        if gf >= 1.0:
+            new, accepted = g[:3], g[3]
+        else:
+            loc = local_rw_move(problem, local_proposal, gen, theta, y, lk,
+                                cfg.support_retries)
+            sel = [_select(is_global, a, b) for a, b in zip(g, loc)]
+            new, accepted = sel[:3], sel[3]
+        kk = carry.kk + is_global.to(carry.kk.dtype)
+        return AGLCarry(*new, kk, gen,
+                        carry.counts.update(is_global, accepted))
+
+    return step
+
+
+def _kde_arrays(kde):
+    return ({} if kde is None else
+            {"kde.X": kde.X, "kde.weights": kde.weights,
+             "kde.bandwidth": kde.bandwidth})
+
+
+def _kde_from(arrays, device):
+    if "kde.X" not in arrays:
+        return None
+    return KernelDensity(*(torch.as_tensor(arrays[f"kde.{f}"], device=device)
+                           for f in ("X", "weights", "bandwidth")))
+
+
+def _pool_arrays(pools: Pool) -> dict:
+    return {f"pools.{k}": v for k, v in pools._asdict().items()}
+
+
+def _pool_from(arrays, device) -> Pool:
+    return Pool(*(torch.as_tensor(arrays[f"pools.{k}"], device=device)
+                  for k in Pool._fields))
+
+
+def run_aglmcmc(problem, generator, num_ite, theta0, local_proposal,
+                initial_isir_proposal, global_frequency=1.0, batch_size=5,
+                step_size=200, alpha=0.8, hat_eps_T=0.2, y0=None,
+                num_chains: int = 1, on_segment=None, oversample: int = 4,
+                support_retries: int = 0, epoch_chunk: int = 0,
+                shared_adaptation: bool = False, shared_support: int = 4096,
+                redraw_chunk: int = 0, mesh=None,
+                pool_slack: Optional[int] = None,
+                checkpoint_path: Optional[str] = None, resume: bool = False,
+                device=None) -> AGLResult:
+    """AGLMCMC, plain torch path.  Chains have length ``num_ite`` with the
+    initial state at index 0.
+
+    ``shared_adaptation=True`` switches to cross-chain adaptation (one
+    quantile, one KDE on ``shared_support`` resampled points, redrawn in
+    chunks of ``redraw_chunk`` chains); ``epoch_chunk`` bounds the memory of
+    per-chain epochs.  ``pool_slack``: extra slices so gf<1 segments never
+    reuse one (default ~5 sigma of the binomial overshoot, 0 at gf=1).
+
+    ``checkpoint_path``/``resume``: the adaptation state (pools, KDE,
+    ``hat_eps`` history, carry, generator state) is saved at every aligned
+    segment boundary, before the epoch that follows it; ``resume=True``
+    replays that epoch and continues bitwise, returning only the history
+    after the resume point."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
+            "Queue 1, M12)")
+    dev = resolve_device(device)
+    check_generator(generator, dev)
+    if pool_slack is None:
+        pool_slack = default_pool_slack(step_size, global_frequency)
+    cfg = AGLMCMCConfig(global_frequency, batch_size, step_size, alpha,
+                        hat_eps_T, oversample, support_retries, pool_slack)
+    P = batch_size * cfg.pool_slices
+    C = num_chains
+    local_proposal = local_proposal.to(dev)
+    initial_isir_proposal = initial_isir_proposal.to(dev)
+    if shared_adaptation:
+        epoch_fn = make_shared_epoch_fn(
+            problem, cfg, shared_support,
+            redraw_chunk if redraw_chunk and redraw_chunk < C else 0)
+    else:
+        epoch_fn = make_epoch_fn(problem, cfg, C, epoch_chunk)
+    step = _build_step(problem, local_proposal, initial_isir_proposal, cfg)
+    seg_len = (max(1, int(round(step_size / global_frequency)))
+               if global_frequency > 0 else (num_ite - 1))
+    ckpt_meta = {"sampler": "aglmcmc", "num_chains": C,
+                 "theta_dim": problem.theta_dim, "seg_len": seg_len,
+                 "pool_rows": P, "shared": int(shared_adaptation)}
+    restored = (restore_epoch_ckpt(checkpoint_path, ckpt_meta)
+                if resume and checkpoint_path is not None
+                and os.path.exists(carry_path(checkpoint_path)) else None)
+    if restored is None:
+        cc = init_chain_carry(problem, generator, theta0, y0, C, dev)
+        carry = AGLCarry(cc.theta, cc.y, cc.log_kernel,
+                         torch.zeros(C, dtype=torch.int32, device=dev),
+                         generator, cc.counts)
+        theta_init = carry.theta.cpu().numpy()[:, None, :]
+        pools = _init_pools(problem, generator, initial_isir_proposal, C, P)
+        kdes = None
+        hat_eps = (torch.tensor(1.0e6) if shared_adaptation
+                   else torch.full((C,), 1.0e6)).to(dev)
+        hat_eps_hist = []
+        done = n_epochs = 0
+        pending_epoch = False
+    else:
+        arrays, done = restored
+        t = lambda k: torch.as_tensor(arrays[k], device=dev)
+        generator.set_state(torch.as_tensor(arrays["rng_state"]))
+        carry = AGLCarry(t("theta"), t("y"), t("log_kernel"), t("kk"),
+                         generator,
+                         MoveCounts(*(t(f"counts.{k}")
+                                      for k in MoveCounts._fields)))
+        pools, kdes = _pool_from(arrays, dev), _kde_from(arrays, dev)
+        hat_eps = t("hat_eps")
+        hat_eps_hist = list(arrays["hat_eps_hist"])
+        n_epochs = int(arrays["n_epochs"])
+        theta_init = None
+        pending_epoch = True
+
+    blocks = []
+    total = num_ite - 1
+    while done < total:
+        if pending_epoch:
+            pools, kdes, hat_eps = epoch_fn(generator, pools, hat_eps)
+            hat_eps_hist.append(hat_eps.cpu().numpy())
+            n_epochs += 1
+            # fresh pool: the cursor goes back to slice 0 (AGLMCMC.py:249)
+            carry = carry._replace(kk=torch.zeros_like(carry.kk))
+            pending_epoch = False
+        take = min(seg_len, total - done)
+        seg = []
+        for _ in range(take):
+            carry = step(pools, kdes, carry)
+            seg.append(carry.theta)
+        blocks.append(torch.stack(seg, dim=1).cpu().numpy())
+        if on_segment is not None:
+            on_segment(blocks[-1], done)
+        done += take
+        if take == seg_len:
+            if done < total:
+                pending_epoch = True
+            if checkpoint_path is not None:
+                state = {"theta": carry.theta, "y": carry.y,
+                         "log_kernel": carry.log_kernel, "kk": carry.kk,
+                         "rng_state": generator.get_state(),
+                         "hat_eps": hat_eps, "n_epochs": n_epochs,
+                         "hat_eps_hist": np.asarray(hat_eps_hist,
+                                                    np.float32)}
+                state.update({f"counts.{k}": v
+                              for k, v in carry.counts._asdict().items()})
+                state.update(_pool_arrays(pools))
+                state.update(_kde_arrays(kdes))
+                save_epoch_ckpt(checkpoint_path, state, done, take, seg_len,
+                                meta=ckpt_meta)
+
+    head = [theta_init] if theta_init is not None else []
+    thetas = (np.concatenate(head + blocks, axis=1) if head or blocks
+              else np.zeros((C, 0, problem.theta_dim), np.float32))
+    return AGLResult(
+        thetas=thetas, counts=carry.counts.numpy(), final_carry=carry,
+        kde=kdes, hat_eps=hat_eps.cpu().numpy(),
+        hat_eps_hist=np.asarray(hat_eps_hist) if hat_eps_hist else None)

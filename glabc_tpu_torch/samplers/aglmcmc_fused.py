@@ -1,0 +1,506 @@
+"""The fused AGLMCMC samplers: the loops around the pool kernels.
+
+Port of ``glabc_tpu/samplers/aglmcmc_fused.py``.
+
+* ``global_frequency == 1`` (:func:`run_aglmcmc_fused`): every transition is
+  iSIR over a precomputed pool slice, the :class:`PoolISIR` kernel (K3).
+  Between segments the per-chain adaptation epoch of the scan path runs
+  (its redrawn-pool density is the K4 kernel), and the current state's
+  log-weight is recomputed under each chain's new KDE by K4's formula, so
+  that it and the pool's log-weights agree.  The kernel records the last
+  selected pool slot; its dataset and kernel value are gathered from the
+  pool after each launch.
+* ``global_frequency < 1`` (:func:`run_aglmcmc_fused_mixed`): the
+  :class:`PoolISIRMixed` kernel (K5) with a per-chain coin, the
+  Mixture-family local move, and the current state's density under the
+  resident shared KDE; adaptation is shared across chains.
+
+Both run on one seed drawn from the generator, with each launch keyed by
+the absolute index of its first transition, so a chain's stream does not
+depend on ``pack_chunk``, ``block_chains`` or how the run is segmented (the
+JAX package reseeds per launch).  History goes to the host by non-blocking
+copies into pinned memory, collected at the end; ``thin`` and
+``history_dtype='bfloat16'`` shrink the copy on the card first.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from .._device import check_generator, resolve_device
+from ..ops.kernels.kde_logprob_kernel import (BatchedMixtureLogProb,
+                                              kde_logprob_inputs)
+from ..ops.kernels.mixture_kernel import _initial_chains
+from ..ops.kernels.pool_isir_kernel import (PoolISIR, pack_pool_logw,
+                                            pack_pool_theta)
+from ..ops.kernels.pool_isir_mixed_kernel import (PoolISIRMixed,
+                                                  resident_from_gaussian,
+                                                  resident_from_kde)
+from ..utils.io import carry_path
+from . import aglmcmc as _agl
+from ._fused_io import restore_epoch_ckpt, save_epoch_ckpt
+from .aglmcmc import AGLCarry, AGLMCMCConfig, AGLResult, Pool
+from .base import MoveCounts
+from .chain import init_chain_carry
+
+__all__ = ["run_aglmcmc_fused", "run_aglmcmc_fused_mixed"]
+
+
+class _AsyncBlocks:
+    """Deferred device-to-host history copy.  ``add`` cuts a launch's
+    ``(T, d, C)`` history to the rows kept (``thin``: iterations ``i`` with
+    ``i % thin == 0``, counted across launches), lays it out as
+    ``(C, rows, d)`` and converts it (``dtype``) on the card, then starts a
+    non-blocking copy into pinned host memory, so the card runs the next
+    launch while this one's history streams out.  :meth:`blocks` waits for
+    the copies and returns float32 numpy blocks."""
+
+    def __init__(self, thin: int = 1, dtype=None):
+        self._thin = max(1, int(thin))
+        self._dtype = dtype
+        self._host = []
+        self._event = None
+
+    def add(self, hist: torch.Tensor, take: int, done: int = 0) -> None:
+        """Row ``r`` of ``hist`` is global iteration ``done + 1 + r``."""
+        t = self._thin
+        r0 = (-(done + 1)) % t
+        if r0 >= take:
+            return
+        dev = hist[r0:take:t].permute(2, 0, 1)
+        if self._dtype is not None:
+            dev = dev.to(self._dtype)
+        dev = dev.contiguous()
+        if dev.is_cuda:
+            host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+            host.copy_(dev, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            host = dev
+        self._host.append(host)
+
+    def blocks(self) -> list:
+        if self._event is not None:
+            self._event.synchronize()
+        return [h.to(torch.float32).numpy() for h in self._host]
+
+
+def _history_opts(thin: int, history_dtype, on_segment):
+    """``(thin, torch dtype or None)``; thinning and bfloat16 compress the
+    asynchronous copy and so exclude ``on_segment``, which takes
+    synchronous full-resolution float32 blocks.  bfloat16 histories come
+    back as float32 arrays holding bfloat16 values."""
+    thin = max(1, int(thin))
+    dt = None
+    if history_dtype is not None and history_dtype not in ("float32",
+                                                           torch.float32):
+        if history_dtype not in ("bfloat16", torch.bfloat16):
+            raise ValueError(f"history_dtype must be float32 or bfloat16, "
+                             f"got {history_dtype!r}")
+        dt = torch.bfloat16
+    if on_segment is not None and (thin > 1 or dt is not None):
+        raise ValueError(
+            "thin/history_dtype compress the asynchronous history copy and "
+            "are incompatible with on_segment (which gets synchronous "
+            "full-resolution float32 blocks)")
+    return thin, dt
+
+
+def _history(hist, take, done, on_segment, async_blocks, blocks):
+    if on_segment is not None:
+        block = hist[:take].permute(2, 0, 1).cpu().numpy()
+        on_segment(block, done)
+        blocks.append(block)
+    else:
+        async_blocks.add(hist, take, done)
+
+
+def _finish_history(theta_init_row, blocks, async_blocks, on_segment,
+                    collect_history, C, d, hist_dt):
+    if collect_history and on_segment is None:
+        blocks = async_blocks.blocks()
+    head = [] if theta_init_row is None else [theta_init_row]
+    if hist_dt is not None and head:
+        head = [torch.from_numpy(head[0]).to(hist_dt).float().numpy()]
+    if collect_history and (head or blocks):
+        return np.concatenate(head + blocks, axis=1)
+    if head:
+        return head[0]
+    return np.zeros((C, 0, d), np.float32)
+
+
+def _logw_under_kde(problem, kdes, theta_k, logk):
+    """The current states' log-weights ``prior + log K - log q`` under each
+    chain's KDE, ``log q`` by K4's formula (the plain version with one
+    point per chain), as the pool's log-weights were computed."""
+    th = theta_k.T.contiguous()                                  # (C, d)
+    ms, pre, inv_h2 = kde_logprob_inputs(kdes)
+    logq = BatchedMixtureLogProb().plain(th[:, None, :], ms, pre, inv_h2)
+    return (problem.prior_log_prob(th) + logk - logq[:, 0]).contiguous()
+
+
+def _resolve(problem, sp: Pool, sel, y_prev, logk_prev):
+    """The dataset and kernel value of the last selected candidate
+    (``sel``: flat slot in the launch's sub-pool, -1 when the chain did not
+    move)."""
+    rows = torch.arange(sel.shape[0], device=sel.device)
+    idx = torch.clamp_min(sel, 0.0).to(torch.int64)
+    moved = sel >= 0.0
+    y_sel = sp.x[rows, idx]
+    logk_sel = problem.kernel_log_prob(sp.dis[rows, idx])
+    return (torch.where(moved[:, None], y_sel, y_prev),
+            torch.where(moved, logk_sel, logk_prev))
+
+
+def _seed(seed, generator):
+    if seed is not None:
+        return int(seed)
+    return int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                             device=generator.device))
+
+
+def run_aglmcmc_fused(problem, generator, num_ite, theta0,
+                      initial_isir_proposal, *, batch_size: int = 5,
+                      step_size: int = 200, alpha: float = 0.8,
+                      hat_eps_T: float = 0.2, oversample: int = 4,
+                      num_chains: int = 4096, block_chains: int = 256,
+                      collect_history: bool = True, y0=None,
+                      seed: int | None = None, epoch_chunk: int = 0,
+                      on_segment=None, mesh=None,
+                      global_frequency: float = 1.0, lp_scale: float = 0.35,
+                      shared_support: int = 4096, redraw_chunk: int = 512,
+                      checkpoint_path: str | None = None,
+                      resume: bool = False, pack_chunk: int = 0,
+                      thin: int = 1, history_dtype=None,
+                      tile_program=None, device=None) -> AGLResult:
+    """AGLMCMC through the fused pool-iSIR kernel (K3).  ``global_frequency
+    < 1`` goes to :func:`run_aglmcmc_fused_mixed`.
+
+    Segments are ``step_size`` transitions, one pool; between them the
+    per-chain adaptation epoch runs (``epoch_chunk`` bounds its memory).
+    The result follows the scan path: chains of length ``num_ite`` with
+    the initial state at index 0, the per-chain ``hat_eps`` history, the
+    final chain-batched KDE.  The kernel always runs whole launches: when
+    ``num_ite - 1`` is not a multiple of the launch length, the history is
+    still ``num_ite`` long, the final carry is ahead of it, and the last
+    launch's counts are pro rata.
+
+    ``pack_chunk``: launch ``step_size / pack_chunk`` sub-segments of that
+    many steps, so only that part of the pool is ever held in the kernel's
+    layout; the chains do not change.  ``thin``/``history_dtype``: keep
+    iterations ``i % thin == 0`` (and the initial state) and/or copy the
+    history as bfloat16; both exclude ``on_segment``.
+
+    ``checkpoint_path``/``resume``: the loop state is saved at every epoch
+    boundary; a resume continues bitwise and returns the history after the
+    resume point."""
+    if global_frequency < 1.0:
+        return run_aglmcmc_fused_mixed(
+            problem, generator, num_ite, theta0, initial_isir_proposal,
+            global_frequency=global_frequency, batch_size=batch_size,
+            step_size=step_size, alpha=alpha, hat_eps_T=hat_eps_T,
+            oversample=oversample, num_chains=num_chains,
+            block_chains=block_chains, collect_history=collect_history,
+            y0=y0, seed=seed, on_segment=on_segment, mesh=mesh,
+            lp_scale=lp_scale, shared_support=shared_support,
+            redraw_chunk=redraw_chunk, checkpoint_path=checkpoint_path,
+            resume=resume, thin=thin, history_dtype=history_dtype,
+            tile_program=tile_program, device=device)
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
+            "Queue 1, M12)")
+    if tile_program is not None:
+        raise NotImplementedError(
+            "tile_program= is not ported yet (ROADMAP Queue 1, M11)")
+    dev = resolve_device(device)
+    check_generator(generator, dev)
+    d = problem.theta_dim
+    T, B, C = int(step_size), int(batch_size), int(num_chains)
+    P = T * B
+    cfg = AGLMCMCConfig(1.0, B, T, alpha, hat_eps_T, oversample, 0, 0)
+    sub_T = int(pack_chunk) if pack_chunk else T
+    if T % sub_T:
+        raise ValueError(f"pack_chunk={pack_chunk} must divide "
+                         f"step_size={T}")
+    n_sub = T // sub_T
+    kern = PoolISIR(d, batch_size=B, steps_per_call=sub_T,
+                    block_chains=block_chains,
+                    collect_history=collect_history)
+    epoch_fn = _agl.make_epoch_fn(problem, cfg, C, epoch_chunk)
+    thin, hist_dt = _history_opts(thin, history_dtype, on_segment)
+    ip = initial_isir_proposal.to(dev)
+
+    ckpt_meta = {"sampler": "aglmcmc_fused", "num_chains": C,
+                 "theta_dim": d, "steps_per_call": T, "batch_size": B}
+    restored = (restore_epoch_ckpt(checkpoint_path, ckpt_meta)
+                if resume and checkpoint_path is not None
+                and os.path.exists(carry_path(checkpoint_path)) else None)
+    if restored is None:
+        cc = init_chain_carry(problem, generator, theta0, y0, C, dev)
+        pools = _agl._init_pools(problem, generator, ip, C, P)
+        theta_k = cc.theta.T.contiguous()
+        logw_k = (problem.prior_log_prob(cc.theta) + cc.log_kernel
+                  - ip.log_prob(cc.theta)).contiguous()
+        y_cur, logk = cc.y, cc.log_kernel
+        theta_init_row = cc.theta.cpu().numpy()[:, None, :]
+        seed = _seed(seed, generator)
+        kdes = None
+        hat_eps = torch.full((C,), 1.0e6, device=dev)
+        hat_eps_hist = []
+        g_acc = torch.zeros(C, dtype=torch.float64, device=dev)
+        done = steps_run = ep = 0
+        pending_epoch = False
+    else:
+        arrays, done = restored
+        t = lambda k: torch.as_tensor(arrays[k], device=dev)
+        generator.set_state(torch.as_tensor(arrays["rng_state"]))
+        pools, kdes = _agl._pool_from(arrays, dev), _agl._kde_from(arrays,
+                                                                   dev)
+        theta_k, logw_k, y_cur, logk = (t("theta_k"), t("logw_k"),
+                                        t("y_cur"), t("logk"))
+        hat_eps, g_acc = t("hat_eps"), t("g_acc")
+        hat_eps_hist = list(arrays["hat_eps_hist"])
+        steps_run, ep, seed = (int(arrays["steps_run"]), int(arrays["ep"]),
+                               int(arrays["seed"]))
+        theta_init_row = None
+        pending_epoch = True
+
+    async_blocks = _AsyncBlocks(thin, hist_dt)
+    blocks = []
+    total = num_ite - 1
+    packed = None
+    while done < total:
+        if pending_epoch:
+            pools, kdes, hat_eps = epoch_fn(generator, pools, hat_eps)
+            hat_eps_hist.append(hat_eps.cpu().numpy())
+            ep += 1
+            packed = None
+            logw_k = _logw_under_kde(problem, kdes, theta_k, logk)
+            pending_epoch = False
+        j = (done % T) // sub_T
+        sp = pools if n_sub == 1 else pools.rows(j * sub_T * B,
+                                                 (j + 1) * sub_T * B)
+        if n_sub > 1 or packed is None:
+            packed = (pack_pool_theta(sp.theta, sub_T, B),
+                      pack_pool_logw(sp.log_w, sub_T, B))
+        take = min(sub_T, total - done)
+        theta_k, logw_k, sel, moved, hist = kern.run(
+            seed, *packed, theta_k, logw_k, step0=done)
+        if collect_history:
+            _history(hist, take, done, on_segment, async_blocks, blocks)
+        y_cur, logk = _resolve(problem, sp, sel, y_cur, logk)
+        g_acc += moved.to(torch.float64) * (take / sub_T)
+        steps_run += take
+        done += take
+        if take == sub_T and done % T == 0:
+            if done < total:
+                pending_epoch = True
+            if checkpoint_path is not None:
+                state = {"theta_k": theta_k, "logw_k": logw_k,
+                         "y_cur": y_cur, "logk": logk, "g_acc": g_acc,
+                         "hat_eps": hat_eps, "steps_run": steps_run,
+                         "ep": ep, "seed": seed,
+                         "rng_state": generator.get_state(),
+                         "hat_eps_hist": np.asarray(hat_eps_hist,
+                                                    np.float32)}
+                state.update(_agl._pool_arrays(pools))
+                state.update(_agl._kde_arrays(kdes))
+                save_epoch_ckpt(checkpoint_path, state, done, sub_T, sub_T,
+                                meta=ckpt_meta)
+
+    thetas = _finish_history(theta_init_row, blocks, async_blocks,
+                             on_segment, collect_history, C, d, hist_dt)
+    counts = MoveCounts(
+        global_attempts=np.full((C,), steps_run, np.int32),
+        global_accepts=np.rint(g_acc.cpu().numpy()).astype(np.int32),
+        local_attempts=np.zeros((C,), np.int32),
+        local_accepts=np.zeros((C,), np.int32))
+    carry = AGLCarry(theta_k.T.contiguous(), y_cur, logk,
+                     torch.zeros(C, dtype=torch.int32, device=dev),
+                     generator, counts)
+    return AGLResult(
+        thetas=thetas, counts=counts, final_carry=carry, kde=kdes,
+        hat_eps=hat_eps.cpu().numpy(),
+        hat_eps_hist=np.asarray(hat_eps_hist) if hat_eps_hist else None,
+        fused_state=(theta_k, y_cur, logk, logw_k))
+
+
+def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
+                            initial_isir_proposal, *,
+                            global_frequency: float, batch_size: int = 5,
+                            step_size: int = 200, alpha: float = 0.8,
+                            hat_eps_T: float = 0.2, oversample: int = 4,
+                            num_chains: int = 4096, block_chains: int = 256,
+                            collect_history: bool = True, y0=None,
+                            seed: int | None = None, on_segment=None,
+                            mesh=None, lp_scale: float = 0.35,
+                            shared_support: int = 4096,
+                            redraw_chunk: int = 512,
+                            checkpoint_path: str | None = None,
+                            resume: bool = False, tile_program=None,
+                            thin: int = 1, history_dtype=None,
+                            device=None) -> AGLResult:
+    """AGLMCMC at ``global_frequency < 1`` through the mixed kernel (K5):
+    per-chain coin, the in-kernel Mixture local move, and the current
+    state's density under the resident shared KDE.
+
+    Needs a Mixture-family problem (``problem._noise_std``; ``y_dim ==
+    theta_dim``) and a diagonal-Gaussian ``initial_isir_proposal`` (its
+    density is the first epoch's resident mixture).  Adaptation is shared:
+    one quantile over all pools and one ``shared_support``-point KDE per
+    epoch.  Pools are consumed slice-per-step: segments are ``seg_len =
+    round(step_size / gf)`` steps with ``seg_len * batch_size`` pool rows,
+    and a slice whose step flips a local coin is skipped.
+    ``redraw_chunk`` is cut down to a divisor of ``num_chains``."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
+            "Queue 1, M12)")
+    if tile_program is not None:
+        raise NotImplementedError(
+            "tile_program= (a TileProgram local move) is not ported yet "
+            "(ROADMAP Queue 1, M11)")
+    dev = resolve_device(device)
+    check_generator(generator, dev)
+    d = problem.theta_dim
+    sigma = getattr(problem, "_noise_std", None)
+    if sigma is None:
+        raise ValueError(
+            "run_aglmcmc_fused_mixed needs a Mixture-family problem (with a "
+            "Gaussian simulator noise scale) for the in-kernel local move; "
+            "run_aglmcmc (scan) covers other problems")
+    if problem.y_dim != d:
+        raise ValueError("Mixture-family kernels require y_dim == theta_dim")
+    loc = getattr(initial_isir_proposal, "loc", None)
+    log_scale = getattr(initial_isir_proposal, "log_scale", None)
+    if loc is None or log_scale is None:
+        raise ValueError(
+            "initial_isir_proposal must be a DiagGaussian (loc/log_scale): "
+            "its density is evaluated in the kernel for the first epoch")
+    gf = float(global_frequency)
+    B, C = int(batch_size), int(num_chains)
+    seg_len = max(1, int(round(step_size / gf)))
+    P = seg_len * B
+    # pool_slices == seg_len: the shared epoch redraws P = seg_len * B rows
+    cfg = AGLMCMCConfig(gf, B, step_size, alpha, hat_eps_T, oversample, 0,
+                        seg_len - step_size)
+    kern = PoolISIRMixed(
+        d, problem.y_obs.cpu().numpy(), epsilon=problem.epsilon,
+        sigma=sigma, global_frequency=gf, batch_size=B,
+        steps_per_call=seg_len, lp_scale=lp_scale, block_chains=block_chains,
+        collect_history=collect_history)
+    if redraw_chunk and redraw_chunk < C:
+        while C % redraw_chunk:
+            redraw_chunk -= 1
+    else:
+        redraw_chunk = 0
+    epoch_fn = _agl.make_shared_epoch_fn(problem, cfg, shared_support,
+                                         redraw_chunk)
+    thin, hist_dt = _history_opts(thin, history_dtype, on_segment)
+    ip = initial_isir_proposal.to(dev)
+
+    def pack(pools_):
+        return (pack_pool_theta(pools_.theta, seg_len, B),
+                pack_pool_theta(pools_.x, seg_len, B),
+                pack_pool_logw(pools_.log_w, seg_len, B),
+                pack_pool_logw(problem.kernel_log_prob(pools_.dis), seg_len,
+                               B))
+
+    ckpt_meta = {"sampler": "aglmcmc_fused_mixed", "num_chains": C,
+                 "theta_dim": d, "seg_len": seg_len, "batch_size": B,
+                 "shared_support": shared_support}
+    restored = (restore_epoch_ckpt(checkpoint_path, ckpt_meta)
+                if resume and checkpoint_path is not None
+                and os.path.exists(carry_path(checkpoint_path)) else None)
+    if restored is None:
+        th_c, y_c, logk_k = _initial_chains(problem, generator, theta0, C,
+                                            y0, dev)
+        theta_k, y_k = th_c.T.contiguous(), y_c.T.contiguous()
+        logk_k = logk_k.contiguous()
+        theta_init_row = th_c.cpu().numpy()[:, None, :]
+        pools = _agl._init_pools(problem, generator, ip, C, P)
+        seed = _seed(seed, generator)
+        kde = None
+        hat_eps = torch.tensor(1.0e6, device=dev)
+        hat_eps_hist = []
+        counters = [torch.zeros(C, dtype=torch.float64, device=dev)
+                    for _ in range(3)]
+        done = steps_run = ep = 0
+        pending_epoch = False
+    else:
+        arrays, done = restored
+        t = lambda k: torch.as_tensor(arrays[k], device=dev)
+        generator.set_state(torch.as_tensor(arrays["rng_state"]))
+        pools, kde = _agl._pool_from(arrays, dev), _agl._kde_from(arrays,
+                                                                  dev)
+        theta_k, y_k, logk_k = t("theta_k"), t("y_k"), t("logk_k")
+        hat_eps = t("hat_eps")
+        counters = [t("g_att"), t("g_acc"), t("l_acc")]
+        hat_eps_hist = list(arrays["hat_eps_hist"])
+        steps_run, ep, seed = (int(arrays["steps_run"]), int(arrays["ep"]),
+                               int(arrays["seed"]))
+        theta_init_row = None
+        pending_epoch = True
+    resident = (resident_from_gaussian(ip.loc.cpu().numpy(),
+                                       np.exp(ip.log_scale.cpu().numpy()),
+                                       device=dev)
+                if kde is None else resident_from_kde(kde))
+    packed = pack(pools)
+
+    async_blocks = _AsyncBlocks(thin, hist_dt)
+    blocks = []
+    total = num_ite - 1
+    while done < total:
+        if pending_epoch:
+            pools, kde, hat_eps = epoch_fn(generator, pools, hat_eps)
+            hat_eps_hist.append(hat_eps.cpu().numpy())
+            ep += 1
+            packed = pack(pools)
+            resident = resident_from_kde(kde)
+            pending_epoch = False
+        take = min(seg_len, total - done)
+        theta_k, y_k, logk_k, gatt, gacc, lacc, hist = kern.run(
+            seed, resident, *packed, theta_k, y_k, logk_k, step0=done)
+        if collect_history:
+            _history(hist, take, done, on_segment, async_blocks, blocks)
+        frac = take / seg_len
+        for acc, inc in zip(counters, (gatt, gacc, lacc)):
+            acc += inc.to(torch.float64) * frac
+        steps_run += take
+        done += take
+        if take == seg_len:
+            if done < total:
+                pending_epoch = True
+            if checkpoint_path is not None:
+                state = {"theta_k": theta_k, "y_k": y_k, "logk_k": logk_k,
+                         "g_att": counters[0], "g_acc": counters[1],
+                         "l_acc": counters[2], "hat_eps": hat_eps,
+                         "steps_run": steps_run, "ep": ep, "seed": seed,
+                         "rng_state": generator.get_state(),
+                         "hat_eps_hist": np.asarray(hat_eps_hist,
+                                                    np.float32)}
+                state.update(_agl._pool_arrays(pools))
+                state.update(_agl._kde_arrays(kde))
+                save_epoch_ckpt(checkpoint_path, state, done, take, seg_len,
+                                meta=ckpt_meta)
+
+    thetas = _finish_history(theta_init_row, blocks, async_blocks,
+                             on_segment, collect_history, C, d, hist_dt)
+    g_att, g_acc, l_acc = (np.rint(c.cpu().numpy()).astype(np.int32)
+                           for c in counters)
+    counts = MoveCounts(global_attempts=g_att, global_accepts=g_acc,
+                        local_attempts=(steps_run - g_att).astype(np.int32),
+                        local_accepts=l_acc)
+    carry = AGLCarry(theta_k.T.contiguous(), y_k.T.contiguous(), logk_k,
+                     torch.zeros(C, dtype=torch.int32, device=dev),
+                     generator, counts)
+    return AGLResult(
+        thetas=thetas, counts=counts, final_carry=carry, kde=kde,
+        hat_eps=hat_eps.cpu().numpy(),
+        hat_eps_hist=np.asarray(hat_eps_hist) if hat_eps_hist else None,
+        fused_state=(theta_k, y_k, logk_k))

@@ -17,9 +17,12 @@ import pytest
 import torch
 
 from glabc_tpu_torch import HighDimMixtureProblem, MixtureProblem
-from glabc_tpu_torch.ops.kernels import (FusedMixtureGLMCMC,
-                                         PackedMixtureGLMCMC,
-                                         fused_state_init, packed_state_init)
+from glabc_tpu_torch.ops.kernels import (BatchedMixtureLogProb,
+                                         FusedMixtureGLMCMC,
+                                         PackedMixtureGLMCMC, PoolISIR,
+                                         PoolISIRMixed, fused_state_init,
+                                         kde_logprob_inputs,
+                                         packed_state_init, resident_from_kde)
 from glabc_tpu_torch.ops.kernels.philox import philox4x32, philox4x32_cuda
 
 pytestmark = pytest.mark.gpu
@@ -100,3 +103,127 @@ def test_block_chains_does_not_change_results(cuda):
     a, b = a_kern.run(5, *state), b_kern.run(5, *state)
     for x, y in zip([*a[:4], *a[4]], [*b[:4], *b[4]]):
         assert torch.equal(x, y)
+
+
+# ------------------------------------------------ AGLMCMC kernels (K3-K5)
+def _pool_inputs(device, T, B, d, C, seed=0):
+    """Random pool slices with about a fifth of the log-weights -inf."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    f = dict(generator=g, device=device)
+    ptheta = torch.randn((T, B, d, C), **f)
+    logw = torch.randn((T, B, C), **f) * 3.0 - 4.0
+    logw = torch.where(torch.rand((T, B, C), **f) < 0.2,
+                       torch.full_like(logw, -float("inf")), logw)
+    return ptheta, logw.contiguous(), g
+
+
+@pytest.mark.parametrize("d", [2, 3, 8])
+@pytest.mark.parametrize("B", [5, 7])
+def test_pool_isir_matches_plain_bitwise(cuda, d, B):
+    """K3 against its plain version: equal to the bit, -inf weights too."""
+    T, C = 16, 4096
+    ptheta, plogw, g = _pool_inputs(cuda, T, B, d, C)
+    theta = torch.randn((d, C), generator=g, device=cuda)
+    logw = torch.randn((C,), generator=g, device=cuda) - 4.0
+    kern = PoolISIR(d, batch_size=B, steps_per_call=T, block_chains=128)
+    before = PoolISIR.launches
+    got = kern.run(9, ptheta, plogw, theta, logw, step0=400)
+    assert PoolISIR.launches == before + 1
+    want = kern.plain(9, ptheta, plogw, theta, logw, step0=400)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert 0.05 < float(got[3].mean()) / T < 0.95   # moves and stays
+
+
+@pytest.mark.parametrize("d", [2, 3, 8])
+@pytest.mark.parametrize("P", [1000, 250])
+def test_kde_logprob_matches_plain(cuda, d, P):
+    """K4 against its plain version, to 1e-4 max(1, |log q|): the two sum
+    the same exponentials in another order."""
+    from glabc_tpu_torch.models.kde import KernelDensity
+
+    C = 64
+    g = torch.Generator(device=cuda).manual_seed(d * P)
+    X = torch.randn((C, P, d), generator=g, device=cuda)
+    w = torch.rand((C, P), generator=g, device=cuda)
+    w[:, ::7] = 0.0
+    kdes = KernelDensity.fit(X, w)
+    x = torch.randn((C, P, d), generator=g, device=cuda) * 1.5
+    ms, pre, inv_h2 = kde_logprob_inputs(kdes)
+    kern = BatchedMixtureLogProb()
+    before = BatchedMixtureLogProb.launches
+    got = kern.run(x, ms, pre, inv_h2)
+    assert BatchedMixtureLogProb.launches == before + 1
+    want = kern.plain(x, ms, pre, inv_h2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    err = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+    assert err <= 1e-4
+    # and against KernelDensity.log_prob (another formula) more loosely
+    lp = kdes.log_prob(x)
+    assert ((got - lp).abs() / lp.abs().clamp_min(1.0)).max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("S", [1024, 100])
+@pytest.mark.parametrize("gf", [0.5, 0.9])
+def test_pool_isir_mixed_matches_plain(cuda, d, S, gf):
+    """K5 against its plain version on one Philox stream: at most 0.1% of
+    chains may differ (a decision at its threshold can round either way),
+    and the first step's history equal."""
+    from glabc_tpu_torch.models.kde import KernelDensity
+
+    T, B, C = 32, 5, 4096
+    prob = _problem(d)
+    ptheta, plogw, g = _pool_inputs(cuda, T, B, d, C, seed=S)
+    px = (ptheta.abs() + 0.2 * torch.randn(ptheta.shape, generator=g,
+                                           device=cuda)).contiguous()
+    plogk = torch.randn((T, B, C), generator=g, device=cuda) - 1.0
+    kde = KernelDensity.fit(torch.randn((S, d), generator=g, device=cuda)
+                            * 1.4)
+    res = resident_from_kde(kde)
+    theta = torch.randn((d, C), generator=g, device=cuda)
+    y = (theta.abs() + 0.2 * torch.randn((d, C), generator=g,
+                                         device=cuda)).contiguous()
+    logk = prob.log_kernel_of_y(y.T.contiguous())
+    kern = PoolISIRMixed(d, prob.y_obs.numpy(), epsilon=prob.epsilon,
+                         sigma=prob._noise_std, global_frequency=gf,
+                         batch_size=B, steps_per_call=T, block_chains=128)
+    before = PoolISIRMixed.launches
+    got = kern.run(3, res, ptheta, px, plogw, plogk, theta, y, logk,
+                   step0=800)
+    assert PoolISIRMixed.launches == before + 1
+    want = kern.plain(3, res, ptheta, px, plogw, plogk, theta, y, logk,
+                      step0=800)
+    torch.cuda.synchronize()
+    bad = torch.zeros(C, dtype=torch.bool, device=cuda)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        bad |= ((a - b).abs() > 1e-5).reshape(-1, C).any(0)
+    assert bad.float().mean().item() <= 1e-3
+    assert torch.equal(got[6][0], want[6][0])
+    assert abs(got[3].mean().item() / T - gf) < 0.02
+
+
+def test_shared_support_keeps_light_rows(cuda):
+    """The shared epoch's systematic resampling over all C * P pool rows on
+    the card: with 2^24 rows, half of them (at random) a quarter as heavy
+    as the rest, those rows make a fifth of the picks.  A float32 CDF on
+    the card drops increments below half an ulp of the running sum and
+    misses this; the port's runs in float64."""
+    from glabc_tpu_torch.samplers import aglmcmc as agl
+
+    C, P = 1 << 12, 1 << 12
+    g = torch.Generator(device=cuda).manual_seed(1)
+    light = torch.rand((C, P), generator=g, device=cuda) < 0.5
+    theta = torch.zeros((C, P, 2), device=cuda)
+    theta[..., 0] = light.float() * 1e-3
+    zeros = torch.zeros((C, P), device=cuda)
+    log_q = torch.where(light, torch.full_like(zeros, float(np.log(4.0))),
+                        zeros)
+    pools = agl.Pool(theta, theta, zeros, log_q, zeros)
+    picks = agl._shared_support(MixtureProblem(0.05), pools,
+                                torch.tensor(1.0, device=cuda), 4096, g)
+    share = float((picks[:, 0] > 5e-4).float().mean())
+    assert abs(share - 0.2) < 0.02, share

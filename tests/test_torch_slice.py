@@ -227,7 +227,7 @@ def test_runner_summary_and_unported_methods(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[GLMCMC] 4 chain(s) x 33 iterations" in out
     assert "R-hat" in out
-    for name in ("run_aglmcmc", "run_glmala", "run_glmcmc_nf"):
+    for name in ("run_glmala", "run_glmcmc_nf"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(runner, name)()
     with pytest.raises(NotImplementedError):
