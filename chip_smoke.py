@@ -36,13 +36,27 @@ Phases, each reported on its own lines:
    400, shared 1,024-point KDE; K5), held to the coin share, the posterior
    and the plain path's annealed threshold and acceptance rates.  Each run's wall time is split
    into kernel, epoch and host copy of the history;
-7. each kernel against its plain version at its main-path shape, times,
+7. GLMALA through ``MCMCRunner.run_glmala``: ``method='fused'`` (K6) with
+   the shared coin at 32,768 chains x 2,049 iterations and with per-chain
+   coins at 32,768 x 513, beside the plain path at 1,024 x 2,049, held to
+   the posterior and move-fraction bands and to the plain path's global
+   acceptance; the local acceptance of each, side by side (phase 3 also
+   checks K6 at d in {2, 8}, both coin modes, and K7 push and pull at d in
+   {2, 3, 8}, ragged row counts and 1,048,576 rows, against their plain
+   versions);
+8. GLMCMC-NF through ``MCMCRunner.run_glmcmc_nf``: ``method='fused'`` at
+   gf=1 (32,768 chains x 801: K7 pushes the pools, K3 runs the segments,
+   one K7 pull per epoch) and at gf=0.5 (8,192 x 4,001, slice cadence: one
+   K7 pull per step), each beside ``method='pooled'`` at 2,048 chains, and
+   ``method='scan'`` at 256 x 401; wall time split into kernels, training,
+   history copies and the rest;
+9. each kernel against its plain version at its main-path shape, times,
    bytes, operations and bounds, and its launches on every path of phases
-   4-6, counted from 0 just before each path and read just after it.
+   4-8, counted from 0 just before each path and read just after it.
 
-``python3 chip_smoke.py --seed-spread N`` runs only phase 1 and the
-gf=0.5 paths of phase 6 over N seeds each and prints the spread of the
-statistics phase 6 compares.
+``python3 chip_smoke.py --seed-spread N [agl] [glmala] [nf]`` runs only
+phase 1 and the compared paths of phases 6-8 over N seeds each and prints
+the spread of the statistics those phases compare.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before them;
@@ -86,6 +100,23 @@ MIXED_ITERS = 4001     # 10 segments of 400 transitions, 9 epochs
 MIXED_SCAN_CHAINS = 4096  # the plain path on the card at gf=0.5
 SMALL_CHAINS = 16384   # AGLMCMC kernels against plain at small shapes
 
+# GLMALA (canonical config: gf=0.8, N(0, I) importance proposal, B=5,
+# tau=0.3, num_grad=100, fd 0.1) and GLMCMC-NF (B=5, step 200, train 50,
+# N(0, I) base, 32 coupling layers x 128 hidden): the chain counts the JAX
+# package ran on one chip.
+MALA_CHAINS = 32768    # fused, shared coin: 64 launches of T=32
+MALA_ITERS = 2049
+MALA_PC_ITERS = 513    # fused, per-chain coin: 16 launches
+MALA_SCAN_CHAINS = 1024  # the plain path on the card
+NF1_CHAINS = 32768     # gf=1 fused: 4 segments of 200, 3 epochs
+NF1_ITERS = 801
+NF_POOLED_CHAINS = 2048  # the pooled (cursor-cadence) path beside each
+NF05_CHAINS = 8192     # gf=0.5 fused (slice cadence): 10 segments of 400
+NF05_ITERS = 4001
+NF_SCAN_CHAINS = 256   # the per-step path, finiteness and launches only
+NF_SCAN_ITERS = 401
+FLOW_TOL = 1e-4        # K7 against plain: |diff| <= FLOW_TOL max(1, |x|)
+
 CHAIN_TOL = 1e-5       # a chain "differs" when any value is further apart
 MAX_DIFF_SHARE = 1e-3  # accept tests at their threshold may round either way
 KDE_TOL = 1e-4         # K4 against plain: |diff| <= KDE_TOL max(1, |log q|)
@@ -98,6 +129,17 @@ KDE_TOL = 1e-4         # K4 against plain: |diff| <= KDE_TOL max(1, |log q|)
 MIXED_EPS_TOL = 0.016
 MIXED_GACC_REL = 0.06
 MIXED_LACC_REL = 0.009
+# GLMALA and GLMCMC-NF fused runs against the plain or pooled path beside
+# them: absolute limits on the difference of the acceptance rates.
+# ``--seed-spread 5 glmala nf`` on an H100 read per-run sds of the GLMALA
+# global rate 0.00007 (fused) / 0.00003 (plain); of the NF gf=1 global
+# rate 0.00002 (fused) / 0.00011 (pooled); at gf=0.5 of the global rate
+# 0.00005 / 0.00001 and of the local rate 0.00004 / 0.00010.  GLMALA: 2.5
+# sd of the difference of one run of each; NF: 3 sd.
+MALA_GACC_TOL = 0.0002
+NF1_GACC_TOL = 0.00034
+NF05_GACC_TOL = 0.00015
+NF05_LACC_TOL = 0.00032
 
 
 def log(msg):
@@ -275,14 +317,16 @@ def sass_counts(lib_path):
 
 
 def _wrappers():
-    from glabc_tpu_torch.ops.kernels import (BatchedMixtureLogProb,
+    from glabc_tpu_torch.ops.kernels import (BatchedMixtureLogProb, FlowPull,
+                                             FlowPush, FusedMixtureGLMALA,
                                              FusedMixtureGLMCMC,
                                              PackedMixtureGLMCMC, PoolISIR,
                                              PoolISIRMixed)
 
     return {"packed": PackedMixtureGLMCMC, "unpacked": FusedMixtureGLMCMC,
             "pool_isir": PoolISIR, "kde_logprob": BatchedMixtureLogProb,
-            "pool_isir_mixed": PoolISIRMixed}
+            "pool_isir_mixed": PoolISIRMixed, "glmala": FusedMixtureGLMALA,
+            "flow_push": FlowPush, "flow_pull": FlowPull}
 
 
 def counted(fn):
@@ -742,23 +786,30 @@ def phase_agl_kernels_vs_plain():
                       f"S={S} gf={gf}: {share:.3%} of chains differ")
 
 
+_MISSING = object()
+
+
 class Instrument:
-    """Around one entry run: the card time of every launch of the AGLMCMC
-    kernels (CUDA events), the wall time of each adaptation epoch and of
-    each synchronous host copy of a segment's history (both between two
-    synchronizes), and the arguments of each wrapper's last call, for the
-    timing phase.  It launches nothing and counts nothing."""
+    """Around one entry run: the card time of every kernel launch (CUDA
+    events, by wrapper), the wall time of each adaptation epoch, of each
+    flow training step and of each synchronous host copy of a segment's
+    history (each between two synchronizes), and the arguments of each
+    wrapper's last call, for the timing phase.  It launches nothing and
+    counts nothing."""
 
     def __init__(self):
-        self.events, self.last = [], {}
-        self.epoch_s = self.copy_s = 0.0
-        self.epoch_n = self.copy_n = 0
+        self.events, self.last = {}, {}
+        for kind in ("epoch", "train", "copy"):
+            setattr(self, kind + "_s", 0.0)
+            setattr(self, kind + "_n", 0)
 
-    def kernel_ms(self):
+    def kernel_ms(self, key=None):
         import torch
 
         torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in self.events)
+        keys = [key] if key else list(self.events)
+        return sum(a.elapsed_time(b) for k in keys
+                   for a, b in self.events.get(k, []))
 
     def _synced(self, fn, kind):
         """``fn`` timed on the host between two synchronizes, summed into
@@ -780,11 +831,14 @@ class Instrument:
         import torch
         import glabc_tpu_torch.samplers.aglmcmc as agl
         import glabc_tpu_torch.samplers.aglmcmc_fused as fused
+        import glabc_tpu_torch.samplers.glmala_fused as mala
+        import glabc_tpu_torch.samplers.glmcmc_nf_fused as nf
 
         self._saved = []
 
         def patch(owner, name, new):
-            self._saved.append((owner, name, owner.__dict__[name]))
+            self._saved.append((owner, name,
+                                owner.__dict__.get(name, _MISSING)))
             setattr(owner, name, new)
 
         for key, cls in _wrappers().items():
@@ -798,28 +852,48 @@ class Instrument:
                 e0.record()
                 out = _orig(kern, *a, **k)
                 e1.record()
-                if _key != "kde_logprob":     # K4 runs inside the epoch
-                    self.events.append((e0, e1))
+                self.events.setdefault(_key, []).append((e0, e1))
                 return out
             patch(cls, "run", run)
         for name in ("make_epoch_fn", "make_shared_epoch_fn"):
             orig = getattr(agl, name)
             patch(agl, name, lambda *a, _o=orig, **k: self._synced(
                 _o(*a, **k), "epoch"))
-        patch(fused, "_history", self._synced(fused._history, "copy"))
+        orig = nf.make_pool_trainer
+        patch(nf, "make_pool_trainer", lambda *a, _o=orig, **k: self._synced(
+            _o(*a, **k), "train"))
+        copy = self._synced(fused._history, "copy")
+        for mod in (fused, mala, nf):
+            patch(mod, "_history", copy)
         return self
 
     def __exit__(self, *exc):
         for owner, name, old in reversed(self._saved):
-            setattr(owner, name, old)
+            if old is _MISSING:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, old)
         return False
 
-    def split(self, secs):
-        k = self.kernel_ms() / 1e3
-        return (f"wall {secs:.2f} s = kernel {k:.3f} s + epochs "
-                f"{self.epoch_s:.2f} s ({self.epoch_n}) + history copies "
-                f"{self.copy_s:.2f} s ({self.copy_n}) + other "
-                f"{secs - k - self.epoch_s - self.copy_s:.2f} s")
+    def split(self, secs, names=None):
+        """The wall time as the kernels' card time (K4 runs inside the
+        epochs, so it is not counted apart), epochs, training, history
+        copies and the rest."""
+        parts, shown = [], 0.0
+        for key in (names or [k for k in self.events if k != "kde_logprob"]):
+            k = self.kernel_ms(key) / 1e3
+            shown += k
+            parts.append(f"{key} {k:.3f} s ({len(self.events.get(key, []))})")
+        for kind in ("epoch", "train", "copy"):
+            n = getattr(self, kind + "_n")
+            if n:
+                sec = getattr(self, kind + "_s")
+                shown += sec
+                label = {"epoch": "epochs", "train": "training",
+                         "copy": "history copies"}[kind]
+                parts.append(f"{label} {sec:.2f} s ({n})")
+        return (f"wall {secs:.2f} s = " + " + ".join(parts)
+                + f" + other {secs - shown:.2f} s")
 
 
 def _absmean(ch, burn):
@@ -857,28 +931,69 @@ def mixed_stats(res):
             float(c.local_accepts.sum() / c.local_attempts.sum()))
 
 
-def seed_spread(n):
-    """``--seed-spread N``: the gf=0.5 statistics that phase 6 compares,
-    over N seeds of the fused path and N of the plain path, with their
-    means and standard deviations (the source of the MIXED_* limits)."""
+def seed_spread(n, groups):
+    """``--seed-spread N [agl] [glmala] [nf]``: the statistics that the
+    entry phases compare, over N seeds of each path and of the path it is
+    compared with, with their means and standard deviations (the source of
+    the MIXED_*, MALA_* and NF*_ limits)."""
     import numpy as np
 
+    def spread(label, run, seed0, names):
+        rows = []
+        for seed in range(seed0, seed0 + n):
+            rows.append(run(seed))
+            log(f"[spread] {label}, seed {seed}: " + ", ".join(
+                f"{k} {v:.5f}" for k, v in zip(names, rows[-1])))
+        a = np.asarray(rows)
+        mean, sd = a.mean(0), a.std(0, ddof=1)
+        log(f"[spread] {label}: " + "; ".join(
+            f"{k} mean {m:.5f} sd {s_:.5f}" for k, m, s_ in
+            zip(names, mean, sd)))
+
     with tempfile.TemporaryDirectory() as tmp:
-        for method, chains, seed0 in (("fused", MIXED_CHAINS, 100),
-                                      ("scan", MIXED_SCAN_CHAINS, 200)):
-            rows = []
-            for seed in range(seed0, seed0 + n):
-                runner, ch = mixed_run(tmp, seed, method, chains)
-                rows.append(mixed_stats(runner.last_result))
-                log(f"[spread] gf=0.5 {method}, {chains:,} chains, seed "
-                    f"{seed}: hat_eps {rows[-1][0]:.5f}, acceptance global "
-                    f"{rows[-1][1]:.5f} / local {rows[-1][2]:.5f}")
-                del ch
-            a = np.asarray(rows)
-            mean, sd = a.mean(0), a.std(0, ddof=1)
-            log(f"[spread] gf=0.5 {method}: mean hat_eps {mean[0]:.5f} sd "
-                f"{sd[0]:.5f}; global {mean[1]:.5f} sd {sd[1] / mean[1]:.2%};"
-                f" local {mean[2]:.5f} sd {sd[2] / mean[2]:.2%}")
+        if "agl" in groups:
+            for method, chains, seed0 in (("fused", MIXED_CHAINS, 100),
+                                          ("scan", MIXED_SCAN_CHAINS, 200)):
+                spread(f"AGLMCMC gf=0.5 {method}, {chains:,} chains",
+                       lambda s_: mixed_stats(mixed_run(
+                           tmp, s_, method, chains)[0].last_result), seed0,
+                       ("hat_eps", "global", "local"))
+        if "glmala" in groups:
+            # the per-chain coin beside the shared one separates the
+            # kernel's coin from its gradient noise in the local rate
+            for method, coin, chains, seed0 in (
+                    ("fused", "shared", MALA_CHAINS, 300),
+                    ("fused", "per_chain", MALA_CHAINS, 350),
+                    ("scan", None, MALA_SCAN_CHAINS, 400)):
+                kw = {} if coin is None else dict(coin_mode=coin)
+                spread(f"GLMALA {method} {coin or ''}, {chains:,} chains",
+                       lambda s_: rates(mala_run(
+                           tmp, s_, method, chains, MALA_ITERS, **kw)[0]
+                           .last_result), seed0, ("global", "local"))
+        if "nf" in groups:
+            for label, method, gf, chains, iters, seed0 in (
+                    ("gf=1 fused", "fused", 1.0, NF1_CHAINS, NF1_ITERS, 500),
+                    ("gf=1 pooled", "pooled", 1.0, NF_POOLED_CHAINS,
+                     NF1_ITERS, 600),
+                    ("gf=0.5 fused", "fused", 0.5, NF05_CHAINS, NF05_ITERS,
+                     700),
+                    ("gf=0.5 pooled", "pooled", 0.5, NF_POOLED_CHAINS,
+                     NF05_ITERS, 800)):
+                spread(f"GLMCMC-NF {label}, {chains:,} chains",
+                       lambda s_: rates(nf_run(
+                           tmp, s_, method, gf, chains, iters)[0]
+                           .last_result), seed0, ("global", "local"))
+
+
+def instrumented(paths, insts, name, fn, want):
+    """One entry path under an :class:`Instrument`, with every launch count
+    set to 0 just before it; the counts must equal ``want``.  Returns the
+    host seconds, ``fn``'s result and the instrument."""
+    with Instrument() as inst:
+        (secs, out), counts = counted(lambda: wall(fn))
+    paths[name], insts[name] = counts, inst
+    check(counts == want, f"{name}: launches {counts}, expected {want}")
+    return secs, out, inst
 
 
 def phase_aglmcmc(tmp):
@@ -891,12 +1006,8 @@ def phase_aglmcmc(tmp):
     ip = DiagGaussian.create(2, 0.0, 0.0)
     paths, insts = {}, {}
 
-    def path(name, fn, want):
-        with Instrument() as inst:
-            (secs, out), counts = counted(lambda: wall(fn))
-        paths[name], insts[name] = counts, inst
-        check(counts == want, f"{name}: launches {counts}, expected {want}")
-        return secs, out, inst
+    path = lambda name, fn, want: instrumented(paths, insts, name, fn,
+                                               want)
 
     # ---- gf = 1: the reference config, pool-iSIR kernel + K4 epochs
     n_seg = (AGL_ITERS - 1) // 200
@@ -998,6 +1109,432 @@ def phase_aglmcmc(tmp):
     log("[launches] per path, counts set to 0 just before it: "
         + "; ".join(f"{k} {v}" for k, v in paths.items()))
     return paths, insts
+
+
+# ------------------------------------------------ GLMALA and GLMCMC-NF
+def glmala_ops(d, B, n_grad, local):
+    """32-bit operations of one K6 chain-step at the least, ``(ops, sfu)``.
+    Every add, multiply, compare and select counts one, as in
+    ``transition_ops``; ``sfu`` counts the logs, square roots, sines and
+    cosines.  A global step: S + B P Philox blocks (80 each), the uniforms,
+    B Box-Muller pairs per dim, the candidates' densities and the iSIR
+    selects.  A local step: S + P + ceil(n/2) P blocks, the replicates'
+    Box-Muller pairs, and per replicate the sigma scaling and, per sign and
+    coordinate, d add-subtract-square-adds, a square root and the two
+    running sums; then the synthetic likelihood and the MH test."""
+    P, S = -(-d // 2), -(-(B + 3) // 4)
+    if not local:
+        ops = (80 * (S + B * P) + 5 * (B + 3 + 2 * d * B) + 8 * d * B
+               + B * (5 * d + 12 * d + 3 * d + 8) + 12 * d + 10)
+        return ops, 4 * d * B + 2 * (B + 1)
+    pairs = -(-n_grad // 2)
+    bm = d + d * pairs
+    ops = (80 * (S + P + pairs * P) + 5 * (B + 3 + 2 * bm) + 8 * bm
+           + n_grad * (d + 2 * d * (4 * d + 3)) + 28 * d + 12 * d + 20)
+    return ops, 4 * bm + 2 * d * n_grad + 2 * d + 2
+
+
+def flow_fmas(d, L, H):
+    """Multiply-adds of one row through the whole flow: the conditioner
+    [d1, H, H, 2 d2] in each of L layers."""
+    d2 = d // 2
+    return L * ((d - d2) * H + H * H + 2 * d2 * H)
+
+
+def _rel_err(a, b):
+    return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+
+
+def _test_flow(d, L, H, seed):
+    """A flow on the card that is not the identity: lecun-normal hidden
+    layers, small random last layers and biases, as a few training steps
+    leave them."""
+    import torch
+    from glabc_tpu_torch.models import CouplingFlow
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    f = CouplingFlow.create(d, L, H, generator=g, device=DEVICE)
+    with torch.no_grad():
+        f.w2.copy_(torch.randn(f.w2.shape, generator=g, device=DEVICE) * 0.02)
+        f.b2.copy_(torch.randn(f.b2.shape, generator=g, device=DEVICE) * 0.05)
+    return f, g
+
+
+def phase_mala_flow_kernels_vs_plain():
+    """K6 at d in {2, 8}, both coin modes, SMALL_CHAINS x 32 steps, and K7
+    push and pull at d in {2, 3, 8} with ragged row counts and at 1,048,576
+    rows, each against its plain version."""
+    import numpy as np
+    import torch
+    from glabc_tpu_torch import HighDimMixtureProblem, MixtureProblem
+    from glabc_tpu_torch.ops.kernels import (FlowPull, FlowPush,
+                                             FusedMixtureGLMALA)
+
+    C, T = SMALL_CHAINS, 32
+    for d in (2, 8):
+        prob = MixtureProblem(0.05) if d == 2 else HighDimMixtureProblem(d)
+        for mode in ("shared", "per_chain"):
+            kern = FusedMixtureGLMALA(
+                d, prob.y_obs.numpy(), epsilon=prob.epsilon,
+                sigma=prob._noise_std, global_frequency=0.8, batch_size=5,
+                tau=0.3, num_grad=100, steps_per_call=T, coin_mode=mode)
+            g = torch.Generator(device=DEVICE).manual_seed(d)
+            theta = (torch.randn((d, C), generator=g, device=DEVICE)
+                     * 1.3).contiguous()
+            y = (theta.abs() + 0.2 * torch.randn(
+                (d, C), generator=g, device=DEVICE)).contiguous()
+            logk = prob.log_kernel_of_y(y.T.contiguous()).contiguous()
+            grad = torch.randn((d, C), generator=g, device=DEVICE)
+            coins = torch.from_numpy((np.random.default_rng(d).random(T)
+                                      < 0.8).astype(np.int32))
+            got = kern.run(3, theta, y, logk, grad, coins, step0=640)
+            want = kern.plain(3, theta, y, logk, grad, coins, step0=640)
+            torch.cuda.synchronize()
+            outs = [*got[:5], *got[5]]
+            refs = [*want[:5], *want[5]]
+            max_abs, share = _chain_share(outs, refs, C)
+            same, _ = _bitwise(outs, refs)
+            log(f"[K6-vs-plain] d={d} {mode}: {C:,} chains x {T} steps, "
+                f"bitwise {same}, max abs diff {max_abs:.3g}, share of "
+                f"chains differing by > {CHAIN_TOL:g}: {share:.3g}, local "
+                f"acceptance {float(got[5][3].sum()) / max(1.0, float(C * T - got[5][1].sum())):.4f}")
+            check(share <= MAX_DIFF_SHARE, f"glmala d={d} {mode}: "
+                  f"{share:.3%} of chains differ from the plain version")
+    for d, N in ((2, 4099), (3, 1000), (8, 777), (2, 1 << 20)):
+        f, g = _test_flow(d, 32, 128, seed=d + N)
+        z = torch.randn((d, N), generator=g, device=DEVICE)
+        for cls in (FlowPush, FlowPull):
+            got = cls().run(f, z)
+            want = cls().plain(f, z)
+            torch.cuda.synchronize()
+            err = max(_rel_err(a, b) for a, b in zip(got, want))
+            log(f"[K7-vs-plain] {cls.__name__} d={d} N={N:,}, 32 layers x "
+                f"128: max |diff| / max(1, |x|) {err:.3g}")
+            check(all(bool(torch.isfinite(a).all()) for a in got)
+                  and err <= FLOW_TOL,
+                  f"{cls.__name__} d={d} N={N}: {err:.3g} > {FLOW_TOL}")
+
+
+def mala_run(tmp, seed, method, chains, iters, output_file=None, **kw):
+    """``MCMCRunner.run_glmala`` at the canonical config."""
+    import numpy as np
+    from glabc_tpu_torch import DiagGaussian, MCMCRunner, MixtureProblem
+
+    runner = MCMCRunner(MixtureProblem(0.05), output_dir=tmp, seed=seed,
+                        num_chains=chains, verbose=False)
+    ch = runner.run_glmala(iters, np.zeros(2), None, 0.8,
+                           DiagGaussian.create(2, 0.0, 0.0), 5, 0.3, 100,
+                           output_file=output_file, method=method, **kw)
+    return runner, ch
+
+
+def nf_run(tmp, seed, method, gf, chains, iters, output_file=None):
+    """``MCMCRunner.run_glmcmc_nf`` at the canonical config (B=5, step 200,
+    train 50, N(0, I) base, 32 x 128 flow)."""
+    import numpy as np
+    from glabc_tpu_torch import DiagGaussian, MCMCRunner, MixtureProblem
+
+    runner = MCMCRunner(MixtureProblem(0.05), output_dir=tmp, seed=seed,
+                        num_chains=chains, verbose=False)
+    ch = runner.run_glmcmc_nf(iters, np.zeros(2), None, gf,
+                              DiagGaussian.create(2, 0.0, math.log(0.35)),
+                              DiagGaussian.create(2, 0.0, 0.0), 5, 200, 50,
+                              output_file=output_file, method=method)
+    return runner, ch
+
+
+def rates(res):
+    """Pooled global and local acceptance of a run."""
+    c = res.counts
+    return (float(c.global_accepts.sum() / max(c.global_attempts.sum(), 1)),
+            float(c.local_accepts.sum() / max(c.local_attempts.sum(), 1)))
+
+
+def _post(ch, burn):
+    """E|theta|, variance and mean per dim after ``burn``, in float64, and
+    the move fraction."""
+    import numpy as np
+
+    post = ch[:, burn:]
+    flat = post.reshape(-1, post.shape[-1])
+    absm = np.abs(flat).mean(0, dtype=np.float64)
+    mean = flat.mean(0, dtype=np.float64)
+    var = (flat.astype(np.float64) ** 2).mean(0) - mean ** 2
+    moved = float(np.any(post[:, 1:] != post[:, :-1], axis=-1).mean())
+    return absm, var, mean, moved
+
+
+def phase_glmala(tmp):
+    """GLMALA through MCMCRunner.run_glmala: fused with the shared coin at
+    the JAX package's chain count, beside the per-chain coin and the plain
+    path on the card."""
+    import numpy as np
+
+    paths, insts = {}, {}
+
+    path = lambda name, fn, want: instrumented(paths, insts, name, fn,
+                                               want)
+
+    secs, (runner, ch), inst = path(
+        "run_glmala_fused", lambda: mala_run(
+            tmp, 0, "fused", MALA_CHAINS, MALA_ITERS, "glmala_results.csv"),
+        only(glmala=(MALA_ITERS - 1) // 32))
+    check(ch.shape == (MALA_CHAINS, MALA_ITERS, 2), f"GLMALA chains "
+          f"{ch.shape}")
+    check(bool(np.isfinite(ch).all()), "GLMALA chains are not finite")
+    _csv(runner, "glmala_results.csv", ch)
+    res = runner.last_result
+    c = res.counts
+    check(bool(np.all(c.global_attempts + c.local_attempts
+                      == MALA_ITERS - 1)),
+          "GLMALA: move counts do not sum to the steps run")
+    absm, var, _, moved = _post(ch, 800)
+    g_f, l_f = rates(res)
+    del ch
+    log(f"[mala] fused, shared coin: {MALA_CHAINS:,} chains x {MALA_ITERS}"
+        f" iterations, {inst.split(secs, ['glmala'])}")
+    log(f"[mala] fused, shared coin: after step 800 E|theta| "
+        f"{absm.round(4).tolist()}, var {var.round(4).tolist()}, move "
+        f"fraction {moved:.5f}; acceptance global {g_f:.5f} / local "
+        f"{l_f:.5f}, global share "
+        f"{float(c.global_attempts.mean()) / (MALA_ITERS - 1):.4f}")
+    check(np.all((absm >= 1.40) & (absm <= 1.45)),
+          f"GLMALA: E|theta| {absm} outside [1.40, 1.45]")
+    check(np.all((var >= 1.95) & (var <= 2.25)),
+          f"GLMALA: variance {var} outside [1.95, 2.25]")
+    check(0.008 <= moved <= 0.015, f"GLMALA: move fraction {moved} outside "
+          "[0.008, 0.015]")
+
+    secs_pc, (runner_pc, ch_pc), inst_pc = path(
+        "run_glmala_fused_per_chain", lambda: mala_run(
+            tmp, 1, "fused", MALA_CHAINS, MALA_PC_ITERS,
+            coin_mode="per_chain"),
+        only(glmala=(MALA_PC_ITERS - 1) // 32))
+    check(bool(np.isfinite(ch_pc).all()), "GLMALA per-chain: not finite")
+    g_pc, l_pc = rates(runner_pc.last_result)
+    a_pc = _absmean(ch_pc, 256)
+    del ch_pc
+    log(f"[mala] fused, per-chain coin: {MALA_CHAINS:,} chains x "
+        f"{MALA_PC_ITERS}, {inst_pc.split(secs_pc, ['glmala'])}; E|theta| "
+        f"after step 256 {a_pc.round(4).tolist()}, acceptance global "
+        f"{g_pc:.5f} / local {l_pc:.5f}")
+
+    secs_s, (scan, ch_s), inst_s = path(
+        "run_glmala_scan", lambda: mala_run(
+            tmp, 2, "scan", MALA_SCAN_CHAINS, MALA_ITERS), only())
+    g_s, l_s = rates(scan.last_result)
+    absm_s, var_s, _, moved_s = _post(ch_s, 800)
+    log(f"[mala] plain path on the card: {MALA_SCAN_CHAINS:,} chains x "
+        f"{MALA_ITERS}, wall {secs_s:.2f} s; after step 800 E|theta| "
+        f"{absm_s.round(4).tolist()}, var {var_s.round(4).tolist()}, move "
+        f"fraction {moved_s:.5f}; acceptance global {g_s:.5f} / local "
+        f"{l_s:.5f}")
+    log(f"[mala] local acceptance side by side: fused shared {l_f:.5f}, "
+        f"fused per-chain {l_pc:.5f}, plain {l_s:.5f}; global: {g_f:.5f}, "
+        f"{g_pc:.5f}, {g_s:.5f} (limit +- {MALA_GACC_TOL} of the plain "
+        "path's)")
+    check(abs(g_f - g_s) <= MALA_GACC_TOL, f"GLMALA: fused global "
+          f"acceptance {g_f} is more than {MALA_GACC_TOL} from the plain "
+          f"path's {g_s}")
+    check(np.all(np.abs(absm - absm_s) < 0.05), "GLMALA: the fused and the "
+          "plain path disagree on E|theta|")
+    log("[launches] per path, counts set to 0 just before it: "
+        + "; ".join(f"{k} {v}" for k, v in paths.items()))
+    return paths, insts
+
+
+def phase_glmcmc_nf(tmp):
+    """GLMCMC-NF through MCMCRunner.run_glmcmc_nf: gf=1 fused (K3 + K7) and
+    gf=0.5 fused (slice cadence, K7) at the JAX package's chain counts,
+    each beside the pooled path, and the per-step path."""
+    import numpy as np
+
+    paths, insts = {}, {}
+
+    path = lambda name, fn, want: instrumented(paths, insts, name, fn,
+                                               want)
+
+    def report(name, runner, ch, secs, inst, burn, chains, iters, keys):
+        res = runner.last_result
+        check(ch.shape == (chains, iters, 2), f"{name}: chains {ch.shape}")
+        check(bool(np.isfinite(ch).all()), f"{name}: chains not finite")
+        losses = np.asarray(res.loss_hist, np.float64)
+        check(bool(np.isfinite(losses).all()), f"{name}: training losses "
+              f"{losses}")
+        absm, var, mean, _ = _post(ch, burn)
+        g, l_ = rates(res)
+        log(f"[nf] {name}: {chains:,} chains x {iters}, "
+            f"{inst.split(secs, keys)}")
+        log(f"[nf] {name}: after step {burn} E|theta| "
+            f"{absm.round(4).tolist()}, mean {mean.round(4).tolist()}, var "
+            f"{var.round(4).tolist()}; acceptance global {g:.5f} / local "
+            f"{l_:.5f}; losses {losses.round(4).tolist()}")
+        return absm, mean, g, l_
+
+    steps1 = NF1_ITERS - 1
+    secs, (r1, ch1), inst = path(
+        "run_glmcmc_nf_gf1", lambda: nf_run(
+            tmp, 0, "fused", 1.0, NF1_CHAINS, NF1_ITERS,
+            "glmcmc_nf_results.csv"),
+        only(pool_isir=steps1 // 200, flow_push=steps1 // 200,
+             flow_pull=steps1 // 200))
+    _csv(r1, "glmcmc_nf_results.csv", ch1)
+    a1, m1, g1, _ = report("gf=1 fused", r1, ch1, secs, inst, 200,
+                           NF1_CHAINS, NF1_ITERS,
+                           ["flow_push", "pool_isir", "flow_pull"])
+    del ch1
+    check(np.all((a1 >= 1.40) & (a1 <= 1.45)), f"NF gf=1: E|theta| {a1}")
+    check(np.all(np.abs(m1) <= 0.05), f"NF gf=1: mean theta {m1} (mode "
+          "collapse)")
+    check(0.010 <= g1 <= 0.022, f"NF gf=1: global acceptance {g1} outside "
+          "[0.010, 0.022]")
+    secs, (r1p, ch1p), inst = path(
+        "run_glmcmc_nf_gf1_pooled", lambda: nf_run(
+            tmp, 1, "pooled", 1.0, NF_POOLED_CHAINS, NF1_ITERS),
+        only(flow_push=steps1 // 200, flow_pull=steps1))
+    a1p, _, g1p, _ = report("gf=1 pooled", r1p, ch1p, secs, inst, 200,
+                            NF_POOLED_CHAINS, NF1_ITERS,
+                            ["flow_push", "flow_pull"])
+    del ch1p
+    log(f"[nf] gf=1 global acceptance: fused {g1:.5f}, pooled {g1p:.5f} "
+        f"(limit +- {NF1_GACC_TOL})")
+    check(abs(g1 - g1p) <= NF1_GACC_TOL, "NF gf=1: the fused and the "
+          "pooled path's global acceptance differ")
+    check(abs(a1.mean() - a1p.mean()) < 0.05, "NF gf=1: the fused and the "
+          "pooled path disagree on E|theta|")
+
+    steps5 = NF05_ITERS - 1
+    secs, (r5, ch5), inst = path(
+        "run_glmcmc_nf_gf05", lambda: nf_run(
+            tmp, 2, "fused", 0.5, NF05_CHAINS, NF05_ITERS),
+        only(flow_push=steps5 // 400, flow_pull=steps5))
+    a5, m5, g5, l5 = report("gf=0.5 fused (slice)", r5, ch5, secs, inst,
+                            800, NF05_CHAINS, NF05_ITERS,
+                            ["flow_push", "flow_pull"])
+    del ch5
+    check(np.all((a5 >= 1.40) & (a5 <= 1.45)), f"NF gf=0.5: E|theta| {a5}")
+    check(np.all(np.abs(m5) <= 0.05), f"NF gf=0.5: mean theta {m5}")
+    secs, (r5p, ch5p), inst = path(
+        "run_glmcmc_nf_gf05_pooled", lambda: nf_run(
+            tmp, 3, "pooled", 0.5, NF_POOLED_CHAINS, NF05_ITERS),
+        only(flow_push=steps5 // 400, flow_pull=steps5))
+    a5p, _, g5p, l5p = report("gf=0.5 pooled (cursor)", r5p, ch5p, secs,
+                              inst, 800, NF_POOLED_CHAINS, NF05_ITERS,
+                              ["flow_push", "flow_pull"])
+    del ch5p
+    log(f"[nf] gf=0.5 acceptance, fused / pooled: global {g5:.5f} / "
+        f"{g5p:.5f} (limit +- {NF05_GACC_TOL}), local {l5:.5f} / {l5p:.5f}"
+        f" (limit +- {NF05_LACC_TOL})")
+    check(abs(g5 - g5p) <= NF05_GACC_TOL, "NF gf=0.5: global acceptance "
+          "of the fused and the pooled path differ")
+    check(abs(l5 - l5p) <= NF05_LACC_TOL, "NF gf=0.5: local acceptance "
+          "of the fused and the pooled path differ")
+
+    steps_s = NF_SCAN_ITERS - 1
+    secs, (rs, chs), inst = path(
+        "run_glmcmc_nf_scan", lambda: nf_run(
+            tmp, 4, "scan", 0.5, NF_SCAN_CHAINS, NF_SCAN_ITERS),
+        only(flow_push=steps_s, flow_pull=steps_s))
+    check(chs.shape == (NF_SCAN_CHAINS, NF_SCAN_ITERS, 2)
+          and bool(np.isfinite(chs).all()), "NF scan: chains")
+    log(f"[nf] scan: {NF_SCAN_CHAINS} chains x {NF_SCAN_ITERS}, "
+        f"{inst.split(secs, ['flow_push', 'flow_pull'])}; finite")
+    log("[launches] per path, counts set to 0 just before it: "
+        + "; ".join(f"{k} {v}" for k, v in paths.items()))
+    return paths, insts
+
+
+def mala_flow_kernel_rows(insts, paths):
+    """K6, K7-push and K7-pull at their main-path shapes (the arguments of
+    their last launch on their entry path): time per launch, the plain
+    version's time and agreement, bytes, operations, bound.  No single
+    PyTorch call computes a fused GLMALA transition or a 32-layer coupling
+    flow: no library time."""
+    import torch
+
+    rows = []
+
+    def median_ms(fn, reps=3):
+        fn()                                            # warm
+        return sorted(timed(fn, reps)[0] for _ in range(3))[1]
+
+    def row(name, source, replaces, key, main_path, max_abs, ms, plain_ms,
+            b):
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=paths[main_path][key],
+                    max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b[0], bound_by=b[1], library_ms=None,
+                    launches_by_path={k: v[key] for k, v in paths.items()})
+
+    # K6
+    kern, a, k = insts["run_glmala_fused"].last["glmala"]
+    ms = median_ms(lambda: kern.run(*a, **k))
+    got = kern.run(*a, **k)
+    plain_ms, want = timed(lambda: kern.plain(*a, **k), 1)
+    outs, refs = [*got[:5], *got[5]], [*want[:5], *want[5]]
+    C = a[1].shape[1]
+    max_abs, share = _chain_share(outs, refs, C)
+    check(share <= MAX_DIFF_SHARE, f"glmala at the main shape: {share:.3%} "
+          "of chains differ")
+    n_local = int(kern.T - int(a[5].sum()))
+    ops_l, sfu_l = glmala_ops(kern.d, kern.B, kern.cfg.n_grad, True)
+    ops_g, sfu_g = glmala_ops(kern.d, kern.B, kern.cfg.n_grad, False)
+    ops = C * (n_local * ops_l + (kern.T - n_local) * ops_g)
+    sfu = C * (n_local * sfu_l + (kern.T - n_local) * sfu_g)
+    moved = nbytes(*a[1:6], *outs)
+    b = bound_ms(moved, ops, sfu)
+    log(f"[K6] glmala at the main shape, {C:,} chains x T={kern.T} "
+        f"({n_local} local steps), num_grad={kern.cfg.n_grad}: max abs "
+        f"diff {max_abs:.3g}, share of chains differing {share:.3g}; kernel"
+        f" {ms:.3f} ms, plain {plain_ms:.1f} ms; {moved / 1e9:.4f} GB, "
+        f"{ops:.4g} operations and {sfu:.4g} special-function operations "
+        f"-> bound {b[0]:.4f} ms ({b[1]})")
+    rows.append(row("glmala", "glabc_tpu_torch/csrc/glmala.cu",
+                    "glabc_tpu/ops/pallas/glmala_kernel.py:131", "glmala",
+                    "run_glmala_fused", max_abs, ms, plain_ms, b))
+    del got, want, outs, refs
+
+    # K7 push: the gf=1 run's last pool draw; the plain version over
+    # chunks of 2^20 rows (per-layer matmuls at once would need ~60 GB)
+    for key, main, name in (("flow_push", "run_glmcmc_nf_gf1", "K7-push"),
+                            ("flow_pull", "run_glmcmc_nf_gf05", "K7-pull")):
+        kern, (flow, x), k = insts[main].last[key]
+        ms = median_ms(lambda: kern.run(flow, x, **k),
+                       1 if x.shape[1] > (1 << 22) else 20)
+        got = kern.run(flow, x)
+        chunk = 1 << 20
+        plain_ms, max_abs, err = 0.0, 0.0, 0.0
+        for c0 in range(0, x.shape[1], chunk):
+            xc = x[:, c0:c0 + chunk].contiguous()
+            t_ms, want = timed(lambda: kern.plain(flow, xc), 1)
+            plain_ms += t_ms
+            for a_, b_ in zip((got[0][:, c0:c0 + chunk], got[1][c0:c0 + chunk]),
+                              want):
+                max_abs = max(max_abs, float((a_ - b_).abs().max()))
+                err = max(err, _rel_err(a_, b_))
+            del want
+        check(err <= FLOW_TOL, f"{key} at the main shape: {err:.3g} > "
+              f"{FLOW_TOL}")
+        d, N = x.shape
+        fm = flow_fmas(d, flow.n_layers, flow.hidden) * N
+        weights = nbytes(*flow.stack())
+        moved = nbytes(x, *got) + weights
+        b = bound_ms(moved, fm, N * flow.n_layers * (d // 2))
+        tf32_ms = 1e3 * 2 * fm / 495e12
+        log(f"[{name}] {key} at the main shape, {N:,} rows, d={d}, "
+            f"{flow.n_layers} layers x {flow.hidden}: max abs diff "
+            f"{max_abs:.3g}, max |diff| / max(1, |x|) {err:.3g}; kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.1f} ms; {moved / 1e9:.4f} GB, "
+            f"{fm:.4g} multiply-adds -> bound {b[0]:.4f} ms ({b[1]}); the "
+            f"same work at the TF32 tensor-core peak (495 TFLOP/s): "
+            f"{tf32_ms:.4f} ms")
+        rows.append(row(f"coupling_flow ({key.split('_')[1]})",
+                        "glabc_tpu_torch/csrc/coupling_flow.cu",
+                        "glabc_tpu/ops/pallas/flow_kernel.py:"
+                        + ("149" if key == "flow_push" else "164"), key,
+                        main, max_abs, ms, plain_ms, b))
+        del got
+    return rows
 
 
 def _agl_row(name, source, replaces, key, paths, main_path, max_abs, ms,
@@ -1170,24 +1707,31 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--seed-spread"]:
         phase_device()
-        seed_spread(int(sys.argv[2]))
+        seed_spread(int(sys.argv[2]),
+                    sys.argv[3:] or ("agl", "glmala", "nf"))
         return
 
     name, card = phase_device()
     phase_build()
     phase_kernel_vs_plain()
     phase_agl_kernels_vs_plain()
+    phase_mala_flow_kernels_vs_plain()
 
     # each path runs with the launch counts set to 0 just before it
     bench = phase_main_bench(card)
     with tempfile.TemporaryDirectory() as tmp:
         carry3, prob3, paths = phase_entry_points(tmp)
         agl_paths, insts = phase_aglmcmc(tmp)
-    paths = {"bench": bench["launches"], **paths, **agl_paths}
+        mala_paths, mala_insts = phase_glmala(tmp)
+        nf_paths, nf_insts = phase_glmcmc_nf(tmp)
+    paths = {"bench": bench["launches"], **paths, **agl_paths, **mala_paths,
+             **nf_paths}
 
     rows = phase_kernels_line(bench, carry3, prob3, paths)
     rows += agl_kernel_rows(insts, paths)
     del insts
+    rows += mala_flow_kernel_rows({**mala_insts, **nf_insts}, paths)
+    del mala_insts, nf_insts
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

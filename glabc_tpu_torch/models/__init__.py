@@ -1,4 +1,5 @@
 from .distributions import DiagGaussian, Gamma, GaussianMixture, Uniform
+from .flows import CouplingFlow
 from .kde import KernelDensity
 from .problems import ABCProblem, HighDimMixtureProblem, MixtureProblem
 
@@ -8,6 +9,7 @@ __all__ = [
     "DiagGaussian",
     "GaussianMixture",
     "KernelDensity",
+    "CouplingFlow",
     "ABCProblem",
     "MixtureProblem",
     "HighDimMixtureProblem",

@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels (``csrc/``) with their plain torch versions."""
 
+from .flow_kernel import FlowPull, FlowPush, flow_pull_fused, flow_push_fused
+from .glmala_kernel import FusedMixtureGLMALA
 from .kde_logprob_kernel import (BatchedMixtureLogProb, batched_kde_log_prob,
                                  kde_logprob_inputs)
 from .mixture_kernel import FusedMixtureGLMCMC, FusedStats, fused_state_init
@@ -10,6 +12,11 @@ from .pool_isir_mixed_kernel import (PoolISIRMixed, ResidentProposal,
                                      resident_from_gaussian, resident_from_kde)
 
 __all__ = [
+    "FlowPull",
+    "FlowPush",
+    "flow_pull_fused",
+    "flow_push_fused",
+    "FusedMixtureGLMALA",
     "BatchedMixtureLogProb",
     "batched_kde_log_prob",
     "kde_logprob_inputs",

@@ -59,6 +59,14 @@ SOURCES = {
         "glabc_pool_isir_mixed": [_P] * 18 + [_I] * 6 + [_F] * 8
         + [_U] * 3 + [_I, _P],
     },
+    "glmala": {
+        "glabc_glmala": [_P] * 15 + [_I] * 7 + [_F] * 18 + [_U] * 3
+        + [_I, _P],
+    },
+    "coupling_flow": {
+        "glabc_coupling_flow": [_P] * 9 + [_I] * 6 + [_P],
+        "glabc_coupling_flow_max_rows": [_I, _I],
+    },
 }
 
 

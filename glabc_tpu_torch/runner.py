@@ -6,10 +6,12 @@ writing and end-of-run summary, plus ``num_chains``, a seed, and an explicit
 ``device``.  The runner holds one ``torch.Generator`` on its device; each run
 draws a fresh child generator from it unless one is passed.
 
-Ported: ``run_global_mcmc``, ``run_glmcmc`` and ``run_aglmcmc``, each with
-``method='scan'`` (the plain torch path) and ``method='fused'`` (the CUDA
-kernels).  ``run_glmala`` and ``run_glmcmc_nf`` raise
-``NotImplementedError`` naming their ROADMAP item.
+All five methods are ported.  ``run_global_mcmc``, ``run_glmcmc``,
+``run_aglmcmc`` and ``run_glmala`` take ``method='scan'`` (the plain torch
+path) or ``method='fused'`` (the CUDA kernels); ``run_glmcmc_nf`` takes
+``'pooled'`` (default), ``'fused'`` or ``'scan'``, routed as in the JAX
+runner.  ``tile_program=`` (the generic TileProgram kernels) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,8 +26,13 @@ from ._device import resolve_device
 from .ops.stats import chain_summary
 from .samplers.aglmcmc import run_aglmcmc
 from .samplers.aglmcmc_fused import run_aglmcmc_fused
+from .samplers.glmala import run_glmala
+from .samplers.glmala_fused import run_glmala_fused
 from .samplers.glmcmc import run_glmcmc
 from .samplers.glmcmc_fused import run_global_mcmc_fused, run_glmcmc_fused
+from .samplers.glmcmc_nf import run_glmcmc_nf
+from .samplers.glmcmc_nf_fused import (run_glmcmc_nf_fused,
+                                       run_glmcmc_nf_pooled)
 from .samplers.global_mcmc import run_global_mcmc
 from .utils.io import ChainWriter
 
@@ -231,10 +238,87 @@ class MCMCRunner:
             raise ValueError(f"method must be 'scan' or 'fused', got {method!r}")
         return self._finish(res, "AGLMCMC")
 
-    def run_glmala(self, *args, **kwargs):
-        raise NotImplementedError("GLMALA is not ported yet (ROADMAP Queue 1, "
-                                  "M9)")
+    def run_glmala(self, num_iterations, initial_theta, initial_y,
+                   global_frequency, importance_proposal, batch_size, tau,
+                   num_grad, output_file: Optional[str] = "glmala_results.csv",
+                   generator=None, method: str = "scan", **kwargs):
+        """GLMALA (reference ``MCMCRunner.py:78-98``).  ``method='fused'``
+        runs the fused GLMALA kernel (Mixture-family problems,
+        ``theta_dim`` in {1, 2, 4, 8}, isotropic importance proposal;
+        ``coin_mode='shared'`` by default); ``'scan'`` the plain torch path
+        for any problem."""
+        if kwargs.get("tile_program") is not None:
+            raise NotImplementedError(
+                "tile_program= (the generic GLMALA kernel) is not ported yet "
+                "(ROADMAP Queue 1, M11)")
+        kwargs.pop("tile_program", None)
+        on_segment = self._writer(output_file, initial_theta)
+        gen = self._next_generator(generator)
+        if method == "fused":
+            ip_loc, ip_scale = self._isotropic(importance_proposal,
+                                               "importance proposal")
+            res = run_glmala_fused(
+                self.abc_set, gen, num_iterations, initial_theta,
+                y0=initial_y, ip_loc=ip_loc, ip_scale=ip_scale,
+                global_frequency=global_frequency, batch_size=batch_size,
+                tau=tau, num_grad=num_grad, num_chains=self.num_chains,
+                on_segment=on_segment, device=self.device, **kwargs)
+        elif method == "scan":
+            res = run_glmala(
+                self.abc_set, gen, num_iterations, initial_theta,
+                importance_proposal, global_frequency, batch_size, tau,
+                num_grad, y0=initial_y, num_chains=self.num_chains,
+                segment_size=self.segment_size, on_segment=on_segment,
+                device=self.device, **kwargs)
+        else:
+            raise ValueError(f"method must be 'scan' or 'fused', got {method!r}")
+        return self._finish(res, "GLMALA")
 
-    def run_glmcmc_nf(self, *args, **kwargs):
-        raise NotImplementedError("GLMCMC-NF is not ported yet (ROADMAP Queue "
-                                  "1, M10)")
+    def run_glmcmc_nf(self, num_iterations, initial_theta, initial_y,
+                      global_frequency, local_proposal,
+                      importance_proposal_base, batch_size, step_size,
+                      train_steps,
+                      output_file: Optional[str] = "glmcmc_nf_results.csv",
+                      generator=None, method: str = "pooled", **kwargs):
+        """GLMCMC-NF (reference ``MCMCRunner.py:100-121``).
+        ``importance_proposal_base`` is the flow's base (a ``DiagGaussian``).
+
+        * ``'pooled'`` (default): per-epoch flow pools, training on the
+          consumed pool, one flow pull per step (cursor cadence);
+        * ``'fused'``: at ``global_frequency == 1`` the pool-iSIR kernel
+          (every move global); below it the pooled path with slice-per-step
+          cadence;
+        * ``'scan'``: fresh flow draws at every step.
+
+        Every flow evaluation outside training is the K7 kernel on the
+        card."""
+        on_segment = self._writer(output_file, initial_theta)
+        gen = self._next_generator(generator)
+        gf = float(global_frequency)
+        common = dict(base=importance_proposal_base, batch_size=batch_size,
+                      step_size=step_size, train_steps=train_steps,
+                      y0=initial_y, num_chains=self.num_chains,
+                      on_segment=on_segment, device=self.device)
+        if method == "fused" and gf == 1.0:
+            res = run_glmcmc_nf_fused(
+                self.abc_set, gen, num_iterations, initial_theta,
+                local_proposal, **common, **kwargs)
+        elif method in ("fused", "pooled"):
+            if method == "fused":
+                if kwargs.pop("cadence", "slice") != "slice":
+                    raise ValueError(
+                        "method='fused' at global_frequency < 1 runs the "
+                        "slice cadence; use method='pooled' for the cursor "
+                        "cadence")
+                kwargs["cadence"] = "slice"
+            res = run_glmcmc_nf_pooled(
+                self.abc_set, gen, num_iterations, initial_theta,
+                local_proposal, global_frequency=gf, **common, **kwargs)
+        elif method == "scan":
+            res = run_glmcmc_nf(
+                self.abc_set, gen, num_iterations, initial_theta,
+                local_proposal, global_frequency=gf, **common, **kwargs)
+        else:
+            raise ValueError(f"method must be 'pooled', 'fused' or 'scan', "
+                             f"got {method!r}")
+        return self._finish(res, "GLMCMC-NF")

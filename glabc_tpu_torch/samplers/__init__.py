@@ -7,8 +7,13 @@ from .base import (MoveCounts, SamplerResult, StepOut, independence_mh_move,
 from .chain import ChainCarry, init_chain_carry, sample_with_step
 from .global_mcmc import (GlobalMCMCConfig, build_global_mcmc_step,
                           run_global_mcmc)
+from .glmala import (GLMALAConfig, build_glmala_step, run_glmala,
+                     synthetic_likelihood_grad)
+from .glmala_fused import run_glmala_fused
 from .glmcmc import GLMCMCConfig, build_glmcmc_step, run_glmcmc
 from .glmcmc_fused import run_glmcmc_fused, run_global_mcmc_fused
+from .glmcmc_nf import GLMCMCNFConfig, NFResult, run_glmcmc_nf
+from .glmcmc_nf_fused import run_glmcmc_nf_fused, run_glmcmc_nf_pooled
 
 __all__ = [
     "AGLCarry",
@@ -39,4 +44,14 @@ __all__ = [
     "run_glmcmc",
     "run_glmcmc_fused",
     "run_global_mcmc_fused",
+    "GLMALAConfig",
+    "build_glmala_step",
+    "run_glmala",
+    "synthetic_likelihood_grad",
+    "run_glmala_fused",
+    "GLMCMCNFConfig",
+    "NFResult",
+    "run_glmcmc_nf",
+    "run_glmcmc_nf_fused",
+    "run_glmcmc_nf_pooled",
 ]

@@ -1,5 +1,5 @@
-"""Carry problems, proposals, KDEs, pools and fused-kernel state across
-from the JAX package, as numpy arrays.
+"""Carry problems, proposals, KDEs, pools, flows and fused-kernel state
+across from the JAX package, as numpy arrays.
 
 This module imports nothing of ``glabc_tpu``: callers pass the JAX objects'
 parameters as numpy (``np.asarray(problem.y_obs)``, ``problem.epsilon``,
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..models.distributions import DiagGaussian
+from ..models.flows import CouplingFlow
 from ..models.kde import KernelDensity
 from ..models.problems import HighDimMixtureProblem, MixtureProblem
 from ..ops.kernels.pool_isir_mixed_kernel import ResidentProposal
@@ -21,7 +22,8 @@ from ..samplers.aglmcmc import Pool
 __all__ = ["mixture_problem_from_numpy", "diag_gaussian_from_numpy",
            "state_from_numpy", "state_to_numpy", "kde_from_numpy",
            "pool_from_numpy", "resident_from_numpy", "pool_slice_from_numpy",
-           "agl_state_from_numpy"]
+           "agl_state_from_numpy", "coupling_flow_from_numpy",
+           "glmala_state_from_packed", "nf_fused_state_from_numpy"]
 
 
 def _f32(x, device):
@@ -100,3 +102,36 @@ def agl_state_from_numpy(tile, d: int, device=None):
     ``(1, C)`` row) -> the port's ``(d, C)`` or ``(C,)``."""
     x = np.asarray(tile, np.float32)
     return _f32(x[0] if x.shape[0] == 1 else x[:d], device)
+
+
+def coupling_flow_from_numpy(w0, b0, w1, b1, w2, b2, loc, log_scale,
+                             device=None) -> CouplingFlow:
+    """A :class:`CouplingFlow` from the JAX flow's ``_CouplingStack`` leaves
+    (``(L, d1, H)``, ``(L, H)``, ``(L, H, H)``, ``(L, H)``, ``(L, H,
+    2*d2)``, ``(L, 2*d2)``) and its base's ``loc`` and ``log_scale``."""
+    return CouplingFlow(*(_f32(a, device) for a in (loc, log_scale, w0, b0,
+                                                    w1, b1, w2, b2)))
+
+
+def glmala_state_from_packed(tile, d: int, aux: bool = False, device=None):
+    """A JAX packed GLMALA tile ``(8, C)`` (theta, y or the gradient; dim
+    ``j`` of chain ``p*C + c`` at row ``p*d + j``) -> the port's ``(d,
+    8/d * C)``, in ``unpack_history``'s chain order.  ``aux=True``: logk or
+    a counter (on each chain group's leader row) -> ``(8/d * C,)``."""
+    x = np.asarray(tile, np.float32)
+    C = x.shape[1]
+    pack = x.shape[0] // d
+    x = x.reshape(pack, d, C)
+    if aux:
+        return _f32(x[:, 0, :].reshape(pack * C), device)
+    return _f32(x.transpose(1, 0, 2).reshape(d, pack * C), device)
+
+
+def nf_fused_state_from_numpy(theta_k, y_cur, logk, logw_k, d: int,
+                              device=None):
+    """The JAX gf=1 NF driver's ``fused_state`` (theta ``(d_pad, C)``, y
+    ``(C, d)``, log K ``(C,)``, carried log-weight ``(1, C)``) -> the
+    port's ``(theta (d, C), y (C, d), logk (C,), logw (C,))``."""
+    return (agl_state_from_numpy(theta_k, d, device), _f32(y_cur, device),
+            _f32(np.asarray(logk).reshape(-1), device),
+            agl_state_from_numpy(logw_k, d, device))

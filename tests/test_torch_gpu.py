@@ -227,3 +227,90 @@ def test_shared_support_keeps_light_rows(cuda):
                                 torch.tensor(1.0, device=cuda), 4096, g)
     share = float((picks[:, 0] > 5e-4).float().mean())
     assert abs(share - 0.2) < 0.02, share
+
+
+# ------------------------------------------- GLMALA (K6) and the flow (K7)
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+@pytest.mark.parametrize("coin_mode", ["shared", "per_chain"])
+def test_glmala_matches_plain(cuda, d, coin_mode):
+    """K6 against its plain version on one Philox stream: at most 0.1% of
+    chains may differ by more than 1e-5 (an accept test at its threshold
+    can round either way), and the first step's history equal."""
+    from glabc_tpu_torch.ops.kernels import FusedMixtureGLMALA
+
+    T, C = 8, 4096
+    prob = _problem(d) if d > 1 else HighDimMixtureProblem(1)
+    kern = FusedMixtureGLMALA(d, prob.y_obs.numpy(), epsilon=prob.epsilon,
+                              sigma=prob._noise_std, global_frequency=0.5,
+                              num_grad=50, steps_per_call=T,
+                              block_chains=128, coin_mode=coin_mode)
+    g = torch.Generator(device=cuda).manual_seed(d)
+    theta = (torch.randn((d, C), generator=g, device=cuda) * 1.3).contiguous()
+    y = (theta.abs() + 0.2 * torch.randn((d, C), generator=g,
+                                         device=cuda)).contiguous()
+    logk = prob.log_kernel_of_y(y.T.contiguous()).contiguous()
+    grad = torch.randn((d, C), generator=g, device=cuda)
+    coins = torch.tensor([1, 0, 0, 1, 0, 1, 0, 0], dtype=torch.int32)
+    before = FusedMixtureGLMALA.launches
+    got = kern.run(5, theta, y, logk, grad, coins, step0=64)
+    assert FusedMixtureGLMALA.launches == before + 1
+    want = kern.plain(5, theta, y, logk, grad, coins, step0=64)
+    torch.cuda.synchronize()
+    bad = torch.zeros(C, dtype=torch.bool, device=cuda)
+    for a, b in zip([*got[:5], *got[5]], [*want[:5], *want[5]]):
+        assert torch.isfinite(a).all()
+        bad |= ((a - b).abs() > 1e-5).reshape(-1, C).any(0)
+    assert bad.float().mean().item() <= 1e-3
+    assert torch.allclose(got[4][0], want[4][0], rtol=0, atol=1e-5)
+    assert 0.0 < got[5][3].sum().item() < C * T    # local accepts happen
+
+
+def _flow_on(cuda, d, L=8, H=128, seed=0):
+    from glabc_tpu_torch.models.flows import CouplingFlow
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    f = CouplingFlow.create(d, L, H, generator=g, device=cuda)
+    with torch.no_grad():   # a flow that is not the identity
+        f.w2.copy_(torch.randn(f.w2.shape, generator=g, device=cuda) * 0.02)
+        f.b2.copy_(torch.randn(f.b2.shape, generator=g, device=cuda) * 0.05)
+    return f, g
+
+
+@pytest.mark.parametrize("d,N", [(2, 4099), (3, 1000), (8, 777), (2, 64)])
+@pytest.mark.parametrize("H", [128, 32])
+def test_flow_kernel_matches_plain(cuda, d, N, H):
+    """K7 push and pull against the plain flow (float32 matmuls), to 1e-4
+    max(1, |x|): the kernel sums its products in another order."""
+    from glabc_tpu_torch.ops.kernels import FlowPull, FlowPush
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f, g = _flow_on(cuda, d, H=H, seed=d + N)
+    z = torch.randn((d, N), generator=g, device=cuda)
+    for cls in (FlowPush, FlowPull):
+        before = cls.launches
+        out, s = cls().run(f, z)
+        assert cls.launches == before + 1
+        ref, s_ref = cls().plain(f, z)
+        torch.cuda.synchronize()
+        for a, b in ((out, ref), (s, s_ref)):
+            assert torch.isfinite(a).all()
+            err = ((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
+            assert err <= 1e-4, (cls.__name__, err)
+    x, s = FlowPush().run(f, z)
+    back, s_b = FlowPull().run(f, x)
+    assert torch.allclose(back, z, rtol=1e-4, atol=1e-4)
+    assert torch.allclose(s_b, s, rtol=1e-4, atol=1e-4)
+
+
+def test_flow_plain_refuses_tf32(cuda):
+    from glabc_tpu_torch.ops.kernels import FlowPush
+
+    f, g = _flow_on(cuda, 2, L=2, H=16)
+    z = torch.randn((2, 64), generator=g, device=cuda)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            FlowPush().plain(f, z)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

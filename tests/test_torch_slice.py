@@ -227,9 +227,13 @@ def test_runner_summary_and_unported_methods(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[GLMCMC] 4 chain(s) x 33 iterations" in out
     assert "R-hat" in out
-    for name in ("run_glmala", "run_glmcmc_nf"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(runner, name)()
+    # every runner method is ported; the options still to port raise
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        runner.run_glmala(5, np.zeros(2), None, 0.8, IP, 5, 0.3, 4,
+                          method="fused", tile_program=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        runner.run_glmcmc_nf(5, np.zeros(2), None, 0.5, LP, IP, 5, 4, 2,
+                             mesh=object())
     with pytest.raises(NotImplementedError):
         MCMCRunner(PROB, output_dir=str(tmp_path), use_native_io=True,
                    device="cpu")
