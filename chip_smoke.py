@@ -8,8 +8,9 @@ Run from the repository root, on a machine with a CUDA GPU and ``nvcc``::
 Phases, each reported on its own lines:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: every ``glabc_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one
-   process per source, all at once (registers, spills);
+2. build: every ``glabc_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, and
+   the generic kernels for each shipped program header, one process per
+   library, all at once (registers, spills);
 3. kernels against their plain torch versions on one Philox stream: the
    Philox known-answer vectors, then T=64 steps of 65,536 chains for packed
    d=2 (GLMCMC and GlobalMCMC), unpacked d=2, d=3 and d=5 (the runtime-d
@@ -41,22 +42,33 @@ Phases, each reported on its own lines:
    coins at 32,768 x 513, beside the plain path at 1,024 x 2,049, held to
    the posterior and move-fraction bands and to the plain path's global
    acceptance; the local acceptance of each, side by side (phase 3 also
-   checks K6 at d in {2, 8}, both coin modes, and K7 push and pull at d in
-   {2, 3, 8}, ragged row counts and 1,048,576 rows, against their plain
-   versions);
+   checks K6 at d in {2, 8}, both coin modes, K7 push and pull at d in
+   {2, 3, 8}, ragged row counts and 1,048,576 rows, and the generic
+   kernels K8 and K9 on the Mixture and MA(2) programs and K5's program
+   variant on MA(2), against their plain versions);
 8. GLMCMC-NF through ``MCMCRunner.run_glmcmc_nf``: ``method='fused'`` at
    gf=1 (32,768 chains x 801: K7 pushes the pools, K3 runs the segments,
    one K7 pull per epoch) and at gf=0.5 (8,192 x 4,001, slice cadence: one
    K7 pull per step), each beside ``method='pooled'`` at 2,048 chains, and
    ``method='scan'`` at 256 x 401; wall time split into kernels, training,
    history copies and the rest;
-9. each kernel against its plain version at its main-path shape, times,
+9. the generic program path on MA(2) at the JAX package's full width
+   (num_draws=100): ``run_fused_program`` (K8) at 65,536 chains x 1,025
+   beside the plain ``run_glmcmc`` at 4,096, and the Mixture program held
+   to the Mixture bands; ``MCMCRunner.run_glmala(tile_program=...)`` (K9)
+   with the shared coin at 65,536 x 257 and per-chain coins at 16,384 x
+   257 beside the plain path at 1,024; ``run_aglmcmc`` at gf=0.5 with
+   ``tile_program=`` (K5's program variant) at 8,192 x 2,001 beside the
+   plain shared-adaptation path at 2,048; each run's wall time split into
+   kernel, initial gradient or epochs, history copies and the rest;
+10. each kernel against its plain version at its main-path shape, times,
    bytes, operations and bounds, and its launches on every path of phases
-   4-8, counted from 0 just before each path and read just after it.
+   4-9, counted from 0 just before each path and read just after it.
 
-``python3 chip_smoke.py --seed-spread N [agl] [glmala] [nf]`` runs only
-phase 1 and the compared paths of phases 6-8 over N seeds each and prints
-the spread of the statistics those phases compare.
+``python3 chip_smoke.py --seed-spread N [agl] [glmala] [nf] [ma2]
+[glmala_prog] [agl_prog]`` runs only phase 1 and the compared paths of
+phases 6-9 over N seeds each and prints the spread of the statistics those
+phases compare.
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before them;
@@ -117,6 +129,22 @@ NF_SCAN_CHAINS = 256   # the per-step path, finiteness and launches only
 NF_SCAN_ITERS = 401
 FLOW_TOL = 1e-4        # K7 against plain: |diff| <= FLOW_TOL max(1, |x|)
 
+# The generic program path on MA(2) at the JAX package's full width
+# (num_draws=100, epsilon 0.2, JAX's y_obs): GLMCMC gf=0.8, B=5, random walk
+# 0.1; GLMALA gf=0.8, B=5, tau 0.1, num_grad 100, fd 0.1; AGLMCMC gf=0.5,
+# B=5, step 200, shared 1,024-point KDE (examples/ma2.py).
+PROG_CHAINS = 65536    # K8 run_fused_program: 4 launches of T=256
+PROG_ITERS = 1025
+PROG_SCAN_CHAINS = 4096  # the plain run_glmcmc beside it
+MALA_PROG_CHAINS = 65536  # K9 shared coin, 16 launches of T=16: the chain
+MALA_PROG_ITERS = 257     # count of the JAX package's generic GLMALA bench
+MALA_PROG_PC_CHAINS = 16384  # K9 per-chain coin, 16 launches: the plain
+MALA_PROG_PC_ITERS = 257     # path's length, as the rates depend on it
+MALA_PROG_SCAN_CHAINS = 1024  # the plain run_glmala beside them
+AGL_PROG_CHAINS = 8192  # K5 program variant: 5 segments of 400
+AGL_PROG_ITERS = 2001
+AGL_PROG_SCAN_CHAINS = 2048  # the plain shared-adaptation path beside it
+
 CHAIN_TOL = 1e-5       # a chain "differs" when any value is further apart
 MAX_DIFF_SHARE = 1e-3  # accept tests at their threshold may round either way
 KDE_TOL = 1e-4         # K4 against plain: |diff| <= KDE_TOL max(1, |log q|)
@@ -140,6 +168,26 @@ MALA_GACC_TOL = 0.0002
 NF1_GACC_TOL = 0.00034
 NF05_GACC_TOL = 0.00015
 NF05_LACC_TOL = 0.00032
+# The MA(2) program runs against the plain path beside each: absolute limits
+# on the difference of posterior means and sds (GLMCMC), of acceptance rates
+# and means (GLMALA), of the final hat_eps and acceptance rates (AGLMCMC):
+# 4 sd of the difference of one run of each, the larger dim's (five seeds
+# estimate an sd loosely).  ``--seed-spread 5 ma2 glmala_prog agl_prog`` on
+# an H100 read per-run sds (fused / plain) of the GLMCMC means 0.00011 /
+# 0.00079 and 0.00011 / 0.00039, of its sds 0.00007 / 0.00038 and 0.00009 /
+# 0.00031; of the GLMALA global rate 0.00105 (shared coin) / 0.00026
+# (per-chain coin, 129 iterations) / 0.00071, of the per-chain local rate
+# 0.00061 / 0.00304, of the shared-coin means 0.00022 / 0.00302 and
+# 0.00019 / 0.00122; of the AGLMCMC hat_eps 0.00371 / 0.00461, global rate
+# 0.00264 / 0.00522 and local rate 0.00008 / 0.00066.
+MA2_MEAN_TOL = 0.0032
+MA2_SD_TOL = 0.0016
+MALA_PROG_GACC_TOL = 0.0051
+MALA_PROG_LACC_TOL = 0.0125
+MALA_PROG_MEAN_TOL = 0.0121
+AGL_PROG_EPS_TOL = 0.0237
+AGL_PROG_GACC_TOL = 0.0234
+AGL_PROG_LACC_TOL = 0.0027
 
 
 def log(msg):
@@ -215,17 +263,26 @@ def kde_ops(d):
     return d + 3
 
 
-def mixed_ops(d, B, S):
-    """Per K5 chain-step, what the function needs at the least: one pass of
-    the resident logsumexp over S components (d fused multiply-adds, the
-    max, the subtraction, the add: d + 3 each), the Philox blocks, uniforms
-    and Gumbels, the Box-Muller pairs and the local move (6d + 20), the
-    iSIR selects (B (2d + 5)).  Returns ``(ops, sfu)``; ``sfu`` counts the
-    S exponentials and the logs."""
-    blocks = -(-(B + 3) // 4) + -(-d // 2)
-    ops = (S * (d + 3) + 80 * blocks + 9 * (B + 3) + 8 * d
-           + 6 * d + 20 + B * (2 * d + 5))
-    return ops, S + 2 * (B + 1) + 3 + 2 * d
+def mixed_isir_ops(d, B, S):
+    """Per K5 chain-step, what the function needs at the least besides the
+    local move's own work: one pass of the resident logsumexp over S
+    components (d fused multiply-adds, the max, the subtraction, the add:
+    d + 3 each), the scalar Philox blocks, the B + 3 uniforms and the B + 1
+    Gumbels (9 each), the iSIR selects (B (2d + 5)), the MH test, the coin,
+    the final selects and the counters (20).  Returns ``(ops, sfu)``;
+    ``sfu`` counts the S exponentials, the Gumbels' logs, the log of the
+    sum and log u of the MH test."""
+    ops = (S * (d + 3) + 80 * -(-(B + 3) // 4) + 9 * (B + 3)
+           + B * (2 * d + 5) + 20)
+    return ops, S + 2 * (B + 1) + 2
+
+
+def builtin_local_ops(d):
+    """The built-in Mixture move's own work per K5 chain-step at the least,
+    ``(ops, sfu)``: ceil(d/2) Philox blocks, d Box-Muller pairs (8 each:
+    two uniforms and their multiplies), theta', y', the epsilon-kernel and
+    the prior (6d); ``sfu`` counts each pair's log, sqrt, sin and cos."""
+    return 80 * -(-d // 2) + 8 * d + 6 * d, 4 * d
 
 
 # ------------------------------------------------------------ comparison
@@ -317,26 +374,43 @@ def sass_counts(lib_path):
 
 
 def _wrappers():
+    """Each launch count: its key -> (wrapper class, counter attribute).
+    The mixed kernel keeps the count of its program variant apart."""
     from glabc_tpu_torch.ops.kernels import (BatchedMixtureLogProb, FlowPull,
                                              FlowPush, FusedMixtureGLMALA,
                                              FusedMixtureGLMCMC,
+                                             GenericFusedGLMALA,
+                                             GenericFusedGLMCMC,
                                              PackedMixtureGLMCMC, PoolISIR,
                                              PoolISIRMixed)
 
-    return {"packed": PackedMixtureGLMCMC, "unpacked": FusedMixtureGLMCMC,
-            "pool_isir": PoolISIR, "kde_logprob": BatchedMixtureLogProb,
-            "pool_isir_mixed": PoolISIRMixed, "glmala": FusedMixtureGLMALA,
-            "flow_push": FlowPush, "flow_pull": FlowPull}
+    out = {"packed": PackedMixtureGLMCMC, "unpacked": FusedMixtureGLMCMC,
+           "pool_isir": PoolISIR, "kde_logprob": BatchedMixtureLogProb,
+           "pool_isir_mixed": PoolISIRMixed, "glmala": FusedMixtureGLMALA,
+           "flow_push": FlowPush, "flow_pull": FlowPull,
+           "generic_glmcmc": GenericFusedGLMCMC,
+           "generic_glmala": GenericFusedGLMALA}
+    out = {k: (cls, "launches") for k, cls in out.items()}
+    out["pool_isir_mixed_prog"] = (PoolISIRMixed, "program_launches")
+    return out
+
+
+def _launch_key(key, kern):
+    """The count a wrapper's launch goes to (the mixed kernel's program
+    variant has its own)."""
+    if key == "pool_isir_mixed" and kern.program is not None:
+        return "pool_isir_mixed_prog"
+    return key
 
 
 def counted(fn):
     """``fn()`` with every wrapper's launch count set to 0 just before it;
     returns its result and the counts read just after."""
-    classes = _wrappers()
-    for cls in classes.values():
-        cls.launches = 0
+    counters = _wrappers()
+    for cls, attr in counters.values():
+        setattr(cls, attr, 0)
     out = fn()
-    return out, {k: cls.launches for k, cls in classes.items()}
+    return out, {k: getattr(cls, attr) for k, (cls, attr) in counters.items()}
 
 
 def only(**want):
@@ -370,23 +444,26 @@ def phase_build():
 
     t = time.perf_counter()
     _build.build_all()
-    for stem in _build.SOURCES:
-        _build.load_library(stem)
+    libs = [(s, None) for s in _build.SOURCES] + list(_build.SHIPPED)
+    for stem, prog in libs:
+        _build.load_library(stem, prog)
     seconds = time.perf_counter() - t
-    log(f"[build] {len(_build.SOURCES)} sources, one nvcc each at once, "
-        f"{' '.join(_build.NVCC_FLAGS)}: {seconds:.1f} s")
-    for stem in _build.SOURCES:
-        for line in _build.build_log(stem).splitlines():
+    log(f"[build] {len(libs)} libraries ({len(_build.SOURCES)} sources, "
+        f"{len(_build.SHIPPED)} (source, program) pairs), one nvcc each at "
+        f"once, {' '.join(_build.NVCC_FLAGS)}: {seconds:.1f} s")
+    for stem, prog in libs:
+        name = _build.lib_path(stem, prog).name
+        for line in _build.build_log(stem, prog).splitlines():
             if "Compiling entry" in line or "registers" in line or \
                     "spill" in line:
-                log(f"[build] {stem}: {line.strip()}")
-        counts = sass_counts(str(_build.lib_path(stem)))
+                log(f"[build] {name}: {line.strip()}")
+        counts = sass_counts(str(_build.lib_path(stem, prog)))
         if counts is None:
-            log(f"[build] {stem}: static SASS size: not measured (no "
+            log(f"[build] {name}: static SASS size: not measured (no "
                 "cuobjdump)")
         else:
             for fn, n in counts.items():
-                log(f"[build] {stem}: static SASS {fn}: {n} instructions")
+                log(f"[build] {name}: static SASS {fn}: {n} instructions")
 
 
 def make_kernel(layout, problem, T, algorithm="glmcmc"):
@@ -794,12 +871,15 @@ class Instrument:
     events, by wrapper), the wall time of each adaptation epoch, of each
     flow training step and of each synchronous host copy of a segment's
     history (each between two synchronizes), and the arguments of each
-    wrapper's last call, for the timing phase.  It launches nothing and
-    counts nothing."""
+    wrapper's last call, for the timing phase; ``prefer`` maps a launch key
+    to a score of ``(kern, args, kwargs)``, and that key keeps the call of
+    the highest score instead (the later on ties).  It launches nothing
+    and counts nothing."""
 
-    def __init__(self):
+    def __init__(self, prefer=None):
         self.events, self.last = {}, {}
-        for kind in ("epoch", "train", "copy"):
+        self.prefer, self._score = prefer or {}, {}
+        for kind in ("epoch", "train", "copy", "grad"):
             setattr(self, kind + "_s", 0.0)
             setattr(self, kind + "_n", 0)
 
@@ -831,6 +911,7 @@ class Instrument:
         import torch
         import glabc_tpu_torch.samplers.aglmcmc as agl
         import glabc_tpu_torch.samplers.aglmcmc_fused as fused
+        import glabc_tpu_torch.samplers.fused_program as prog
         import glabc_tpu_torch.samplers.glmala_fused as mala
         import glabc_tpu_torch.samplers.glmcmc_nf_fused as nf
 
@@ -841,12 +922,17 @@ class Instrument:
                                 owner.__dict__.get(name, _MISSING)))
             setattr(owner, name, new)
 
-        for key, cls in _wrappers().items():
-            if key in ("packed", "unpacked"):
+        for key, (cls, attr) in _wrappers().items():
+            if key in ("packed", "unpacked") or attr != "launches":
                 continue
 
             def run(kern, *a, _orig=cls.run, _key=key, **k):
-                self.last[_key] = (kern, a, k)
+                _key = _launch_key(_key, kern)
+                score = self.prefer.get(_key)
+                s = None if score is None else score(kern, a, k)
+                if s is None or s >= self._score.get(_key, s):
+                    self.last[_key] = (kern, a, k)
+                    self._score[_key] = s
                 e0 = torch.cuda.Event(enable_timing=True)
                 e1 = torch.cuda.Event(enable_timing=True)
                 e0.record()
@@ -862,8 +948,10 @@ class Instrument:
         orig = nf.make_pool_trainer
         patch(nf, "make_pool_trainer", lambda *a, _o=orig, **k: self._synced(
             _o(*a, **k), "train"))
+        patch(prog, "program_grad_init",
+              self._synced(prog.program_grad_init, "grad"))
         copy = self._synced(fused._history, "copy")
-        for mod in (fused, mala, nf):
+        for mod in (fused, mala, nf, prog):
             patch(mod, "_history", copy)
         return self
 
@@ -884,13 +972,14 @@ class Instrument:
             k = self.kernel_ms(key) / 1e3
             shown += k
             parts.append(f"{key} {k:.3f} s ({len(self.events.get(key, []))})")
-        for kind in ("epoch", "train", "copy"):
+        for kind in ("epoch", "train", "copy", "grad"):
             n = getattr(self, kind + "_n")
             if n:
                 sec = getattr(self, kind + "_s")
                 shown += sec
                 label = {"epoch": "epochs", "train": "training",
-                         "copy": "history copies"}[kind]
+                         "copy": "history copies",
+                         "grad": "initial gradient"}[kind]
                 parts.append(f"{label} {sec:.2f} s ({n})")
         return (f"wall {secs:.2f} s = " + " + ".join(parts)
                 + f" + other {secs - shown:.2f} s")
@@ -932,10 +1021,11 @@ def mixed_stats(res):
 
 
 def seed_spread(n, groups):
-    """``--seed-spread N [agl] [glmala] [nf]``: the statistics that the
-    entry phases compare, over N seeds of each path and of the path it is
-    compared with, with their means and standard deviations (the source of
-    the MIXED_*, MALA_* and NF*_ limits)."""
+    """``--seed-spread N [agl] [glmala] [nf] [ma2] [glmala_prog]
+    [agl_prog]``: the statistics that the entry phases compare, over N
+    seeds of each path and of the path it is compared with, with their
+    means and standard deviations (the source of the MIXED_*, MALA_*, NF*_,
+    MA2_*, MALA_PROG_* and AGL_PROG_* limits)."""
     import numpy as np
 
     def spread(label, run, seed0, names):
@@ -983,13 +1073,46 @@ def seed_spread(n, groups):
                        lambda s_: rates(nf_run(
                            tmp, s_, method, gf, chains, iters)[0]
                            .last_result), seed0, ("global", "local"))
+        if "ma2" in groups:
+            for method, chains, seed0 in (("fused", PROG_CHAINS, 900),
+                                          ("scan", PROG_SCAN_CHAINS, 1000)):
+                spread(f"MA(2) GLMCMC {method}, {chains:,} chains",
+                       lambda s_: tuple(np.concatenate(ma2_moments(ma2_run(
+                           tmp, s_, method, chains)))), seed0,
+                       ("mean1", "mean2", "sd1", "sd2"))
+        if "glmala_prog" in groups:
+            for method, coin, chains, iters, seed0 in (
+                    ("fused", "shared", MALA_PROG_CHAINS, MALA_PROG_ITERS,
+                     1100),
+                    ("fused", "per_chain", MALA_PROG_PC_CHAINS,
+                     MALA_PROG_PC_ITERS, 1200),
+                    ("scan", None, MALA_PROG_SCAN_CHAINS, MALA_PROG_ITERS,
+                     1300)):
+                kw = {} if coin is None else dict(coin_mode=coin)
+
+                def mala_stats(s_):
+                    res = mala_prog_run(tmp, s_, method, chains, iters,
+                                        **kw)[0].last_result
+                    return (*rates(res), *ma2_moments(res, 64)[0])
+                spread(f"MA(2) GLMALA {method} {coin or ''}, {chains:,} "
+                       "chains", mala_stats, seed0,
+                       ("global", "local", "mean1", "mean2"))
+        if "agl_prog" in groups:
+            for method, chains, seed0 in (("fused", AGL_PROG_CHAINS, 1400),
+                                          ("scan", AGL_PROG_SCAN_CHAINS,
+                                           1500)):
+                spread(f"MA(2) AGLMCMC gf=0.5 {method}, {chains:,} chains",
+                       lambda s_: mixed_stats(agl_prog_run(
+                           tmp, s_, method, chains)[0].last_result), seed0,
+                       ("hat_eps", "global", "local"))
 
 
-def instrumented(paths, insts, name, fn, want):
-    """One entry path under an :class:`Instrument`, with every launch count
-    set to 0 just before it; the counts must equal ``want``.  Returns the
-    host seconds, ``fn``'s result and the instrument."""
-    with Instrument() as inst:
+def instrumented(paths, insts, name, fn, want, prefer=None):
+    """One entry path under an :class:`Instrument` (``prefer`` as there),
+    with every launch count set to 0 just before it; the counts must equal
+    ``want``.  Returns the host seconds, ``fn``'s result and the
+    instrument."""
+    with Instrument(prefer) as inst:
         (secs, out), counts = counted(lambda: wall(fn))
     paths[name], insts[name] = counts, inst
     check(counts == want, f"{name}: launches {counts}, expected {want}")
@@ -1614,7 +1737,7 @@ def agl_kernel_rows(insts, paths):
     max_abs, share = _chain_share(got, want, C)
     check(share <= MAX_DIFF_SHARE, f"pool_isir_mixed at the main shape: "
           f"{share:.3%} of chains differ")
-    ops, sfu = mixed_ops(d, B, S)
+    ops, sfu = map(sum, zip(mixed_isir_ops(d, B, S), builtin_local_ops(d)))
     moved = nbytes(*a[1], *a[2:9], *(x for x in got if x is not None))
     b = bound_ms(moved, ops * C * T, sfu * C * T)
     log(f"[K5] pool_isir_mixed at the main shape, {C:,} chains x T={T}, "
@@ -1690,6 +1813,537 @@ def phase_kernels_line(bench, carry3, prob3, paths):
     return rows
 
 
+# ------------------------------------------------ the generic program path
+def ma2_sim_ops(T):
+    """32-bit operations of one MA(2) simulation of ``T`` steps at the
+    least, ``(ops, sfu)``: the Philox blocks of its ``T + 2`` innovations
+    (80 each), 5 per uniform, the Box-Muller pairs' multiplies (4 each),
+    and per step the recursion (2 multiplies, 2 adds) and the three
+    running sums (3 multiplies, 3 adds), then the three scalings; ``sfu``
+    counts each pair's log, sqrt, sin and cos."""
+    pairs = (T + 3) // 2
+    return (80 * -(-2 * pairs // 4) + 5 * 2 * pairs + 4 * pairs + 10 * T
+            + 3), 4 * pairs
+
+
+_MA2_KERN = 11                       # the epsilon-kernel: 3 x (sub, mul,
+#                                      add) + 2
+
+
+def ma2_local_ops(T):
+    """The MA(2) random-walk move's own work at the least, ``(ops, sfu)``:
+    a block of two Box-Muller pairs (80, and 10 + 8 each), theta' (4), a
+    simulation, the epsilon-kernel, the triangle test (6) and the MH ratio
+    and selects (10); ``sfu`` counts the pairs' and the simulation's (the
+    MH test's log u is the caller's)."""
+    sim, sim_sfu = ma2_sim_ops(T)
+    return (80 + 2 * (10 + 8) + 4 + sim + _MA2_KERN + 6 + 10,
+            2 * 4 + sim_sfu)
+
+
+def ma2_step_ops(T, B, kind, n_grad=0):
+    """32-bit operations of one chain-step of the generic kernels on the
+    MA(2) program at the least, ``(ops, sfu)``.  ``kind``: 'global' (B
+    candidates: a uniform block, the box draw, a simulation, the
+    epsilon-kernel, the triangle test, the Gumbel score and the selects),
+    'local' (K8's random walk, :func:`ma2_local_ops`, and its log u),
+    'mala' (K9: the drift pair, the proposal's simulation, 2 d n_grad
+    gradient simulations with their discrepancies and running sums, the
+    synthetic likelihood and the MH test).  Each step adds the scalar
+    blocks, the coin and the counters."""
+    sim, sim_sfu = ma2_sim_ops(T)
+    ops, sfu = 80 * -(-(B + 3) // 4) + 5 * (B + 3) + 20, 0
+    kern = _MA2_KERN
+    if kind == "global":
+        ops += B * (80 + 10 + 4 + sim + kern + 6 + 4 + 10)
+        sfu += B * (sim_sfu + 2) + 2
+    elif kind == "local":
+        o, s = ma2_local_ops(T)
+        ops, sfu = ops + o, sfu + s + 1
+    else:
+        grad = 2 * 2 * n_grad * (sim + kern + 4) + 2 * 2 * 20
+        ops += 80 + 2 * 18 + 8 + sim + kern + grad + 40
+        sfu += 2 * 4 + sim_sfu * (1 + 4 * n_grad) + 4 * n_grad + 8
+    return ops, sfu
+
+
+def _ma2_setup():
+    import torch
+    from glabc_tpu_torch import DiagGaussian, MA2Problem, Uniform
+
+    prob = MA2Problem()           # num_draws=100, epsilon 0.2, JAX's y_obs
+    box = Uniform(torch.tensor([-2.0, -1.0], device=DEVICE),
+                  torch.tensor([2.0, 1.0], device=DEVICE))
+    lp = DiagGaussian.create(2, 0.0, math.log(0.1))
+    return prob, box, lp
+
+
+def _inside(ch):
+    import numpy as np
+
+    return bool(np.all((ch[..., 1] < 1.0) & (ch[..., 1] > ch[..., 0] - 1.0)
+                       & (ch[..., 1] > -ch[..., 0] - 1.0)))
+
+
+def ma2_run(tmp, seed, method, chains):
+    """MA(2) GLMCMC at gf=0.8, B=5: ``fused`` through run_fused_program
+    (K8), ``scan`` the plain run_glmcmc (uniform box importance proposal,
+    N(0, 0.1^2) random walk).  Returns the result."""
+    import numpy as np
+    import torch
+    from glabc_tpu_torch import MCMCRunner, run_fused_program
+
+    prob, box, lp = _ma2_setup()
+    if method == "fused":
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        return run_fused_program(prob, prob.tile_program(lp_scale=0.1), g,
+                                 PROG_ITERS, np.zeros(2),
+                                 global_frequency=0.8, batch_size=5,
+                                 num_chains=chains, steps_per_call=256)
+    runner = MCMCRunner(prob, output_dir=tmp, seed=seed, num_chains=chains,
+                        verbose=False)
+    runner.run_glmcmc(PROG_ITERS, np.zeros(2), None, 0.8, lp, box, 5,
+                      output_file=None, method="scan")
+    return runner.last_result
+
+
+def ma2_moments(res, burn=256):
+    """Posterior mean and sd per dim after ``burn``, in float64."""
+    import numpy as np
+
+    ch = res.thetas[:, burn:].reshape(-1, 2)
+    mean = ch.mean(0, dtype=np.float64)
+    sd = np.sqrt((ch.astype(np.float64) ** 2).mean(0) - mean ** 2)
+    return mean, sd
+
+
+def mala_prog_run(tmp, seed, method, chains, iters, output_file=None, **kw):
+    """MA(2) GLMALA through MCMCRunner.run_glmala at gf=0.8, B=5, tau=0.1,
+    num_grad=100, fd 0.1: ``fused`` with the program (K9, T=16), ``scan``
+    the plain path with the uniform box importance proposal."""
+    import numpy as np
+    from glabc_tpu_torch import MCMCRunner
+
+    prob, box, _ = _ma2_setup()
+    runner = MCMCRunner(prob, output_dir=tmp, seed=seed, num_chains=chains,
+                        verbose=False)
+    if method == "fused":
+        kw.update(tile_program=prob.tile_program(), steps_per_call=16)
+    ch = runner.run_glmala(iters, np.zeros(2), None, 0.8,
+                           None if method == "fused" else box, 5, 0.1, 100,
+                           output_file=output_file, method=method, **kw)
+    return runner, ch
+
+
+def agl_prog_run(tmp, seed, method, chains, output_file=None):
+    """MA(2) AGLMCMC at gf=0.5 (examples/ma2.py): B=5, step 200, shared
+    1,024-point KDE, initial iSIR N(0, 0.5^2 I), random walk 0.1:
+    ``fused`` the mixed kernel with the program's move, ``scan`` the plain
+    path with shared adaptation."""
+    import numpy as np
+    from glabc_tpu_torch import DiagGaussian, MCMCRunner
+
+    prob, _, lp = _ma2_setup()
+    runner = MCMCRunner(prob, output_dir=tmp, seed=seed, num_chains=chains,
+                        verbose=False)
+    kw = dict(output_file=output_file, method=method, shared_support=1024)
+    if method == "fused":
+        kw.update(tile_program=prob.tile_program(lp_scale=0.1))
+    else:
+        kw.update(shared_adaptation=True, redraw_chunk=512)
+    ch = runner.run_aglmcmc(AGL_PROG_ITERS, np.zeros(2), None, 0.5, lp,
+                            DiagGaussian.create(2, 0.0, math.log(0.5)), 5,
+                            200, 0.8, 0.2, **kw)
+    return runner, ch
+
+
+def phase_generic_kernels_vs_plain():
+    """K8 and K9 on both shipped programs (both algorithms, both coin
+    modes) and K5's program variant on MA(2), at small shapes, each against
+    its plain version on one Philox stream."""
+    import numpy as np
+    import torch
+    from glabc_tpu_torch import MixtureProblem
+    from glabc_tpu_torch.models.kde import KernelDensity
+    from glabc_tpu_torch.ops.kernels import (GenericFusedGLMALA,
+                                             GenericFusedGLMCMC,
+                                             PoolISIRMixed,
+                                             mixture_tile_program,
+                                             resident_from_kde)
+
+    prob_m, (prob_a, _, _) = MixtureProblem(0.05), _ma2_setup()
+    programs = {"mixture": (prob_m, mixture_tile_program(prob_m)),
+                "ma2": (prob_a, prob_a.tile_program())}
+
+    def state(name, C, seed):
+        prob, prog = programs[name]
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        scale = 1.3 if name == "mixture" else 0.3
+        th = (torch.rand((2, C), generator=g, device=DEVICE) - 0.5) * scale
+        y = prob.simulate(th.T.contiguous(), g).T.contiguous()
+        logk = prob.log_kernel_of_y(y.T).contiguous()
+        return prob, prog, th.contiguous(), y, logk, g
+
+    def report(tag, label, got, want, C):
+        max_abs, share = _chain_share(got, want, C)
+        same, _ = _bitwise(got, want)
+        log(f"[{tag}-vs-plain] {label}, bitwise {same}, max abs diff "
+            f"{max_abs:.3g}, share of chains differing by > {CHAIN_TOL:g}: "
+            f"{share:.3g}")
+        check(share <= MAX_DIFF_SHARE, f"{tag} {label}: {share:.3%} of "
+              "chains differ from the plain version")
+
+    C, T = SMALL_CHAINS, 32
+    for name in programs:
+        for algorithm in ("glmcmc", "global"):
+            prob, prog, th, y, logk, _ = state(name, C, 1)
+            kern = GenericFusedGLMCMC(prog, global_frequency=0.8,
+                                      batch_size=5, steps_per_call=T,
+                                      algorithm=algorithm)
+            got = kern.run(3, th, y, logk, step0=512)
+            want = kern.plain(3, th, y, logk, step0=512)
+            torch.cuda.synchronize()
+            report("K8", f"{name} {algorithm}: {C:,} chains x {T} steps, "
+                   f"moves {float(got[4].accepted.sum()):.0f}",
+                   [*got[:4], *got[4]], [*want[:4], *want[4]], C)
+    C, T = SMALL_CHAINS // 4, 8
+    coins = torch.tensor([1, 0, 1, 1, 0, 1, 1, 1], dtype=torch.int32)
+    for name in programs:
+        for mode in ("shared", "per_chain"):
+            prob, prog, th, y, logk, g = state(name, C, 2)
+            grad = torch.randn((2, C), generator=g, device=DEVICE)
+            kern = GenericFusedGLMALA(prog, epsilon=prob.epsilon,
+                                      global_frequency=0.8, batch_size=5,
+                                      tau=0.1, num_grad=20,
+                                      steps_per_call=T, coin_mode=mode)
+            got = kern.run(5, th, y, logk, grad, coins, step0=64)
+            want = kern.plain(5, th, y, logk, grad, coins, step0=64)
+            torch.cuda.synchronize()
+            report("K9", f"{name} {mode}: {C:,} chains x {T} steps, local "
+                   f"accepts {float(got[5][3].sum()):.0f}",
+                   [*got[:5], *got[5]], [*want[:5], *want[5]], C)
+    C, T, B = SMALL_CHAINS, 32, 5
+    prob, prog, th, y, logk, g = state("ma2", C, 3)
+    ptheta = ((torch.rand((T, B, 2, C), generator=g, device=DEVICE) - 0.5)
+              * 0.6)
+    px = prob.simulate(ptheta.permute(0, 1, 3, 2).contiguous(),
+                       g).permute(0, 1, 3, 2).contiguous()
+    plogk = prob.log_kernel_of_y(px.permute(0, 1, 3, 2)).contiguous()
+    plogw = (plogk + torch.randn(plogk.shape, generator=g,
+                                 device=DEVICE)).contiguous()
+    res = resident_from_kde(KernelDensity.fit(
+        torch.randn((1024, 2), generator=g, device=DEVICE) * 0.3))
+    kern = PoolISIRMixed(2, program=prog, global_frequency=0.5,
+                         batch_size=B, steps_per_call=T)
+    a = (res, ptheta, px, plogw, plogk, th, y, logk)
+    got = kern.run(7, *a, step0=2000)
+    want = kern.plain(7, *a, step0=2000)
+    torch.cuda.synchronize()
+    report("K5-program", f"ma2 S=1024 gf=0.5: {C:,} chains x {T} steps, "
+           f"global share {float(got[3].mean()) / T:.4f}, local accepts "
+           f"{float(got[5].sum()):.0f}", got, want, C)
+
+
+def phase_generic(tmp):
+    """The generic program path on MA(2) at the JAX package's full width,
+    through its entry points, each beside the port's plain path on the
+    card: run_fused_program (K8; and the Mixture program against the
+    Mixture bands), MCMCRunner.run_glmala with tile_program= (K9) and
+    MCMCRunner.run_aglmcmc at gf=0.5 with tile_program= (K5's program
+    variant)."""
+    import numpy as np
+    import torch
+    from glabc_tpu_torch import (MixtureProblem, mixture_tile_program,
+                                 run_fused_program)
+
+    paths, insts = {}, {}
+
+    path = lambda name, fn, want, prefer=None: instrumented(
+        paths, insts, name, fn, want, prefer)
+    steps = PROG_ITERS - 1
+
+    # ---- K8: GLMCMC over the MA(2) program, beside the plain run_glmcmc
+    secs, res, inst = path(
+        "run_fused_program_ma2",
+        lambda: ma2_run(tmp, 0, "fused", PROG_CHAINS),
+        only(generic_glmcmc=steps // 256))
+    ch = res.thetas
+    check(ch.shape == (PROG_CHAINS, PROG_ITERS, 2), f"MA(2) chains "
+          f"{ch.shape}")
+    check(bool(np.isfinite(ch).all()) and _inside(ch[:, 1:]),
+          "MA(2) GLMCMC: a state outside the prior triangle")
+    c = res.counts
+    check(bool(np.all(c.global_attempts + c.local_attempts == steps)),
+          "MA(2) GLMCMC: move counts do not sum to the steps run")
+    share = float(c.global_attempts.sum()) / (PROG_CHAINS * steps)
+    mean, sd = ma2_moments(res)
+    g, l_ = rates(res)
+    log(f"[prog] MA(2) run_fused_program: {PROG_CHAINS:,} chains x "
+        f"{PROG_ITERS}, {inst.split(secs, ['generic_glmcmc'])}")
+    log(f"[prog] MA(2) fused: global share {share:.5f}, after step 256 "
+        f"mean {mean.round(4).tolist()}, sd {sd.round(4).tolist()}, "
+        f"acceptance global {g:.5f} / local {l_:.5f}")
+    del ch, res
+    check(abs(share - 0.8) <= 0.01, f"MA(2) GLMCMC: global share {share}")
+    secs_s, res_s, _ = path(
+        "run_glmcmc_ma2_scan",
+        lambda: ma2_run(tmp, 1, "scan", PROG_SCAN_CHAINS), only())
+    mean_s, sd_s = ma2_moments(res_s)
+    check(_inside(res_s.thetas[:, 1:]), "MA(2) plain GLMCMC: a state "
+          "outside the triangle")
+    log(f"[prog] MA(2) plain run_glmcmc on the card: {PROG_SCAN_CHAINS:,} "
+        f"chains, wall {secs_s:.2f} s: mean {mean_s.round(4).tolist()}, sd "
+        f"{sd_s.round(4).tolist()}, acceptance global / local "
+        f"{' / '.join(f'{r:.5f}' for r in rates(res_s))} (limits +- "
+        f"{MA2_MEAN_TOL} mean, +- {MA2_SD_TOL} sd)")
+    check(np.all(np.abs(mean - mean_s) <= MA2_MEAN_TOL), "MA(2) GLMCMC: "
+          "the fused and the plain path's posterior means differ")
+    check(np.all(np.abs(sd - sd_s) <= MA2_SD_TOL), "MA(2) GLMCMC: the "
+          "fused and the plain path's posterior sds differ")
+
+    prob_m = MixtureProblem(0.05)
+    gm = torch.Generator(device=DEVICE).manual_seed(2)
+    secs_m, res_m, inst_m = path(
+        "run_fused_program_mixture", lambda: run_fused_program(
+            prob_m, mixture_tile_program(prob_m, lp_scale=0.35), gm,
+            PROG_ITERS, np.zeros(2), global_frequency=0.9, batch_size=5,
+            num_chains=PROG_CHAINS, steps_per_call=256),
+        only(generic_glmcmc=steps // 256))
+    _bands("GLMCMC (fused, Mixture tile program)", res_m.thetas, res_m,
+           secs_m, move_band=(0.008, 0.012), gf=0.9)
+    log(f"[prog] Mixture program: {inst_m.split(secs_m, ['generic_glmcmc'])}")
+    del res_m
+
+    # ---- K9: GLMALA over the MA(2) program; its kernel row takes the
+    # launch whose shared coins gave the number of local steps nearest the
+    # expected (1 - gf) T (the more of them on ties)
+    n_mala = (MALA_PROG_ITERS - 1) // 16
+
+    def typical(kern, a, k):
+        n_local = kern.T - int(a[5].sum())
+        return (-abs(n_local - (1.0 - kern.cfg.gf) * kern.T), n_local)
+    secs, (runner, ch), inst = path(
+        "run_glmala_prog", lambda: mala_prog_run(
+            tmp, 0, "fused", MALA_PROG_CHAINS, MALA_PROG_ITERS,
+            "glmala_prog.csv"),
+        only(generic_glmala=n_mala), {"generic_glmala": typical})
+    _csv(runner, "glmala_prog.csv", ch)
+    check(bool(np.isfinite(ch).all()) and _inside(ch[:, 1:]),
+          "MA(2) GLMALA: a state outside the triangle")
+    mean_f, _ = ma2_moments(runner.last_result, 64)
+    g_f, l_f = rates(runner.last_result)
+    log(f"[prog] MA(2) GLMALA fused, shared coin: {MALA_PROG_CHAINS:,} "
+        f"chains x {MALA_PROG_ITERS}, "
+        f"{inst.split(secs, ['generic_glmala'])}")
+    del ch
+    secs_pc, (runner_pc, ch_pc), inst_pc = path(
+        "run_glmala_prog_per_chain", lambda: mala_prog_run(
+            tmp, 1, "fused", MALA_PROG_PC_CHAINS, MALA_PROG_PC_ITERS,
+            coin_mode="per_chain"),
+        only(generic_glmala=(MALA_PROG_PC_ITERS - 1) // 16))
+    check(bool(np.isfinite(ch_pc).all()) and _inside(ch_pc[:, 1:]),
+          "MA(2) GLMALA per-chain: a state outside the triangle")
+    g_pc, l_pc = rates(runner_pc.last_result)
+    log(f"[prog] MA(2) GLMALA fused, per-chain coin: "
+        f"{MALA_PROG_PC_CHAINS:,} chains x {MALA_PROG_PC_ITERS}, "
+        f"{inst_pc.split(secs_pc, ['generic_glmala'])}")
+    del ch_pc
+    secs_s, (scan, ch_s), _ = path(
+        "run_glmala_prog_scan", lambda: mala_prog_run(
+            tmp, 2, "scan", MALA_PROG_SCAN_CHAINS, MALA_PROG_ITERS),
+        only())
+    mean_s, _ = ma2_moments(scan.last_result, 64)
+    g_s, l_s = rates(scan.last_result)
+    post = ch_s[:, 64:].reshape(-1, 2).astype(np.float64)
+    log(f"[prog] MA(2) GLMALA plain on the card: {MALA_PROG_SCAN_CHAINS:,} "
+        f"chains, wall {secs_s:.2f} s, mean {mean_s.round(4).tolist()}, var "
+        f"{post.var(0).round(4).tolist()}")
+    log(f"[prog] MA(2) GLMALA acceptance global / local: fused shared "
+        f"{g_f:.5f} / {l_f:.5f}, fused per-chain {g_pc:.5f} / {l_pc:.5f}, "
+        f"plain {g_s:.5f} / {l_s:.5f} (limits +- {MALA_PROG_GACC_TOL} "
+        f"global, +- {MALA_PROG_LACC_TOL} per-chain local); mean after step "
+        f"64 fused {mean_f.round(4).tolist()} (limit +- "
+        f"{MALA_PROG_MEAN_TOL}); the JAX TPU sweep's mean [0.420, 0.040] "
+        f"and var [0.046, 0.057] (its tau and num_grad not recorded) as a "
+        f"cross-check only")
+    del ch_s
+    for what, got in (("shared", g_f), ("per-chain", g_pc)):
+        check(abs(got - g_s) <= MALA_PROG_GACC_TOL, f"MA(2) GLMALA {what}: "
+              f"global acceptance {got} vs the plain path's {g_s}")
+    check(abs(l_pc - l_s) <= MALA_PROG_LACC_TOL, f"MA(2) GLMALA per-chain: "
+          f"local acceptance {l_pc} vs the plain path's {l_s}")
+    check(np.all(np.abs(mean_f - mean_s) <= MALA_PROG_MEAN_TOL),
+          "MA(2) GLMALA: the fused and the plain path's means differ")
+
+    # ---- K5 program variant: AGLMCMC at gf=0.5
+    steps = AGL_PROG_ITERS - 1
+    secs, (runner, ch), inst = path(
+        "run_aglmcmc_prog", lambda: agl_prog_run(
+            tmp, 0, "fused", AGL_PROG_CHAINS, "aglmcmc_prog.csv"),
+        only(pool_isir_mixed_prog=steps // 400))
+    _csv(runner, "aglmcmc_prog.csv", ch)
+    check(bool(np.isfinite(ch).all()) and _inside(ch[:, 1:]),
+          "MA(2) AGLMCMC: a state outside the triangle")
+    res = runner.last_result
+    share = float(res.counts.global_attempts.sum()) / (AGL_PROG_CHAINS
+                                                       * steps)
+    eps_f, g_f, l_f = mixed_stats(res)
+    log(f"[prog] MA(2) AGLMCMC gf=0.5 fused: {AGL_PROG_CHAINS:,} chains x "
+        f"{AGL_PROG_ITERS}, {inst.split(secs, ['pool_isir_mixed_prog'])}")
+    del ch
+    secs_s, (scan, _), _ = path(
+        "run_aglmcmc_prog_scan", lambda: agl_prog_run(
+            tmp, 1, "scan", AGL_PROG_SCAN_CHAINS), only())
+    eps_s, g_s, l_s = mixed_stats(scan.last_result)
+    log(f"[prog] MA(2) AGLMCMC gf=0.5: coin share {share:.5f}; final "
+        f"hat_eps fused {eps_f:.4f} / plain {eps_s:.4f} (limit +- "
+        f"{AGL_PROG_EPS_TOL}); acceptance global {g_f:.5f} / {g_s:.5f} "
+        f"(limit +- {AGL_PROG_GACC_TOL}), local {l_f:.5f} / {l_s:.5f} "
+        f"(limit +- {AGL_PROG_LACC_TOL}); plain path {AGL_PROG_SCAN_CHAINS:,}"
+        f" chains, wall {secs_s:.2f} s")
+    check(abs(share - 0.5) <= 0.01, f"MA(2) AGLMCMC: coin share {share}")
+    check(abs(eps_f - eps_s) <= AGL_PROG_EPS_TOL, "MA(2) AGLMCMC: final "
+          "hat_eps differs from the plain path's")
+    check(abs(g_f - g_s) <= AGL_PROG_GACC_TOL, "MA(2) AGLMCMC: global "
+          "acceptance differs from the plain path's")
+    check(abs(l_f - l_s) <= AGL_PROG_LACC_TOL, "MA(2) AGLMCMC: local "
+          "acceptance differs from the plain path's")
+    log("[launches] per path, counts set to 0 just before it: "
+        + "; ".join(f"{k} {v}" for k, v in paths.items()))
+    return paths, insts
+
+
+def generic_kernel_rows(insts, paths):
+    """K8, K9 and K5's program variant at their main-path shapes (the
+    arguments of their last launch on their MA(2) entry path; for K9 the
+    launch whose shared coins gave the typical number of local steps):
+    time per launch, the plain version's time and agreement, bytes,
+    operations (of the moves this launch's coins picked) and bound.  No
+    single PyTorch call computes these functions: no library time."""
+    from glabc_tpu_torch.ops.kernels import GenericFusedGLMCMC
+
+    rows = []
+
+    def median_ms(fn):
+        fn()                                            # warm
+        return sorted(timed(fn, 3)[0] for _ in range(3))[1]
+
+    def row(name, source, replaces, key, main, max_abs, ms, plain_ms, b):
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=paths[main][key],
+                    max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b[0], bound_by=b[1], library_ms=None,
+                    launches_by_path={k: v[key] for k, v in paths.items()})
+
+    def measure(key, main, flat):
+        kern, a, k = insts[main].last[key]
+        ms = median_ms(lambda: kern.run(*a, **k))
+        got = kern.run(*a, **k)
+        plain_ms, want = timed(lambda: kern.plain(*a, **k), 1)
+        outs, refs = flat(got), flat(want)
+        return kern, a, got, ms, plain_ms, outs, refs
+
+    # K8
+    kern, a, got, ms, plain_ms, outs, refs = measure(
+        "generic_glmcmc", "run_fused_program_ma2",
+        lambda r: [*r[:4], *r[4]])
+    kw8 = insts["run_fused_program_ma2"].last["generic_glmcmc"][2]
+    C, T, n = a[1].shape[1], kern.T, kern.p.params[4]
+    max_abs, share = _chain_share(outs, refs, C)
+    check(share <= MAX_DIFF_SHARE, f"generic_glmcmc at the main shape: "
+          f"{share:.3%} of chains differ")
+    n_g = float(got[4].global_attempts.sum())
+    og, sg = ma2_step_ops(int(n), kern.B, "global")
+    ol, sl = ma2_step_ops(int(n), kern.B, "local")
+    ops, sfu = n_g * og + (C * T - n_g) * ol, n_g * sg + (C * T - n_g) * sl
+    moved = nbytes(*a[1:4], *outs)
+    b = bound_ms(moved, ops, sfu)
+    log(f"[K8] generic_glmcmc (MA(2)) at the main shape, {C:,} chains x "
+        f"T={T}, B={kern.B}, global share {n_g / (C * T):.4f}: max abs diff "
+        f"{max_abs:.3g}, share of chains differing {share:.3g}; kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.1f} ms; {moved / 1e9:.4f} GB, "
+        f"{ops:.4g} operations and {sfu:.4g} special-function operations "
+        f"-> bound {b[0]:.4f} ms ({b[1]})")
+    # warp divergence: the same launch with every coin global (B
+    # simulations per step) and every coin local (one), beside the mix
+    pure = {}
+    for gf in (1.0, 0.0):
+        kp = GenericFusedGLMCMC(kern.p, global_frequency=gf, batch_size=kern.B,
+                                steps_per_call=T, block_chains=kern.C_blk,
+                                collect_history=kern.collect_history,
+                                algorithm=kern.algorithm)
+        pure[gf] = median_ms(lambda: kp.run(*a, **kw8))
+    share_g = n_g / (C * T)
+    mix = share_g * pure[1.0] + (1.0 - share_g) * pure[0.0]
+    log(f"[K8] divergence: every coin global {pure[1.0]:.3f} ms, every coin "
+        f"local {pure[0.0]:.3f} ms; at the global share {share_g:.4f} the "
+        f"pure moves' mix is {mix:.3f} ms, the launch {ms:.3f} ms "
+        f"({ms / mix:.3f}x)")
+    rows.append(row("generic_glmcmc (MA(2) program)",
+                    "glabc_tpu_torch/csrc/generic_glmcmc.cu",
+                    "glabc_tpu/ops/pallas/generic_kernel.py:186",
+                    "generic_glmcmc", "run_fused_program_ma2", max_abs, ms,
+                    plain_ms, b))
+    del got, outs, refs
+
+    # K9
+    kern, a, got, ms, plain_ms, outs, refs = measure(
+        "generic_glmala", "run_glmala_prog", lambda r: [*r[:5], *r[5]])
+    C, T, n = a[1].shape[1], kern.T, kern.p.params[4]
+    max_abs, share = _chain_share(outs, refs, C)
+    check(share <= MAX_DIFF_SHARE, f"generic_glmala at the main shape: "
+          f"{share:.3%} of chains differ")
+    n_local = int(T - int(a[5].sum()))
+    og, sg = ma2_step_ops(int(n), kern.B, "global")
+    om, sm = ma2_step_ops(int(n), kern.B, "mala", kern.cfg.n_grad)
+    ops = C * (n_local * om + (T - n_local) * og)
+    sfu = C * (n_local * sm + (T - n_local) * sg)
+    moved = nbytes(*a[1:6], *outs)
+    b = bound_ms(moved, ops, sfu)
+    n_run = paths["run_glmala_prog"]["generic_glmala"]
+    mean_ms = insts["run_glmala_prog"].kernel_ms("generic_glmala") / n_run
+    log(f"[K9] generic_glmala (MA(2)) at the main shape, {C:,} chains x "
+        f"T={T} ({n_local} local steps, the launch nearest the expected "
+        f"{(1.0 - kern.cfg.gf) * T:.1f}), num_grad={kern.cfg.n_grad}: max "
+        f"abs diff {max_abs:.3g}, share of chains differing {share:.3g}; "
+        f"kernel {ms:.3f} ms (the entry run's {n_run} launches: "
+        f"{mean_ms:.3f} ms each), plain {plain_ms:.1f} ms; "
+        f"{moved / 1e9:.4f} GB, {ops:.4g} operations and {sfu:.4g} "
+        f"special-function operations -> bound {b[0]:.4f} ms ({b[1]})")
+    rows.append(row("generic_glmala (MA(2) program)",
+                    "glabc_tpu_torch/csrc/generic_glmala.cu",
+                    "glabc_tpu/ops/pallas/generic_glmala_kernel.py:109",
+                    "generic_glmala", "run_glmala_prog", max_abs, ms,
+                    plain_ms, b))
+    del got, outs, refs
+
+    # K5, program variant
+    kern, a, got, ms, plain_ms, outs, refs = measure(
+        "pool_isir_mixed_prog", "run_aglmcmc_prog", list)
+    T, B, d, C = a[2].shape
+    S = a[1].pre.shape[0]
+    max_abs, share = _chain_share(outs, refs, C)
+    check(share <= MAX_DIFF_SHARE, f"pool_isir_mixed (program) at the main "
+          f"shape: {share:.3%} of chains differ")
+    o5, s5 = mixed_isir_ops(d, B, S)
+    ol, sl = ma2_local_ops(int(kern.program.params[4]))
+    ops, sfu = (o5 + ol) * C * T, (s5 + sl) * C * T
+    moved = nbytes(*a[1], *a[2:9], *(x for x in outs if x is not None))
+    b = bound_ms(moved, ops, sfu)
+    log(f"[K5-program] pool_isir_mixed (MA(2) program) at the main shape, "
+        f"{C:,} chains x T={T}, B={B}, S={S}: max abs diff {max_abs:.3g}, "
+        f"share of chains differing {share:.3g}; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms; {moved / 1e9:.4f} GB, {ops:.4g} operations and "
+        f"{sfu:.4g} special-function operations -> bound {b[0]:.3f} ms "
+        f"({b[1]})")
+    rows.append(row("pool_isir_mixed (MA(2) program)",
+                    "glabc_tpu_torch/csrc/pool_isir_mixed.cu",
+                    "glabc_tpu/ops/pallas/pool_isir_mixed_kernel.py:213",
+                    "pool_isir_mixed_prog", "run_aglmcmc_prog", max_abs, ms,
+                    plain_ms, b))
+    return rows
+
+
 def main():
     t0 = time.perf_counter()
     try:
@@ -1708,7 +2362,8 @@ def main():
     if sys.argv[1:2] == ["--seed-spread"]:
         phase_device()
         seed_spread(int(sys.argv[2]),
-                    sys.argv[3:] or ("agl", "glmala", "nf"))
+                    sys.argv[3:] or ("agl", "glmala", "nf", "ma2",
+                                     "glmala_prog", "agl_prog"))
         return
 
     name, card = phase_device()
@@ -1716,6 +2371,7 @@ def main():
     phase_kernel_vs_plain()
     phase_agl_kernels_vs_plain()
     phase_mala_flow_kernels_vs_plain()
+    phase_generic_kernels_vs_plain()
 
     # each path runs with the launch counts set to 0 just before it
     bench = phase_main_bench(card)
@@ -1724,14 +2380,17 @@ def main():
         agl_paths, insts = phase_aglmcmc(tmp)
         mala_paths, mala_insts = phase_glmala(tmp)
         nf_paths, nf_insts = phase_glmcmc_nf(tmp)
+        gen_paths, gen_insts = phase_generic(tmp)
     paths = {"bench": bench["launches"], **paths, **agl_paths, **mala_paths,
-             **nf_paths}
+             **nf_paths, **gen_paths}
 
     rows = phase_kernels_line(bench, carry3, prob3, paths)
     rows += agl_kernel_rows(insts, paths)
     del insts
     rows += mala_flow_kernel_rows({**mala_insts, **nf_insts}, paths)
     del mala_insts, nf_insts
+    rows += generic_kernel_rows(gen_insts, paths)
+    del gen_insts
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

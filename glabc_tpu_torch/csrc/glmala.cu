@@ -79,23 +79,6 @@ struct MalaArgs {
   uint32_t key0, key1, step0;
 };
 
-// Cached scalar block: scalar s is lane s%4 of block s/4.
-struct Scalars {
-  uint32_t chain, step, k0, k1;
-  uint4 blk;
-  int id;
-  __device__ __forceinline__ float uniform(int s) {
-    const int want = s >> 2;
-    if (want != id) {
-      blk = philox4x32_10(make_uint4(chain, step, static_cast<uint32_t>(want),
-                                     0u),
-                          k0, k1);
-      id = want;
-    }
-    return uniform_from_bits(lane_of(blk, s & 3));
-  }
-};
-
 // The Box-Muller pairs of dims 0..D-1 from blocks first + j/2.
 template <int D>
 __device__ __forceinline__ void normal_pairs(const MalaArgs& a, uint32_t chain,
@@ -252,7 +235,8 @@ __global__ void glmala_kernel(MalaArgs a) {
 
   for (int t = 0; t < a.T; ++t) {
     const uint32_t step = a.step0 + static_cast<uint32_t>(t);
-    Scalars ss{chain, step, a.key0, a.key1, make_uint4(0u, 0u, 0u, 0u), -1};
+    SlotScalars ss{chain, step, a.key0, a.key1, make_uint4(0u, 0u, 0u, 0u),
+                   -1};
     const bool is_g =
         a.shared ? a.coins[t] != 0 : ss.uniform(a.B + 2) < a.gf;
     const float lp_theta = gauss_lp<D>(th, a.prior_loc, a.inv_prior_scale,

@@ -131,23 +131,6 @@ struct Chain {
   }
 };
 
-// Cached scalar block: scalar s is lane s%4 of block s/4.
-struct ScalarStream {
-  uint32_t chain, step, k0, k1;
-  uint4 blk;
-  int id;
-  __device__ __forceinline__ float uniform(int s) {
-    const int want = s >> 2;
-    if (want != id) {
-      blk = philox4x32_10(make_uint4(chain, step, static_cast<uint32_t>(want),
-                                     0u),
-                          k0, k1);
-      id = want;
-    }
-    return uniform_from_bits(lane_of(blk, s & 3));
-  }
-};
-
 template <int D>
 __device__ __forceinline__ void copy_vec(Vec<D>& dst, Vec<D>& src, int d) {
 #pragma unroll
@@ -225,8 +208,8 @@ __global__ void mixture_glmcmc_kernel(Buffers b, Params q) {
 
   for (int t = 0; t < q.T; ++t) {
     const uint32_t step = q.step0 + static_cast<uint32_t>(t);
-    ScalarStream ss{chain, step, q.key0, q.key1, make_uint4(0u, 0u, 0u, 0u),
-                    -1};
+    SlotScalars ss{chain, step, q.key0, q.key1, make_uint4(0u, 0u, 0u, 0u),
+                   -1};
     const float lp_theta = ch.gauss_lp(th, q.prior_loc, q.inv_prior_scale,
                                        q.c_prior);
     float wlogk;

@@ -13,6 +13,8 @@
 // must give the same bits.
 
 #pragma once
+#ifndef GLABC_PHILOX_CUH
+#define GLABC_PHILOX_CUH
 #include <cstdint>
 
 namespace glabc {
@@ -67,4 +69,59 @@ __device__ __forceinline__ uint32_t lane_of(uint4 v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
+// The scalar slots of one chain and step: slot s is lane s%4 of block s/4,
+// the last block fetched cached (slots are read in rising order).
+struct SlotScalars {
+  uint32_t chain, step, k0, k1;
+  uint4 blk;
+  int id;
+  __device__ __forceinline__ float uniform(int s) {
+    const int want = s >> 2;
+    if (want != id) {
+      blk = philox4x32_10(
+          make_uint4(chain, step, static_cast<uint32_t>(want), 0u), k0, k1);
+      id = want;
+    }
+    return uniform_from_bits(lane_of(blk, s & 3));
+  }
+};
+
+// A cursor over consecutive Philox blocks of one chain and step: it starts
+// at lane 0 of block `first` and hands out one uniform per lane, fetching
+// the next block after lane 3.  A normal pair is Box-Muller on the next two
+// uniforms.  The kernels give every use (a proposal, a simulation, a
+// gradient replicate) its own block range, so no draw shifts another.
+// `paired` marks a simulator cursor that re-reads its proposal's blocks
+// (a program may then take the sin branch of the proposal's pairs).  The
+// torch twin is ops/kernels/philox.py's Draws.
+struct Draws {
+  uint32_t chain, step, k0, k1, block;
+  int lane;
+  uint4 cur;
+  bool paired;
+
+  __device__ __forceinline__ Draws(uint32_t chain_, uint32_t step_,
+                                   uint32_t k0_, uint32_t k1_,
+                                   uint32_t first, bool paired_ = false)
+      : chain(chain_), step(step_), k0(k0_), k1(k1_), block(first), lane(4),
+        cur(make_uint4(0u, 0u, 0u, 0u)), paired(paired_) {}
+
+  __device__ __forceinline__ float uniform() {
+    if (lane == 4) {
+      cur = philox4x32_10(make_uint4(chain, step, block, 0u), k0, k1);
+      ++block;
+      lane = 0;
+    }
+    return uniform_from_bits(lane_of(cur, lane++));
+  }
+
+  __device__ __forceinline__ void normal_pair(float* n1, float* n2) {
+    const float u1 = uniform();
+    const float u2 = uniform();
+    glabc::normal_pair(u1, u2, n1, n2);
+  }
+};
+
 }  // namespace glabc
+
+#endif  // GLABC_PHILOX_CUH

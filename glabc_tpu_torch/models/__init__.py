@@ -1,7 +1,8 @@
 from .distributions import DiagGaussian, Gamma, GaussianMixture, Uniform
 from .flows import CouplingFlow
 from .kde import KernelDensity
-from .problems import ABCProblem, HighDimMixtureProblem, MixtureProblem
+from .problems import (ABCProblem, GKProblem, HighDimMixtureProblem,
+                       MA2Problem, MixtureProblem)
 
 __all__ = [
     "Uniform",
@@ -13,4 +14,6 @@ __all__ = [
     "ABCProblem",
     "MixtureProblem",
     "HighDimMixtureProblem",
+    "GKProblem",
+    "MA2Problem",
 ]

@@ -11,8 +11,12 @@ batch-first functions on tensors; randomness comes from an explicit
 * ``kernel_log_prob(dis, epsilon=None) -> (...,)``
 
 ``y_obs`` is kept on the CPU and moved to the argument's device on use, so
-one problem serves runs on any device.  ``GKProblem`` and ``MA2Problem`` are
-not ported yet (ROADMAP Queue 1, M11).
+one problem serves runs on any device.
+
+The JAX package draws the default ``y_obs`` of ``GKProblem`` and
+``MA2Problem`` from fixed JAX keys, which a torch generator cannot
+reproduce; at the default ``num_draws`` the port carries those values as
+float32 literals, and at any other ``num_draws`` ``y_obs`` must be given.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["ABCProblem", "MixtureProblem", "HighDimMixtureProblem"]
+__all__ = ["ABCProblem", "MixtureProblem", "HighDimMixtureProblem",
+           "GKProblem", "MA2Problem"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -134,3 +139,146 @@ class HighDimMixtureProblem(_GaussianAbsProblem):
         self.y_obs = torch.full((self.theta_dim,), float(y_obs_value),
                                 dtype=torch.float32)
         self._noise_std = float(np.sqrt(np.float32(noise_var)))
+
+
+# The JAX package's default observations: MA2Problem() simulated with
+# jax.random.PRNGKey(42) at num_draws=100, GKProblem() with PRNGKey(1234) at
+# num_draws=1000 (glabc_tpu/models/problems.py), as float32.
+_MA2_Y_OBS_100 = (1.0865206718444824, 0.4801788032054901,
+                  -0.01683427393436432)
+_GK_Y_OBS_1000 = (2.3917388916015625, 2.568113088607788, 2.768963098526001,
+                  3.0102546215057373, 3.480257511138916, 4.471399307250977,
+                  6.48219108581543)
+
+# rows of one simulator batch: bounds the memory of a series of innovations
+_SIM_CHUNK = 1 << 20
+
+
+def _default_y_obs(name, y_obs, num_draws, default_draws, literal):
+    if y_obs is not None:
+        return torch.tensor(np.asarray(y_obs, np.float32).reshape(-1))
+    if num_draws != default_draws:
+        raise ValueError(
+            f"{name}: the default y_obs is the JAX package's dataset at "
+            f"num_draws={default_draws}; pass y_obs= for num_draws="
+            f"{num_draws}")
+    return torch.tensor(literal, dtype=torch.float32)
+
+
+def _chunked(fn, theta, n_noise, generator):
+    """``fn(theta_rows (N, d), z (N, n_noise))`` over ``theta (..., d)`` in
+    chunks of ``_SIM_CHUNK`` rows, each with fresh standard normals."""
+    theta = torch.as_tensor(theta, dtype=torch.float32)
+    batch = theta.shape[:-1]
+    rows = theta.reshape(-1, theta.shape[-1])
+    outs = []
+    for r0 in range(0, max(rows.shape[0], 1), _SIM_CHUNK):
+        th = rows[r0:r0 + _SIM_CHUNK]
+        z = torch.randn((th.shape[0], n_noise), generator=generator,
+                        dtype=torch.float32, device=theta.device)
+        outs.append(fn(th, z))
+    out = torch.cat(outs) if len(outs) > 1 else outs[0]
+    return out.reshape(*batch, out.shape[-1])
+
+
+class GKProblem(ABCProblem):
+    """The g-and-k distribution (``glabc_tpu.models.problems.GKProblem``):
+    ``Q(z) = A + B (1 + 0.8 tanh(g z / 2)) (1 + z^2)^k z`` on ``num_draws``
+    standard normals, summarized by the seven octiles of the sorted draws;
+    box-uniform prior on ``[prior_low, prior_high]^4``."""
+
+    def __init__(self, epsilon: float = 2.0, num_draws: int = 1000,
+                 prior_low=0.0, prior_high=10.0, y_obs=None):
+        self.epsilon = float(epsilon)
+        self.theta_dim = 4
+        self.num_draws = int(num_draws)
+        self.prior_low = float(prior_low)
+        self.prior_high = float(prior_high)
+        self.y_obs = _default_y_obs("GKProblem", y_obs, self.num_draws, 1000,
+                                    _GK_Y_OBS_1000)
+
+    def summaries(self, theta, z):
+        """The octiles of ``Q(z; theta)``: ``theta (..., 4)``, ``z (...,
+        num_draws)`` given standard normals."""
+        A, B, g, k = (theta[..., i:i + 1] for i in range(4))
+        q = A + B * (1.0 + 0.8 * torch.tanh(g * z / 2.0)) \
+            * (1.0 + z * z) ** k * z
+        q, _ = torch.sort(q, dim=-1)
+        idx = (torch.arange(1, 8, device=q.device) * self.num_draws) // 8
+        return q[..., idx]
+
+    def simulate(self, theta, generator=None):
+        return _chunked(self.summaries, theta, self.num_draws, generator)
+
+    def prior_log_prob(self, theta):
+        theta = torch.as_tensor(theta, dtype=torch.float32)
+        inside = torch.all((theta >= self.prior_low)
+                           & (theta <= self.prior_high), dim=-1)
+        logp = -self.theta_dim * math.log(self.prior_high - self.prior_low)
+        return torch.where(inside, torch.full_like(theta[..., 0], logp),
+                           torch.full_like(theta[..., 0], -math.inf))
+
+    def prior_grad(self, theta):
+        """Zero: the prior is flat on its support (JAX's autodiff of the
+        ``where(inside, const, -inf)`` log-prior is zero too)."""
+        return torch.zeros_like(torch.as_tensor(theta, dtype=torch.float32))
+
+    def discrepancy(self, y):
+        y = torch.as_tensor(y, dtype=torch.float32)
+        diff = y - self.y_obs.to(y.device)
+        return torch.sqrt(torch.sum(diff * diff, dim=-1))
+
+
+class MA2Problem(ABCProblem):
+    """MA(2) time-series ABC (``glabc_tpu.models.problems.MA2Problem``):
+    ``y_t = e_t + theta_1 e_{t-1} + theta_2 e_{t-2}`` with standard normal
+    innovations ``e_{-2} .. e_{T-1}``, summarized by the lag-0/1/2
+    autocovariances ``s_k = (1/T) sum_t y_t y_{t-k}`` (``y_{t<0} = 0``);
+    uniform prior on the triangle ``(-2, 1), (2, 1), (0, -1)``.  Its
+    :meth:`tile_program` is the generic fused kernels' program."""
+
+    def __init__(self, epsilon: float = 0.2, num_draws: int = 100,
+                 theta_true=(0.6, 0.2), y_obs=None):
+        self.epsilon = float(epsilon)
+        self.theta_dim = 2
+        self.num_draws = int(num_draws)
+        self.theta_true = torch.tensor(theta_true, dtype=torch.float32)
+        self.y_obs = _default_y_obs("MA2Problem", y_obs, self.num_draws, 100,
+                                    _MA2_Y_OBS_100)
+
+    def summaries(self, theta, z):
+        """``(s0, s1, s2)`` of the series driven by the innovations ``z
+        (..., num_draws + 2)`` (``z[..., 0]`` is ``e_{-2}``)."""
+        T = self.num_draws
+        th1, th2 = theta[..., 0:1], theta[..., 1:2]
+        y = z[..., 2:] + th1 * z[..., 1:-1] + th2 * z[..., :-2]
+        s0 = torch.sum(y * y, dim=-1) / T
+        s1 = torch.sum(y[..., 1:] * y[..., :-1], dim=-1) / T
+        s2 = torch.sum(y[..., 2:] * y[..., :-2], dim=-1) / T
+        return torch.stack([s0, s1, s2], dim=-1)
+
+    def simulate(self, theta, generator=None):
+        return _chunked(self.summaries, theta, self.num_draws + 2, generator)
+
+    def prior_log_prob(self, theta):
+        theta = torch.as_tensor(theta, dtype=torch.float32)
+        th1, th2 = theta[..., 0], theta[..., 1]
+        inside = (th2 < 1.0) & (th2 > th1 - 1.0) & (th2 > -th1 - 1.0)
+        return torch.where(inside, torch.full_like(th1, -math.log(4.0)),
+                           torch.full_like(th1, -math.inf))
+
+    def prior_grad(self, theta):
+        """Zero: the prior is flat on its support (JAX's autodiff of the
+        ``where(inside, const, -inf)`` log-prior is zero too)."""
+        return torch.zeros_like(torch.as_tensor(theta, dtype=torch.float32))
+
+    def discrepancy(self, y):
+        y = torch.as_tensor(y, dtype=torch.float32)
+        diff = y - self.y_obs.to(y.device)
+        return torch.sqrt(torch.sum(diff * diff, dim=-1))
+
+    def tile_program(self, *, lp_scale: float = 0.1):
+        """The problem as a :class:`~glabc_tpu_torch.ops.kernels.program.
+        TileProgram` for the generic fused kernels."""
+        from ..ops.kernels.program import ma2_tile_program
+        return ma2_tile_program(self, lp_scale=lp_scale)

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels (``csrc/``) with their plain torch versions."""
 
 from .flow_kernel import FlowPull, FlowPush, flow_pull_fused, flow_push_fused
+from .generic_glmala_kernel import GenericFusedGLMALA
+from .generic_kernel import GenericFusedGLMCMC
 from .glmala_kernel import FusedMixtureGLMALA
 from .kde_logprob_kernel import (BatchedMixtureLogProb, batched_kde_log_prob,
                                  kde_logprob_inputs)
@@ -10,6 +12,7 @@ from .packed_kernel import (PackedMixtureGLMCMC, PackedStats,
 from .pool_isir_kernel import PoolISIR, pack_pool_logw, pack_pool_theta
 from .pool_isir_mixed_kernel import (PoolISIRMixed, ResidentProposal,
                                      resident_from_gaussian, resident_from_kde)
+from .program import TileProgram, ma2_tile_program, mixture_tile_program
 
 __all__ = [
     "FlowPull",
@@ -17,6 +20,8 @@ __all__ = [
     "flow_pull_fused",
     "flow_push_fused",
     "FusedMixtureGLMALA",
+    "GenericFusedGLMALA",
+    "GenericFusedGLMCMC",
     "BatchedMixtureLogProb",
     "batched_kde_log_prob",
     "kde_logprob_inputs",
@@ -34,4 +39,7 @@ __all__ = [
     "ResidentProposal",
     "resident_from_gaussian",
     "resident_from_kde",
+    "TileProgram",
+    "ma2_tile_program",
+    "mixture_tile_program",
 ]

@@ -2,12 +2,17 @@
 
 Every ``csrc/*.cu`` is compiled for ``sm_90a`` into its own shared library
 with a plain C interface, at first use, under ``glabc_tpu_torch/_build/``.
-The first load starts one ``nvcc`` for every source whose library is
-missing, all at once, and waits for them.  A library is named by a hash of
-its source, the shared headers and the flags, so an edited source builds
-anew and an unchanged one is reused; ``nvcc -Xptxas -v`` output is kept
-beside it.  Nothing here runs at import time: importing the package needs
-no ``nvcc``.
+The generic kernels (``PROGRAM_SOURCES``) are built once per tile program:
+the program's header under ``csrc/programs/`` is pre-included
+(``--pre-include``, with ``-DGLABC_PROGRAM`` and the program's ``-D``
+defines), and the library is named by the program and a hash.  The first
+load starts one ``nvcc`` for every library that is missing (with
+``build_all``, every shipped pair too), all at once, and waits for them.
+The hash covers the source, the shared headers (``csrc/*.cuh``), the
+program's header and defines, and the flags, so an edited file builds anew
+and an unchanged one is reused; ``nvcc -Xptxas -v`` output is kept beside
+the library.  Nothing here runs at import time: importing the package
+needs no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import tempfile
 from pathlib import Path
 
 __all__ = ["load_library", "build_all", "build_log", "lib_path", "SOURCES",
-           "NVCC_FLAGS", "BUILD_DIR", "SRC_DIR"]
+           "PROGRAM_SOURCES", "SHIPPED", "NVCC_FLAGS", "BUILD_DIR",
+           "SRC_DIR"]
 
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
@@ -69,6 +75,40 @@ SOURCES = {
     },
 }
 
+# sources built per tile program -> the C signatures a program build adds
+# (pool_isir_mixed keeps its built-in Mixture function beside them)
+PROGRAM_SOURCES = {
+    "generic_glmcmc": {
+        "glabc_generic_glmcmc": [_P] * 12 + [_I] * 11 + [_F]
+        + [_U] * 3 + [_I, _P],
+    },
+    "generic_glmala": {
+        "glabc_generic_glmala": [_P] * 15 + [_I] * 11 + [_F] * 7
+        + [_U] * 3 + [_I, _P],
+    },
+    "pool_isir_mixed": {
+        "glabc_pool_isir_mixed_program": [_P] * 18 + [_I] * 9 + [_F]
+        + [_U] * 3 + [_I, _P],
+    },
+}
+
+# a program's build key: (header under csrc/, ((define, value), ...))
+_MIXTURE2 = ("programs/mixture.cuh", (("GLABC_MIXTURE_D", 2),))
+_MA2 = ("programs/ma2.cuh", ())
+# the (source, program) pairs build_all() builds besides every source
+SHIPPED = (("generic_glmcmc", _MIXTURE2), ("generic_glmcmc", _MA2),
+           ("generic_glmala", _MIXTURE2), ("generic_glmala", _MA2),
+           ("pool_isir_mixed", _MA2))
+
+
+def _key(program):
+    """A program's build key, from a TileProgram or the key itself."""
+    if program is None:
+        return None
+    key = getattr(program, "build_key", program)
+    header, defines = key
+    return str(header), tuple((str(k), int(v)) for k, v in defines)
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -82,38 +122,67 @@ def _nvcc() -> str:
         "toolkit (set PATH to include its bin directory)")
 
 
-def lib_path(stem: str = "mixture_glmcmc") -> Path:
-    """Where the library built from ``csrc/<stem>.cu`` lives."""
-    if stem not in SOURCES:
-        raise ValueError(f"no CUDA source {stem!r}; known: {sorted(SOURCES)}")
+def _program_flags(key) -> list:
+    if key is None:
+        return []
+    header, defines = key
+    return (["-I", str(SRC_DIR), "--pre-include", str(SRC_DIR / header),
+             "-DGLABC_PROGRAM"] + [f"-D{k}={v}" for k, v in defines])
+
+
+def lib_path(stem: str = "mixture_glmcmc", program=None) -> Path:
+    """Where the library built from ``csrc/<stem>.cu`` (for ``program``, a
+    TileProgram or its build key, where the source takes one) lives."""
+    key = _key(program)
+    known = SOURCES if key is None else PROGRAM_SOURCES
+    if stem not in known:
+        raise ValueError(f"no CUDA source {stem!r}"
+                         f"{'' if key is None else ' taking a program'}; "
+                         f"known: {sorted(known)}")
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
-    for src in [SRC_DIR / f"{stem}.cu"] + sorted(SRC_DIR.glob("*.cuh")):
+    h.update(" ".join(NVCC_FLAGS + _program_flags(key)).encode())
+    files = [SRC_DIR / f"{stem}.cu"] + sorted(SRC_DIR.glob("*.cuh"))
+    if key is not None:
+        files.append(SRC_DIR / key[0])
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
+    tag = ""
+    if key is not None:
+        tag = "-" + "-".join([Path(key[0]).stem]
+                             + [f"{k}{v}" for k, v in key[1]])
+    return BUILD_DIR / f"lib{stem}{tag}_{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> None:
-    """Compile every source whose library is missing, one ``nvcc`` process
-    each, all started together; raise if any fails."""
-    todo = [s for s in SOURCES if not lib_path(s).exists()]
+def build_all(extra=()) -> None:
+    """Compile every source, every shipped (source, program) pair and the
+    ``extra`` pairs whose library is missing, one ``nvcc`` process each,
+    all started together; raise if any fails."""
+    pairs = [(s, None) for s in SOURCES]
+    pairs += [(s, _key(p)) for s, p in (*SHIPPED, *extra)]
+    todo, seen = [], set()
+    for stem, key in pairs:
+        out = lib_path(stem, key)
+        if out not in seen and not out.exists():
+            seen.add(out)
+            todo.append((stem, key))
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     jobs = []
-    for stem in todo:
+    for stem, key in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         proc = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{stem}.cu")],
+            [nvcc, *NVCC_FLAGS, *_program_flags(key), "-o", tmp,
+             str(SRC_DIR / f"{stem}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs.append((stem, tmp, proc))
+        jobs.append((stem, key, tmp, proc))
     failed = []
-    for stem, tmp, proc in jobs:
+    for stem, key, tmp, proc in jobs:
         out_text, _ = proc.communicate()
-        out = lib_path(stem)
+        out = lib_path(stem, key)
         out.with_suffix(".log").write_text(out_text)
         if proc.returncode != 0:
             os.unlink(tmp)
@@ -125,24 +194,32 @@ def build_all() -> None:
         raise RuntimeError("\n".join(failed))
 
 
+def load_library(stem: str = "mixture_glmcmc", program=None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu`` (built for ``program``, a
+    TileProgram or its build key, where given), built first if needed
+    (with every other missing one), with each function's
+    ``argtypes``/``restype`` declared."""
+    return _load(stem, _key(program))
+
+
 @functools.cache
-def load_library(stem: str = "mixture_glmcmc") -> ctypes.CDLL:
-    """The loaded library of ``csrc/<stem>.cu``, built first if needed (with
-    every other missing one), with each function's ``argtypes``/``restype``
-    declared."""
-    out = lib_path(stem)
+def _load(stem, key) -> ctypes.CDLL:
+    out = lib_path(stem, key)
     if not out.exists():
-        build_all()
+        build_all(extra=() if key is None else ((stem, key),))
     lib = ctypes.CDLL(str(out))
-    for fn, argtypes in SOURCES[stem].items():
+    sigs = dict(SOURCES.get(stem, {}))
+    if key is not None:
+        sigs.update(PROGRAM_SOURCES[stem])
+    for fn, argtypes in sigs.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
     return lib
 
 
-def build_log(stem: str = "mixture_glmcmc") -> str:
+def build_log(stem: str = "mixture_glmcmc", program=None) -> str:
     """What ``nvcc -Xptxas -v`` printed for the library (registers, spills),
     or '' when it was built by another process before this one looked."""
-    log = lib_path(stem).with_suffix(".log")
+    log = lib_path(stem, program).with_suffix(".log")
     return log.read_text() if log.exists() else ""

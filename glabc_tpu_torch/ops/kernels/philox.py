@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 __all__ = ["philox4x32", "philox4x32_cuda", "uniform_from_bits",
-           "normal_pair", "gumbel", "seed_key", "TWO_PI"]
+           "normal_pair", "gumbel", "seed_key", "TWO_PI", "Draws",
+           "block_uniforms"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -81,6 +82,82 @@ def normal_pair(u1: torch.Tensor, u2: torch.Tensor):
 
 def gumbel(u: torch.Tensor) -> torch.Tensor:
     return -torch.log(-torch.log(u))
+
+
+def block_uniforms(seed: int, chain_idx: torch.Tensor, step: int,
+                   first, n_blocks: int) -> torch.Tensor:
+    """The ``4 n_blocks`` uniforms of blocks ``first .. first + n_blocks
+    - 1`` at absolute step ``step`` for chains ``chain_idx (C,)``: ``(C, 4
+    n_blocks)``, lane ``i`` of block ``b`` at column ``4 (b - first) + i``.
+    ``first`` is an int or a per-chain ``(C,)`` tensor."""
+    k0, k1 = seed_key(seed)
+    i64 = dict(dtype=torch.int64, device=chain_idx.device)
+    blocks = torch.arange(n_blocks, **i64)[None, :]
+    if isinstance(first, torch.Tensor):
+        blocks = blocks + first.to(**i64)[:, None]
+    else:
+        blocks = blocks + int(first)
+    words = philox4x32(chain_idx.to(torch.int64)[:, None],
+                       torch.full((1, 1), int(step), **i64), blocks,
+                       torch.zeros((1, 1), **i64), k0, k1)
+    return uniform_from_bits(torch.stack(words, dim=-1).reshape(
+        chain_idx.shape[0], 4 * n_blocks))
+
+
+class Draws:
+    """A cursor over the uniforms of consecutive Philox blocks, the twin of
+    ``csrc/philox.cuh``'s ``Draws``: it starts at lane 0 of block
+    ``first`` (counter ``(chain, step, block, 0)``) and hands out one
+    uniform per lane, crossing into the next block after lane 3.  A normal
+    pair is Box-Muller on the next two uniforms; :meth:`normals` is ``n``
+    normals as consecutive pairs' (cos, sin) branches.  ``paired`` marks a
+    simulator cursor that re-reads its proposal's blocks.  ``first`` may be
+    a per-chain ``(C,)`` tensor (a batch of cursors with different
+    starts).
+
+    Every method returns ``(C,)`` (or ``(C, n)``) tensors for the chains
+    ``chain_idx``; the tests substitute an object with the same methods."""
+
+    def __init__(self, seed: int, chain_idx: torch.Tensor, step: int,
+                 first, paired: bool = False):
+        self.seed, self.chain_idx = int(seed), chain_idx
+        self.step, self.first, self.paired = int(step), first, paired
+        self.used = 0          # uniforms handed out
+        self._cache = None     # (first block, uniforms) of the last fetch
+
+    def uniforms(self, n: int) -> torch.Tensor:
+        lo, hi = self.used, self.used + n
+        b0, b1 = lo // 4, (hi + 3) // 4
+        c = self._cache
+        if c is None or c[0] > b0 or c[0] + c[1].shape[1] // 4 < b1:
+            c = self._cache = (b0, block_uniforms(
+                self.seed, self.chain_idx, self.step, self.first + b0,
+                b1 - b0))
+        self.used = hi
+        off = 4 * c[0]
+        return c[1][:, lo - off:hi - off]
+
+    def uniform(self) -> torch.Tensor:
+        return self.uniforms(1)[:, 0]
+
+    def normal_pair(self):
+        u = self.uniforms(2)
+        return normal_pair(u[:, 0], u[:, 1])
+
+    def normal_pairs(self, n: int):
+        """``n`` pairs: ``(cos branches (C, n), sin branches (C, n))``."""
+        u = self.uniforms(2 * n).reshape(-1, n, 2)
+        return normal_pair(u[..., 0], u[..., 1])
+
+    def normals(self, n: int) -> torch.Tensor:
+        """``n`` normals ``(C, n)``: pair ``i`` gives normals ``2i`` (cos)
+        and ``2i + 1`` (sin)."""
+        a, b = self.normal_pairs((n + 1) // 2)
+        return torch.stack([a, b], dim=-1).reshape(a.shape[0], -1)[:, :n]
+
+    @property
+    def blocks_used(self) -> int:
+        return (self.used + 3) // 4
 
 
 def philox4x32_cuda(words: torch.Tensor) -> torch.Tensor:

@@ -12,29 +12,37 @@ step a per-chain coin picks
   resident shared mixture (the epoch's shared KDE, or the initial Gaussian
   proposal before the first epoch), a logsumexp over its S components;
 * local: the Mixture-family random-walk MH move (``y = |theta| + sigma z``,
-  Gaussian epsilon-kernel), the arithmetic of ``mixture_kernel.transition``.
+  Gaussian epsilon-kernel), the arithmetic of ``mixture_kernel.transition``;
+  or, with ``program=``, a tile program's move (``sample_local``,
+  ``simulate``, ``log_kernel``, ``prior_diff_lp``; the carried-state weight
+  uses its ``prior_lp``), the kernel built for the program's header.
 
 Pool cadence is slice-per-step: slice ``t`` belongs to step ``t`` and is
 skipped when that step's coin is local.  Layouts are the card's: pool theta
-and datasets ``(T, B, d, C)``, pool log-weights and kernel values
-``(T, B, C)``, state ``(d, C)``, ``logk`` and counters ``(C,)``, history
-``(T, d, C)``.  The TileProgram variant (``program=``) waits for M11.
+``(T, B, d, C)`` and datasets ``(T, B, y_rows, C)``, pool log-weights and
+kernel values ``(T, B, C)``, state theta ``(d, C)`` and y ``(y_rows, C)``
+(``y_rows = d`` for the built-in move), ``logk`` and counters ``(C,)``,
+history ``(T, d, C)``.  A program's local move draws ``sample_local`` from
+block ``S_b = ceil((B + 3) / 4)`` on and its simulation from ``S_b +
+(paired ? 0 : local_blocks)``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from .mixture_kernel import MixtureConfig, _gauss_lp, _kern_lp, _sum_dims
 from .philox import gumbel, normal_pair, philox4x32, seed_key, uniform_from_bits
+from .program import TileProgram
 
 __all__ = ["PoolISIRMixed", "ResidentProposal", "resident_from_gaussian",
            "resident_from_kde", "resident_log_q", "MixedNoise",
-           "draw_mixed_noise", "mixed_transition", "run_plain"]
+           "draw_mixed_noise", "mixed_transition", "program_transition",
+           "run_plain"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _NEG = -1.0e30
@@ -179,48 +187,107 @@ def mixed_transition(state, pool_slice, res: ResidentProposal,
                                         f(~is_g & l_acc))
 
 
+def program_transition(state, pool_slice, res: ResidentProposal,
+                       program: TileProgram, gf: float, u, draws):
+    """:func:`mixed_transition` with a tile program's local move.
+    ``state = (theta (d, C), y (y_rows, C), logk (C,))`` in the kernel's
+    layout; ``u (C, B + 3)`` the scalar slots; ``draws(first, paired)``
+    the local move's cursors for this step."""
+    p = program
+    theta, y, logk = state
+    ptheta, px, plogw, plogk = pool_slice
+    B = plogw.shape[0]
+    # ---- 1. current state's log-weight under the resident proposal
+    logw_cur = (p.prior_lp(theta) + logk) - resident_log_q(res, theta.T)
+    # ---- 2. global: iSIR over the slice, strict > keeps ties
+    best = logw_cur + gumbel(u[:, B])
+    b_th, b_y, b_lk = theta, y, logk
+    moved = torch.zeros_like(logk, dtype=torch.bool)
+    for j in range(B):
+        score = plogw[j] + gumbel(u[:, j])
+        upd = score > best
+        best = torch.where(upd, score, best)
+        b_th = torch.where(upd, ptheta[j], b_th)
+        b_y = torch.where(upd, px[j], b_y)
+        b_lk = torch.where(upd, plogk[j], b_lk)
+        moved = moved | upd
+    # ---- 3. the program's local move
+    first = -(-(B + 3) // 4)
+    thl = p.sample_local(theta, draws(first, False))
+    yl = p.simulate(thl, draws(first + p.sim_offset(p.local_blocks),
+                               p.sim_paired))
+    lkl = p.log_kernel(yl)
+    l_acc = torch.log(u[:, B + 1]) < (p.prior_diff_lp(thl, theta) + lkl) - logk
+    # ---- 4. coin
+    is_g = u[:, B + 2] < gf
+    new = (torch.where(is_g, b_th, torch.where(l_acc, thl, theta)),
+           torch.where(is_g, b_y, torch.where(l_acc, yl, y)),
+           torch.where(is_g, b_lk, torch.where(l_acc, lkl, logk)))
+    f = lambda m: m.to(torch.float32)
+    return new, (f(is_g), f(is_g & moved), f(~is_g & l_acc))
+
+
 def run_plain(res: ResidentProposal, ptheta, px, plogw, plogk, theta, y,
               logk, cfg: MixtureConfig, noise: Callable[[int], MixedNoise],
-              collect_history: bool = True):
-    """The launch's T steps on explicit noise (``noise(t)``), in the
-    kernel's layouts; the results of :meth:`PoolISIRMixed.run` up to the
-    float32 rounding of the resident logsumexp."""
+              collect_history: bool = True, program=None):
+    """The launch's T steps on explicit noise, in the kernel's layouts; the
+    results of :meth:`PoolISIRMixed.run` up to the float32 rounding of the
+    resident logsumexp.  ``noise(t)``: a :class:`MixedNoise`, or with a
+    ``program`` ``(u (C, B + 3), draws(first, paired))``."""
     T = plogw.shape[0]
-    state = (theta.T, y.T, logk)
+    transposed = program is None
+    state = (theta.T, y.T, logk) if transposed else (theta, y, logk)
     counters = [torch.zeros_like(logk) for _ in range(3)]
     hist = (torch.empty((T, *theta.shape), dtype=torch.float32,
                         device=theta.device) if collect_history else None)
     for t in range(T):
-        state, inc = mixed_transition(
-            state, (ptheta[t], px[t], plogw[t], plogk[t]), res, noise(t), cfg)
+        sl = (ptheta[t], px[t], plogw[t], plogk[t])
+        if program is None:
+            state, inc = mixed_transition(state, sl, res, noise(t), cfg)
+        else:
+            state, inc = program_transition(state, sl, res, program, cfg.gf,
+                                            *noise(t))
         counters = [c + i for c, i in zip(counters, inc)]
         if collect_history:
-            hist[t] = state[0].T
-    return (state[0].T.contiguous(), state[1].T.contiguous(), state[2],
-            *counters, hist)
+            hist[t] = state[0].T if transposed else state[0]
+    th, yy = ((state[0].T, state[1].T) if transposed else state[:2])
+    return (th.contiguous(), yy.contiguous(), state[2], *counters, hist)
 
 
 class PoolISIRMixed:
-    """Fused pool-iSIR + Mixture local-RW kernel (``global_frequency <
-    1``).  ``launches`` counts launches of the CUDA kernel (class-wide) and
-    rises for nothing else; ``block_chains`` (threads per CUDA block) does
-    not change the results."""
+    """Fused pool-iSIR + local-RW kernel (``global_frequency < 1``), with
+    the built-in Mixture local move or a :class:`TileProgram`'s
+    (``program=``; then ``y_obs``, ``epsilon``, ``sigma``, ``lp_scale`` and
+    ``prior_*`` are the program's and are ignored here).  ``launches``
+    counts launches of the built-in kernel and ``program_launches`` those of
+    a program's (class-wide), each rising for nothing else;
+    ``block_chains`` (threads per CUDA block) does not change the
+    results."""
 
     launches = 0
+    program_launches = 0
 
-    def __init__(self, theta_dim: int, y_obs, *, epsilon: float = 0.05,
+    def __init__(self, theta_dim: int, y_obs=None, *, epsilon: float = 0.05,
                  sigma: float = 0.05, global_frequency: float = 0.5,
                  batch_size: int = 5, steps_per_call: int = 400,
                  lp_scale: float = 0.35, prior_loc: float = 0.0,
                  prior_scale: float = 1.0, block_chains: int = 256,
                  collect_history: bool = True, program=None):
-        if program is not None:
-            raise NotImplementedError(
-                "program= (a TileProgram local move) is not ported yet "
-                "(ROADMAP Queue 1, M11)")
         self.d = int(theta_dim)
         if self.d < 1:
             raise ValueError(f"theta_dim must be >= 1, got {theta_dim}")
+        self.program = program
+        if program is not None:
+            if not isinstance(program, TileProgram):
+                raise TypeError("program must be a glabc_tpu_torch "
+                                f"TileProgram, got {type(program).__name__}")
+            if program.theta_dim != self.d:
+                raise ValueError(f"program.theta_dim {program.theta_dim} != "
+                                 f"theta_dim {self.d}")
+            y_obs = np.zeros(self.d, np.float32)   # the program's own
+        elif y_obs is None:
+            raise ValueError("y_obs is needed for the built-in local move")
+        self.y_rows = self.d if program is None else int(program.y_rows)
         self.B = int(batch_size)
         if not 1 <= self.B <= 7:
             raise ValueError(f"batch_size must be in [1, 7], got {batch_size}")
@@ -235,7 +302,7 @@ class PoolISIRMixed:
             global_frequency=global_frequency, batch_size=self.B,
             prior_loc=prior_loc, prior_scale=prior_scale, ip_loc=0.0,
             ip_scale=1.0, lp_scale=lp_scale, algorithm="glmcmc")
-        self._y_obs_on = {}   # device -> y_obs tensor the kernel reads
+        self._y_obs_on = {}   # device -> y_obs / parameters the kernel reads
 
     def _check(self, res, ptheta, px, plogw, plogk, theta, y, logk) -> int:
         dev = theta.device
@@ -259,9 +326,9 @@ class PoolISIRMixed:
         C = theta.shape[1]
         S = res.pre.shape[0]
         want = {"mu_scaled": (S, d), "inv2h": (d,),
-                "pool_theta": (T, B, d, C), "pool_x": (T, B, d, C),
+                "pool_theta": (T, B, d, C), "pool_x": (T, B, self.y_rows, C),
                 "pool_logw": (T, B, C), "pool_logk": (T, B, C),
-                "y": (d, C), "logk": (C,)}
+                "y": (self.y_rows, C), "logk": (C,)}
         for name, x in named:
             if name in want and tuple(x.shape) != want[name]:
                 raise ValueError(f"{name} must be {want[name]}, got "
@@ -281,16 +348,28 @@ class PoolISIRMixed:
         raise ValueError(f"no kernel for device {theta.device}")
 
     def plain(self, seed: int, res: ResidentProposal, ptheta, px, plogw,
-              plogk, theta, y, logk, *, step0: int = 0,
-              noise: Optional[Callable[[int], MixedNoise]] = None):
+              plogk, theta, y, logk, *, step0: int = 0, noise=None,
+              draws=None):
         """The plain torch version of :meth:`run`, on any device: the same
-        random numbers (or ``noise(t)``); the results of :func:`run_plain`."""
+        random numbers and results (:func:`run_plain`).  Built-in move:
+        ``noise(t) -> MixedNoise`` may replace them; program move: the
+        cursors ``draws(step, first, paired)``."""
         C = self._check(res, ptheta, px, plogw, plogk, theta, y, logk)
-        if noise is None:
+        if self.program is not None:
+            if draws is None:
+                from .generic_kernel import philox_draws
+                draws = philox_draws(seed, C, theta.device)
+            B = self.B
+
+            def noise(t):
+                step = step0 + t
+                return (draws(step, 0).uniforms(B + 3),
+                        lambda first, paired: draws(step, first, paired))
+        elif noise is None:
             noise = lambda t: draw_mixed_noise(seed, C, step0 + t, self.B,
                                                self.d, theta.device)
         return run_plain(res, ptheta, px, plogw, plogk, theta, y, logk,
-                         self.cfg, noise, self.collect_history)
+                         self.cfg, noise, self.collect_history, self.program)
 
     def _launch(self, seed, res, ptheta, px, plogw, plogk, theta, y, logk,
                 step0):
@@ -299,6 +378,9 @@ class PoolISIRMixed:
         if self.d > 32:
             raise ValueError(f"the CUDA kernel takes theta_dim <= 32, got "
                              f"{self.d}")
+        if self.program is not None:
+            return self._launch_program(seed, res, ptheta, px, plogw, plogk,
+                                        theta, y, logk, step0)
         lib = load_library("pool_isir_mixed")
         cfg, dev = self.cfg, theta.device
         C, S = theta.shape[1], res.pre.shape[0]
@@ -326,4 +408,36 @@ class PoolISIRMixed:
             raise RuntimeError(f"pool_isir_mixed launch failed: CUDA error "
                                f"{rc}")
         type(self).launches += 1
+        return (th_o, y_o, *outs, hist)
+
+    def _launch_program(self, seed, res, ptheta, px, plogw, plogk, theta, y,
+                        logk, step0):
+        from ._build import load_library
+
+        p, dev = self.program, theta.device
+        lib = load_library("pool_isir_mixed", p)
+        C, S = theta.shape[1], res.pre.shape[0]
+        th_o, y_o = torch.empty_like(theta), torch.empty_like(y)
+        outs = [torch.empty_like(logk) for _ in range(4)]   # logk + counters
+        hist = (torch.empty((self.T, self.d, C), dtype=torch.float32,
+                            device=dev) if self.collect_history else None)
+        params = self._y_obs_on.get(dev)
+        if params is None:   # a copy from the host waits for the stream: once
+            params = self._y_obs_on[dev] = p.params_on(dev)
+        k0, k1 = seed_key(seed)
+        ptr = lambda x: None if x is None else x.data_ptr()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.glabc_pool_isir_mixed_program(
+                *(ptr(x) for x in (res.mu_scaled, res.pre, res.inv2h, params,
+                                   ptheta, px, plogw, plogk, theta, y, logk,
+                                   th_o, y_o, *outs, hist)),
+                self.d, self.y_rows, C, self.T, self.B, S,
+                int(self.collect_history), p.local_blocks,
+                int(p.sim_paired), self.cfg.gf, k0, k1, int(step0),
+                self.C_blk, stream)
+        if rc != 0:
+            raise RuntimeError(f"pool_isir_mixed (program) launch failed: "
+                               f"CUDA error {rc}")
+        type(self).program_launches += 1
         return (th_o, y_o, *outs, hist)

@@ -10,8 +10,11 @@ All five methods are ported.  ``run_global_mcmc``, ``run_glmcmc``,
 ``run_aglmcmc`` and ``run_glmala`` take ``method='scan'`` (the plain torch
 path) or ``method='fused'`` (the CUDA kernels); ``run_glmcmc_nf`` takes
 ``'pooled'`` (default), ``'fused'`` or ``'scan'``, routed as in the JAX
-runner.  ``tile_program=`` (the generic TileProgram kernels) raises
-``NotImplementedError`` naming its ROADMAP item.
+runner.  ``run_glmala(method='fused', tile_program=...)`` runs the generic
+GLMALA kernel over a tile program, and ``run_aglmcmc(method='fused',
+global_frequency<1, tile_program=...)`` the mixed kernel with the program's
+local move; a ``tile_program`` that is not the port's ``TileProgram``
+raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ import torch
 from ._device import resolve_device
 from .ops.stats import chain_summary
 from .samplers.aglmcmc import run_aglmcmc
+from .ops.kernels.program import TileProgram
 from .samplers.aglmcmc_fused import run_aglmcmc_fused
 from .samplers.glmala import run_glmala
+from .samplers.fused_program import run_glmala_program
 from .samplers.glmala_fused import run_glmala_fused
 from .samplers.glmcmc import run_glmcmc
 from .samplers.glmcmc_fused import run_global_mcmc_fused, run_glmcmc_fused
@@ -115,6 +120,17 @@ class MCMCRunner:
         return chains[0] if chains.shape[0] == 1 else chains
 
     @staticmethod
+    def _program(kwargs):
+        """Pop ``tile_program`` from ``kwargs``; it must be the port's."""
+        prog = kwargs.pop("tile_program", None)
+        if prog is not None and not isinstance(prog, TileProgram):
+            raise TypeError(
+                "tile_program must be a glabc_tpu_torch TileProgram (a CUDA "
+                "header and its torch twin, e.g. problem.tile_program()), "
+                f"got {type(prog).__module__}.{type(prog).__name__}")
+        return prog
+
+    @staticmethod
     def _isotropic(dist, name: str):
         """Scalar (loc, scale) of a DiagGaussian; the fused kernel takes
         isotropic Gaussian proposals."""
@@ -196,12 +212,20 @@ class MCMCRunner:
         runs the pool-iSIR kernel at ``global_frequency == 1`` (any problem;
         per-chain adaptation epochs) and the mixed kernel below it
         (Mixture-family problems, shared adaptation, RW scale from
-        ``local_proposal`` unless ``lp_scale`` is given); ``'scan'`` the
-        plain torch path."""
+        ``local_proposal`` unless ``lp_scale`` is given; or any problem with
+        ``tile_program=``, whose local move the kernel then runs);
+        ``'scan'`` the plain torch path."""
+        extra = dict(kwargs)
+        prog = self._program(extra)
+        if prog is not None and (method != "fused"
+                                 or float(global_frequency) >= 1.0):
+            raise ValueError("tile_program= runs with method='fused' at "
+                             "global_frequency < 1")
         on_segment = self._writer(output_file, initial_theta)
         gen = self._next_generator(generator)
         if method == "fused":
-            extra = dict(kwargs)
+            if prog is not None:
+                extra["tile_program"] = prog
             if float(global_frequency) < 1.0:
                 # the mixed kernel implies shared adaptation: reject the
                 # scan path's per-chain options rather than ignore them
@@ -216,9 +240,10 @@ class MCMCRunner:
                         "epoch_chunk applies to per-chain epochs; the gf<1 "
                         "fused path adapts shared (tune redraw_chunk and "
                         "shared_support instead)")
-                extra.setdefault(
-                    "lp_scale",
-                    self._isotropic(local_proposal, "local proposal")[1])
+                if prog is None:
+                    extra.setdefault(
+                        "lp_scale",
+                        self._isotropic(local_proposal, "local proposal")[1])
             res = run_aglmcmc_fused(
                 self.abc_set, gen, num_iterations, initial_theta,
                 Initial_ISIR_prop, batch_size=batch_size,
@@ -233,7 +258,7 @@ class MCMCRunner:
                 local_proposal, Initial_ISIR_prop, global_frequency,
                 batch_size, step_size, alpha, hat_eps_T, y0=initial_y,
                 num_chains=self.num_chains, on_segment=on_segment,
-                device=self.device, **kwargs)
+                device=self.device, **extra)
         else:
             raise ValueError(f"method must be 'scan' or 'fused', got {method!r}")
         return self._finish(res, "AGLMCMC")
@@ -245,16 +270,24 @@ class MCMCRunner:
         """GLMALA (reference ``MCMCRunner.py:78-98``).  ``method='fused'``
         runs the fused GLMALA kernel (Mixture-family problems,
         ``theta_dim`` in {1, 2, 4, 8}, isotropic importance proposal;
-        ``coin_mode='shared'`` by default); ``'scan'`` the plain torch path
-        for any problem."""
-        if kwargs.get("tile_program") is not None:
-            raise NotImplementedError(
-                "tile_program= (the generic GLMALA kernel) is not ported yet "
-                "(ROADMAP Queue 1, M11)")
-        kwargs.pop("tile_program", None)
+        ``coin_mode='shared'`` by default); with ``tile_program=`` (e.g.
+        ``problem.tile_program()``) the generic GLMALA kernel over the
+        program, for any problem, whose ``sample_global`` is then the
+        importance proposal.  ``'scan'`` the plain torch path for any
+        problem."""
+        prog = self._program(kwargs)
+        if prog is not None and method != "fused":
+            raise ValueError("tile_program= runs with method='fused'")
         on_segment = self._writer(output_file, initial_theta)
         gen = self._next_generator(generator)
-        if method == "fused":
+        if prog is not None:
+            res = run_glmala_program(
+                self.abc_set, prog, gen, num_iterations, initial_theta,
+                y0=initial_y, global_frequency=global_frequency,
+                batch_size=batch_size, tau=tau, num_grad=num_grad,
+                num_chains=self.num_chains, on_segment=on_segment,
+                device=self.device, **kwargs)
+        elif method == "fused":
             ip_loc, ip_scale = self._isotropic(importance_proposal,
                                                "importance proposal")
             res = run_glmala_fused(

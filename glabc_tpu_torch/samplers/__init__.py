@@ -5,6 +5,8 @@ from .aglmcmc_fused import run_aglmcmc_fused, run_aglmcmc_fused_mixed
 from .base import (MoveCounts, SamplerResult, StepOut, independence_mh_move,
                    isir_move, local_rw_move, run_segmented)
 from .chain import ChainCarry, init_chain_carry, sample_with_step
+from .fused_program import (program_state_init, run_fused_program,
+                            run_glmala_program)
 from .global_mcmc import (GlobalMCMCConfig, build_global_mcmc_step,
                           run_global_mcmc)
 from .glmala import (GLMALAConfig, build_glmala_step, run_glmala,
@@ -36,6 +38,9 @@ __all__ = [
     "ChainCarry",
     "init_chain_carry",
     "sample_with_step",
+    "program_state_init",
+    "run_fused_program",
+    "run_glmala_program",
     "GlobalMCMCConfig",
     "build_global_mcmc_step",
     "run_global_mcmc",

@@ -12,8 +12,9 @@ Port of ``glabc_tpu/samplers/aglmcmc_fused.py``.
   pool after each launch.
 * ``global_frequency < 1`` (:func:`run_aglmcmc_fused_mixed`): the
   :class:`PoolISIRMixed` kernel (K5) with a per-chain coin, the
-  Mixture-family local move, and the current state's density under the
-  resident shared KDE; adaptation is shared across chains.
+  Mixture-family local move or a tile program's (``tile_program=``), and
+  the current state's density under the resident shared KDE; adaptation is
+  shared across chains.
 
 Both run on one seed drawn from the generator, with each launch keyed by
 the absolute index of its first transition, so a chain's stream does not
@@ -215,8 +216,10 @@ def run_aglmcmc_fused(problem, generator, num_ite, theta0,
             "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
             "Queue 1, M12)")
     if tile_program is not None:
-        raise NotImplementedError(
-            "tile_program= is not ported yet (ROADMAP Queue 1, M11)")
+        raise ValueError(
+            "tile_program= gives the local move at global_frequency < 1; at "
+            "global_frequency == 1 every move is pool iSIR, which serves any "
+            "problem without one")
     dev = resolve_device(device)
     check_generator(generator, dev)
     d = problem.theta_dim
@@ -346,12 +349,16 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
                             thin: int = 1, history_dtype=None,
                             device=None) -> AGLResult:
     """AGLMCMC at ``global_frequency < 1`` through the mixed kernel (K5):
-    per-chain coin, the in-kernel Mixture local move, and the current
-    state's density under the resident shared KDE.
+    per-chain coin, the in-kernel local move, and the current state's
+    density under the resident shared KDE.
 
-    Needs a Mixture-family problem (``problem._noise_std``; ``y_dim ==
-    theta_dim``) and a diagonal-Gaussian ``initial_isir_proposal`` (its
-    density is the first epoch's resident mixture).  Adaptation is shared:
+    The local move is the built-in Mixture move (a Mixture-family problem:
+    ``problem._noise_std``, ``y_dim == theta_dim``) or, with
+    ``tile_program=`` (a :class:`~glabc_tpu_torch.ops.kernels.program.
+    TileProgram`, e.g. ``problem.tile_program()``), the program's, any
+    problem; pools and epochs simulate through ``problem.simulate``.
+    ``initial_isir_proposal`` must be a diagonal Gaussian (its density is
+    the first epoch's resident mixture).  Adaptation is shared:
     one quantile over all pools and one ``shared_support``-point KDE per
     epoch.  Pools are consumed slice-per-step: segments are ``seg_len =
     round(step_size / gf)`` steps with ``seg_len * batch_size`` pool rows,
@@ -361,21 +368,25 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
         raise NotImplementedError(
             "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
             "Queue 1, M12)")
-    if tile_program is not None:
-        raise NotImplementedError(
-            "tile_program= (a TileProgram local move) is not ported yet "
-            "(ROADMAP Queue 1, M11)")
     dev = resolve_device(device)
     check_generator(generator, dev)
     d = problem.theta_dim
-    sigma = getattr(problem, "_noise_std", None)
-    if sigma is None:
-        raise ValueError(
-            "run_aglmcmc_fused_mixed needs a Mixture-family problem (with a "
-            "Gaussian simulator noise scale) for the in-kernel local move; "
-            "run_aglmcmc (scan) covers other problems")
-    if problem.y_dim != d:
-        raise ValueError("Mixture-family kernels require y_dim == theta_dim")
+    if tile_program is not None:
+        from .fused_program import _check_program
+        _check_program(problem, tile_program)
+        sigma, y_obs = 0.0, None
+    else:
+        sigma = getattr(problem, "_noise_std", None)
+        if sigma is None:
+            raise ValueError(
+                "run_aglmcmc_fused_mixed needs a Mixture-family problem (with "
+                "a Gaussian simulator noise scale) for the in-kernel local "
+                "move, or tile_program=; run_aglmcmc (scan) covers other "
+                "problems")
+        if problem.y_dim != d:
+            raise ValueError("Mixture-family kernels require y_dim == "
+                             "theta_dim")
+        y_obs = problem.y_obs.cpu().numpy()
     loc = getattr(initial_isir_proposal, "loc", None)
     log_scale = getattr(initial_isir_proposal, "log_scale", None)
     if loc is None or log_scale is None:
@@ -390,10 +401,10 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
     cfg = AGLMCMCConfig(gf, B, step_size, alpha, hat_eps_T, oversample, 0,
                         seg_len - step_size)
     kern = PoolISIRMixed(
-        d, problem.y_obs.cpu().numpy(), epsilon=problem.epsilon,
-        sigma=sigma, global_frequency=gf, batch_size=B,
-        steps_per_call=seg_len, lp_scale=lp_scale, block_chains=block_chains,
-        collect_history=collect_history)
+        d, y_obs, epsilon=problem.epsilon, sigma=sigma,
+        global_frequency=gf, batch_size=B, steps_per_call=seg_len,
+        lp_scale=lp_scale, block_chains=block_chains,
+        collect_history=collect_history, program=tile_program)
     if redraw_chunk and redraw_chunk < C:
         while C % redraw_chunk:
             redraw_chunk -= 1
@@ -413,7 +424,9 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
 
     ckpt_meta = {"sampler": "aglmcmc_fused_mixed", "num_chains": C,
                  "theta_dim": d, "seg_len": seg_len, "batch_size": B,
-                 "shared_support": shared_support}
+                 "shared_support": shared_support,
+                 "program": ("" if tile_program is None
+                             else tile_program.name)}
     restored = (restore_epoch_ckpt(checkpoint_path, ckpt_meta)
                 if resume and checkpoint_path is not None
                 and os.path.exists(carry_path(checkpoint_path)) else None)

@@ -15,15 +15,19 @@ import torch
 from ..models.distributions import DiagGaussian
 from ..models.flows import CouplingFlow
 from ..models.kde import KernelDensity
-from ..models.problems import HighDimMixtureProblem, MixtureProblem
+from ..models.problems import (GKProblem, HighDimMixtureProblem, MA2Problem,
+                               MixtureProblem)
 from ..ops.kernels.pool_isir_mixed_kernel import ResidentProposal
+from ..ops.kernels.program import ma2_tile_program, mixture_tile_program
 from ..samplers.aglmcmc import Pool
 
 __all__ = ["mixture_problem_from_numpy", "diag_gaussian_from_numpy",
            "state_from_numpy", "state_to_numpy", "kde_from_numpy",
            "pool_from_numpy", "resident_from_numpy", "pool_slice_from_numpy",
            "agl_state_from_numpy", "coupling_flow_from_numpy",
-           "glmala_state_from_packed", "nf_fused_state_from_numpy"]
+           "glmala_state_from_packed", "nf_fused_state_from_numpy",
+           "ma2_problem_from_numpy", "gk_problem_from_numpy",
+           "mixture_program_from_numpy", "ma2_program_from_numpy"]
 
 
 def _f32(x, device):
@@ -135,3 +139,40 @@ def nf_fused_state_from_numpy(theta_k, y_cur, logk, logw_k, d: int,
     return (agl_state_from_numpy(theta_k, d, device), _f32(y_cur, device),
             _f32(np.asarray(logk).reshape(-1), device),
             agl_state_from_numpy(logw_k, d, device))
+
+
+def ma2_problem_from_numpy(y_obs, epsilon: float, num_draws: int,
+                           theta_true=(0.6, 0.2)) -> MA2Problem:
+    """An :class:`MA2Problem` with the JAX one's ``y_obs``, ``epsilon``,
+    ``num_draws`` and ``theta_true``."""
+    return MA2Problem(float(epsilon), int(num_draws),
+                      tuple(np.asarray(theta_true, np.float32).tolist()),
+                      y_obs=np.asarray(y_obs, np.float32))
+
+
+def gk_problem_from_numpy(y_obs, epsilon: float, num_draws: int,
+                          prior_low: float = 0.0,
+                          prior_high: float = 10.0) -> GKProblem:
+    """A :class:`GKProblem` with the JAX one's numbers."""
+    return GKProblem(float(epsilon), int(num_draws), float(prior_low),
+                     float(prior_high), y_obs=np.asarray(y_obs, np.float32))
+
+
+def mixture_program_from_numpy(y_obs, epsilon: float, noise_std: float, *,
+                               ip_loc=0.0, ip_scale=1.0, lp_scale=0.35,
+                               prior_loc=0.0, prior_scale=1.0):
+    """The port's program for the numbers a JAX ``mixture_tile_program``
+    closes over (its problem's ``y_obs``, ``epsilon`` and ``_noise_std``,
+    and the keyword arguments it was given)."""
+    return mixture_tile_program(
+        mixture_problem_from_numpy(y_obs, epsilon, noise_std),
+        ip_loc=ip_loc, ip_scale=ip_scale, lp_scale=lp_scale,
+        prior_loc=prior_loc, prior_scale=prior_scale)
+
+
+def ma2_program_from_numpy(y_obs, epsilon: float, num_draws: int, *,
+                           lp_scale=0.1):
+    """The port's program for the numbers a JAX ``ma2_tile_program``
+    closes over."""
+    return ma2_tile_program(ma2_problem_from_numpy(y_obs, epsilon, num_draws),
+                            lp_scale=lp_scale)

@@ -318,7 +318,8 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="M12"):
         run_aglmcmc_fused(PROB, gen(0), 5, np.zeros(2), IP, mesh=object(),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="M11"):
+    # tile_program= is ported: a program that is not the port's is refused
+    with pytest.raises(TypeError, match="TileProgram"):
         run_aglmcmc_fused_mixed(PROB, gen(0), 5, np.zeros(2), IP,
                                 global_frequency=0.5, tile_program=object(),
                                 device="cpu")

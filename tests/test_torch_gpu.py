@@ -314,3 +314,139 @@ def test_flow_plain_refuses_tf32(cuda):
             FlowPush().plain(f, z)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+# -------------------- the generic kernels over tile programs (K8, K9, K5)
+def _program_state(name, cuda, C, seed):
+    from glabc_tpu_torch import MA2Problem, mixture_tile_program
+
+    prob = MixtureProblem(0.05) if name == "mixture" else MA2Problem()
+    prog = (mixture_tile_program(prob) if name == "mixture"
+            else prob.tile_program())
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    scale = 1.3 if name == "mixture" else 0.3
+    th = ((torch.rand((2, C), generator=g, device=cuda) - 0.5)
+          * scale).contiguous()
+    y = prob.simulate(th.T.contiguous(), g).T.contiguous()
+    logk = prob.log_kernel_of_y(y.T).contiguous()
+    return prob, prog, th, y, logk, g
+
+
+def _share_differing(got, want, C):
+    bad = torch.zeros(C, dtype=torch.bool, device=got[0].device)
+    for a, b in zip(got, want):
+        if a is None:
+            continue
+        assert torch.isfinite(a).all()
+        bad |= ((a - b).abs() > 1e-5).reshape(-1, C).any(0)
+    return bad.float().mean().item()
+
+
+@pytest.mark.parametrize("name", ["mixture", "ma2"])
+@pytest.mark.parametrize("algorithm", ["glmcmc", "global"])
+def test_generic_glmcmc_matches_plain(cuda, name, algorithm):
+    """K8 against its plain version on one Philox stream."""
+    from glabc_tpu_torch.ops.kernels import GenericFusedGLMCMC
+
+    T, C = 16, 2048
+    prob, prog, th, y, logk, _ = _program_state(name, cuda, C, 1)
+    kern = GenericFusedGLMCMC(prog, global_frequency=0.8, batch_size=5,
+                              steps_per_call=T, block_chains=128,
+                              algorithm=algorithm)
+    before = GenericFusedGLMCMC.launches
+    got = kern.run(7, th, y, logk, step0=96)
+    assert GenericFusedGLMCMC.launches == before + 1
+    want = kern.plain(7, th, y, logk, step0=96)
+    torch.cuda.synchronize()
+    assert _share_differing([*got[:4], *got[4]], [*want[:4], *want[4]],
+                            C) <= 1e-3
+    assert torch.equal(got[3][0], want[3][0])
+    assert 0 < got[4].accepted.sum().item() < C * T
+
+
+@pytest.mark.parametrize("name", ["mixture", "ma2"])
+@pytest.mark.parametrize("coin_mode", ["shared", "per_chain"])
+def test_generic_glmala_matches_plain(cuda, name, coin_mode):
+    """K9 against its plain version on one Philox stream."""
+    from glabc_tpu_torch.ops.kernels import GenericFusedGLMALA
+
+    T, C = 6, 1024
+    prob, prog, th, y, logk, g = _program_state(name, cuda, C, 2)
+    grad = torch.randn((2, C), generator=g, device=cuda)
+    kern = GenericFusedGLMALA(prog, epsilon=prob.epsilon,
+                              global_frequency=0.5, tau=0.1, num_grad=10,
+                              steps_per_call=T, block_chains=128,
+                              coin_mode=coin_mode)
+    coins = torch.tensor([1, 0, 0, 1, 0, 1], dtype=torch.int32)
+    before = GenericFusedGLMALA.launches
+    got = kern.run(5, th, y, logk, grad, coins, step0=64)
+    assert GenericFusedGLMALA.launches == before + 1
+    want = kern.plain(5, th, y, logk, grad, coins, step0=64)
+    torch.cuda.synchronize()
+    assert _share_differing([*got[:5], *got[5]], [*want[:5], *want[5]],
+                            C) <= 1e-3
+    assert 0 < got[5][3].sum().item()      # local MALA moves are accepted
+
+
+@pytest.mark.parametrize("name", ["mixture", "ma2"])
+def test_pool_isir_mixed_program_matches_plain(cuda, name):
+    """K5: the program variant (MA(2)) and the built-in Mixture move against
+    their plain versions; each counts its own launches."""
+    from glabc_tpu_torch.models.kde import KernelDensity
+
+    T, B, C = 16, 5, 2048
+    prob, prog, th, y, logk, g = _program_state(name, cuda, C, 3)
+    ptheta = ((torch.rand((T, B, 2, C), generator=g, device=cuda) - 0.5)
+              * 0.6)
+    px = prob.simulate(ptheta.permute(0, 1, 3, 2).contiguous(),
+                       g).permute(0, 1, 3, 2).contiguous()
+    plogk = prob.log_kernel_of_y(px.permute(0, 1, 3, 2)).contiguous()
+    plogw = (plogk + torch.randn(plogk.shape, generator=g,
+                                 device=cuda)).contiguous()
+    res = resident_from_kde(KernelDensity.fit(
+        torch.randn((256, 2), generator=g, device=cuda) * 0.3))
+    if name == "ma2":
+        kern = PoolISIRMixed(2, program=prog, global_frequency=0.5,
+                             batch_size=B, steps_per_call=T,
+                             block_chains=128)
+        attr = "program_launches"
+    else:
+        kern = PoolISIRMixed(2, prob.y_obs.numpy(), epsilon=prob.epsilon,
+                             sigma=prob._noise_std, global_frequency=0.5,
+                             batch_size=B, steps_per_call=T,
+                             block_chains=128)
+        attr = "launches"
+    before = getattr(PoolISIRMixed, attr)
+    a = (res, ptheta, px, plogw, plogk, th, y, logk)
+    got = kern.run(3, *a, step0=400)
+    assert getattr(PoolISIRMixed, attr) == before + 1
+    want = kern.plain(3, *a, step0=400)
+    torch.cuda.synchronize()
+    assert _share_differing(got, want, C) <= 1e-3
+    assert abs(got[3].mean().item() / T - 0.5) < 0.05
+    assert got[5].sum().item() > 0
+
+
+def test_program_builds_are_keyed_by_content(cuda):
+    """A (kernel, program) pair builds once: a second load reuses the
+    library; another program's header builds its own."""
+    import os
+
+    from glabc_tpu_torch import MA2Problem, mixture_tile_program
+    from glabc_tpu_torch.models import HighDimMixtureProblem as HD
+    from glabc_tpu_torch.ops.kernels import _build
+
+    ma2 = MA2Problem().tile_program()
+    path = _build.lib_path("generic_glmcmc", ma2)
+    _build.load_library("generic_glmcmc", ma2)
+    stamp = os.stat(path).st_mtime_ns
+    _build.build_all()                       # everything present: no nvcc
+    assert os.stat(path).st_mtime_ns == stamp
+    again = MA2Problem(epsilon=0.3).tile_program(lp_scale=0.2)
+    assert _build.lib_path("generic_glmcmc", again) == path
+    assert (_build.load_library("generic_glmcmc", again)
+            is _build.load_library("generic_glmcmc", ma2))
+    mix3 = mixture_tile_program(HD(3))
+    lib3 = _build.load_library("generic_glmcmc", mix3)   # built at first use
+    assert os.path.exists(_build.lib_path("generic_glmcmc", mix3))
+    assert lib3 is not _build.load_library("generic_glmcmc", ma2)

@@ -319,7 +319,8 @@ def test_mixed_transition_matches_composed_jax_step(gf):
 
 
 def test_mixed_wrapper_checks():
-    with pytest.raises(NotImplementedError, match="M11"):
+    # the program variant takes only the port's TileProgram
+    with pytest.raises(TypeError, match="TileProgram"):
         PoolISIRMixed(2, [1.5, 1.5], program=object())
     kern = PoolISIRMixed(2, [1.5, 1.5], steps_per_call=3, batch_size=2)
     res = resident_from_gaussian([0.0, 0.0], 1.0)

@@ -227,8 +227,9 @@ def test_runner_summary_and_unported_methods(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[GLMCMC] 4 chain(s) x 33 iterations" in out
     assert "R-hat" in out
-    # every runner method is ported; the options still to port raise
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # every runner method is ported; the options still to port raise, and
+    # a tile_program that is not the port's TileProgram is refused
+    with pytest.raises(TypeError, match="TileProgram"):
         runner.run_glmala(5, np.zeros(2), None, 0.8, IP, 5, 0.3, 4,
                           method="fused", tile_program=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
