@@ -43,15 +43,21 @@ Phases, each reported on its own lines:
    the posterior and move-fraction bands and to the plain path's global
    acceptance; the local acceptance of each, side by side (phase 3 also
    checks K6 at d in {2, 8}, both coin modes, K7 push and pull at d in
-   {2, 3, 8}, ragged row counts and 1,048,576 rows, and the generic
-   kernels K8 and K9 on the Mixture and MA(2) programs and K5's program
-   variant on MA(2), against their plain versions);
+   {2, 3, 8}, ragged row counts and 1,048,576 rows, K7-bf16 (the bf16
+   tensor-core flow) likewise and at hidden widths 16 and 32, with the
+   HMMA instructions in its SASS, and the generic kernels K8 and K9 on the
+   Mixture and MA(2) programs and K5's program variant on MA(2), against
+   their plain versions);
 8. GLMCMC-NF through ``MCMCRunner.run_glmcmc_nf``: ``method='fused'`` at
    gf=1 (32,768 chains x 801: K7 pushes the pools, K3 runs the segments,
    one K7 pull per epoch) and at gf=0.5 (8,192 x 4,001, slice cadence: one
    K7 pull per step), each beside ``method='pooled'`` at 2,048 chains, and
    ``method='scan'`` at 256 x 401; wall time split into kernels, training,
-   history copies and the rest;
+   history copies and the rest; then the flow API with
+   ``matmul_dtype='bfloat16'`` (K7-bf16) on the trained NF flows: push of
+   the gf=1 run's last pool draw (32,768,000 rows) and its round trip, pull
+   of the gf=0.5 run's state (8,192 rows) and of 1,048,576 rows, each
+   against the plain bf16 version and the float32 kernel;
 9. the generic program path on MA(2) at the JAX package's full width
    (num_draws=100): ``run_fused_program`` (K8) at 65,536 chains x 1,025
    beside the plain ``run_glmcmc`` at 4,096, and the Mixture program held
@@ -128,6 +134,24 @@ NF05_ITERS = 4001
 NF_SCAN_CHAINS = 256   # the per-step path, finiteness and launches only
 NF_SCAN_ITERS = 401
 FLOW_TOL = 1e-4        # K7 against plain: |diff| <= FLOW_TOL max(1, |x|)
+# K7-bf16 against its plain version (the same bf16-rounded operands, float32
+# matmuls): a row differs when any of its outputs is more than BF16_ROW_TOL
+# max(1, |plain|) apart; at most BF16_SHARE of the rows may, and none by more
+# than BF16_MAX_TOL (a guard against a fault confined to a few rows).  The
+# tensor cores sum in another order, so a last-bit difference of an
+# accumulator now and then flips a bf16 rounding of h0 or h1 by one bf16
+# ulp, and the row moves with it.  On an H100 the largest row difference read
+# 6e-8 to 6.9e-5 at 300 to 4,099 rows and at most 1.04e-4 at 2^20 rows (one
+# row above 1e-4 in 2^20), 4.8e-5 on the trained NF flow's 32.8M rows.  At
+# the same inputs the float32 flow differs from the plain bf16 version by
+# more than 1e-4 on 15 % to 79 % of the rows of a random flow and on 0.66 %
+# of the trained flow's: the check must see it differ on at least
+# 10 BF16_SHARE of them, so that bf16 is told from float32 everywhere.
+BF16_ROW_TOL = 1e-4
+BF16_SHARE = 1e-4
+BF16_MAX_TOL = 1e-3
+# dense bf16 tensor-core peak of one H100 SXM at 700 W (NVIDIA data sheet)
+TC_BF16_PER_S = 989e12
 
 # The generic program path on MA(2) at the JAX package's full width
 # (num_draws=100, epsilon 0.2, JAX's y_obs): GLMCMC gf=0.8, B=5, random walk
@@ -354,9 +378,10 @@ def kernel_intervals(prof, name):
                   and "CUDA" in str(getattr(ev, "device_type", "CUDA")))
 
 
-def sass_counts(lib_path):
+def sass_counts(lib_path, op=None):
     """Static SASS instruction count of each kernel in the library, by
-    ``cuobjdump -sass`` (None when the tool is missing)."""
+    ``cuobjdump -sass``, of every instruction or of those whose opcode
+    starts with ``op`` (None when the tool is missing)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -368,14 +393,18 @@ def sass_counts(lib_path):
         if m:
             fn = m.group(1)
             counts[fn] = 0
-        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
+                      line)
+        if fn and m and (op is None or m.group(1).startswith(op)):
             counts[fn] += 1
     return counts
 
 
 def _wrappers():
     """Each launch count: its key -> (wrapper class, counter attribute).
-    The mixed kernel keeps the count of its program variant apart."""
+    The mixed kernel keeps the count of its program variant apart, and the
+    flow wrappers the count of their bf16 kernel."""
     from glabc_tpu_torch.ops.kernels import (BatchedMixtureLogProb, FlowPull,
                                              FlowPush, FusedMixtureGLMALA,
                                              FusedMixtureGLMCMC,
@@ -392,6 +421,8 @@ def _wrappers():
            "generic_glmala": GenericFusedGLMALA}
     out = {k: (cls, "launches") for k, cls in out.items()}
     out["pool_isir_mixed_prog"] = (PoolISIRMixed, "program_launches")
+    out["flow_push_bf16"] = (FlowPush, "bf16_launches")
+    out["flow_pull_bf16"] = (FlowPull, "bf16_launches")
     return out
 
 
@@ -1336,6 +1367,228 @@ def phase_mala_flow_kernels_vs_plain():
             check(all(bool(torch.isfinite(a).all()) for a in got)
                   and err <= FLOW_TOL,
                   f"{cls.__name__} d={d} N={N}: {err:.3g} > {FLOW_TOL}")
+
+
+# ------------------------------------- the bf16-operand coupling flow
+def flow_bf16_work(d, L, H):
+    """What one row through the whole bf16 flow needs at the least,
+    ``(tensor-core FLOPs, FP32-lane operations, exponentials)``.  Per layer:
+    the h0 w1 and h1 w2 products on the tensor cores, 2 H (H + 2 d2) FLOPs
+    (the d1-deep u1 w0 product runs on the lanes); on the lanes the bf16
+    rounding of u1 (d1), h0 (d1 fused multiply-adds, the bias, the ReLU and
+    half a paired bf16 conversion per unit: d1 + 2.5), h1's bias, ReLU and
+    conversion (2.5 per unit), the 2 d2 biases of ts and the epilogue (a
+    multiply, an add and the running sum per transformed coordinate); one
+    exponential per transformed coordinate."""
+    d2 = d // 2
+    d1 = d - d2
+    ops = d1 + H * (d1 + 2.5) + 2.5 * H + 2 * d2 + 3 * d2
+    return L * 2 * H * (H + 2 * d2), L * ops, L * d2
+
+
+def bf16_bound_ms(bytes_moved, tc_flops, ops, sfu):
+    """The least time for the bf16 flow: the largest of bytes over the
+    memory rate, tensor-core FLOPs over the dense bf16 peak, FP32-lane and
+    special-function operations over theirs.  Returns ``(ms, bound_by,
+    {term: ms})``."""
+    terms = {"bytes": bytes_moved / HBM_BYTES_PER_S,
+             "tensor cores": tc_flops / TC_BF16_PER_S,
+             "FP32 lanes": ops / OPS_PER_S,
+             "special functions": sfu / SFU_PER_S}
+    top = max(terms, key=terms.get)
+    return (1e3 * terms[top], "bytes" if top == "bytes" else "operations",
+            {k: 1e3 * v for k, v in terms.items()})
+
+
+def _bf16_row_diff(got, want):
+    """Per row, the largest difference over its coordinates and its
+    log-scale sum, relative to max(1, |plain|)."""
+    import torch
+
+    rel = lambda a, b: (a - b).abs() / b.abs().clamp_min(1.0)
+    return torch.maximum(rel(got[0], want[0]).amax(0), rel(got[1], want[1]))
+
+
+class Bf16Diff:
+    """The kernel against the plain bf16 version, summed over chunks of
+    rows: rows differing by more than BF16_ROW_TOL, the largest relative
+    and absolute differences; and the same plain version against the
+    float32 flow (``f32``), whose share must be 10 BF16_SHARE or more."""
+
+    def __init__(self):
+        self.rows = self.bad = self.bad32 = 0
+        self.max_rel = self.max_abs = self.f32_dx = self.f32_ds = 0.0
+
+    def add(self, got, want, f32):
+        diff = _bf16_row_diff(got, want)
+        self.rows += diff.numel()
+        self.bad += int((diff > BF16_ROW_TOL).sum())
+        self.bad32 += int((_bf16_row_diff(f32, want) > BF16_ROW_TOL).sum())
+        self.max_rel = max(self.max_rel, float(diff.max()))
+        self.max_abs = max(self.max_abs, *(float((a - b).abs().max())
+                                           for a, b in zip(got, want)))
+        self.f32_dx = max(self.f32_dx, float((got[0] - f32[0]).abs().max()))
+        self.f32_ds = max(self.f32_ds, float((got[1] - f32[1]).abs().max()))
+
+    def check(self, label):
+        share, share32 = self.bad / self.rows, self.bad32 / self.rows
+        log(f"[K7-bf16-vs-plain] {label}: rows differing by > "
+            f"{BF16_ROW_TOL:g} {share:.3g} (limit {BF16_SHARE:g}), max "
+            f"|diff| / max(1, |plain|) {self.max_rel:.3g} (limit "
+            f"{BF16_MAX_TOL:g}), max abs diff {self.max_abs:.3g}; float32 "
+            f"flow against the plain bf16: rows differing {share32:.3g} "
+            f"(must be >= {10 * BF16_SHARE:g}); bf16 kernel against float32: "
+            f"max |dx| {self.f32_dx:.3g}, max |d sum log s| {self.f32_ds:.3g}")
+        check(share <= BF16_SHARE and self.max_rel <= BF16_MAX_TOL,
+              f"K7-bf16 {label}: {share:.3g} of rows differ, max "
+              f"{self.max_rel:.3g}")
+        check(share32 >= 10 * BF16_SHARE, f"K7-bf16 {label}: the float32 "
+              f"flow passes for bf16 ({share32:.3g} of rows differ)")
+
+
+def phase_flow_bf16_vs_plain():
+    """K7-bf16 push and pull at small shapes, each against its plain bf16
+    version beside the float32 flow: 32 x 128 at d in {2, 3, 8} with ragged
+    row counts and at 1,048,576 rows, and the JAX fixtures' widths H in
+    {16, 32} on 3- and 4-layer flows; and the tensor-core (HMMA)
+    instructions in the kernel's SASS."""
+    import torch
+    from glabc_tpu_torch.ops.kernels import FlowPull, FlowPush, _build
+
+    hmma = sass_counts(str(_build.lib_path("coupling_flow_bf16")), "HMMA")
+    log(f"[K7-bf16] HMMA instructions in the SASS, per kernel: {hmma}")
+    check(bool(hmma) and all(n > 0 for n in hmma.values()),
+          "coupling_flow_bf16: no tensor-core instructions in its SASS")
+    for d, N, L, H in ((2, 4099, 32, 128), (3, 1000, 32, 128),
+                       (8, 777, 32, 128), (2, 1 << 20, 32, 128),
+                       (2, 4099, 4, 16), (3, 1000, 4, 32), (8, 777, 3, 16)):
+        f, g = _test_flow(d, L, H, seed=d + N + H)
+        z = torch.randn((d, N), generator=g, device=DEVICE)
+        for cls in (FlowPush, FlowPull):
+            got = cls("bfloat16").run(f, z)
+            want = cls("bfloat16").plain(f, z)
+            f32 = cls().plain(f, z)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(a).all()) for a in got),
+                  f"K7-bf16 {cls.__name__} d={d} N={N}: not finite")
+            diff = Bf16Diff()
+            diff.add(got, want, f32)
+            diff.check(f"{cls.__name__} d={d} N={N:,}, {L} layers x {H}")
+
+
+def phase_flow_bf16(insts):
+    """The slice's path at full width, through the flow API: the gf=1 NF
+    run's trained flow pushes the z of its last pool draw (32,768,000 rows)
+    with ``matmul_dtype='bfloat16'`` and pulls the result back (the round
+    trip), the gf=0.5 run's flow pulls its last state (8,192 rows), and the
+    gf=1 flow pulls 1,048,576 of the pushed rows; the launch counts set to 0
+    just before it.  Then each output against the plain bf16 version over
+    chunks of 2^20 rows and against the float32 kernel, and the kernel's
+    times.  Returns the path's counts and its two ``kernels`` rows, without
+    ``launches_by_path``."""
+    import torch
+    from glabc_tpu_torch.ops.kernels import (FlowPull, FlowPush,
+                                             flow_pull_fused, flow_push_fused)
+
+    _, (flow, z), _ = insts["run_glmcmc_nf_gf1"].last["flow_push"]
+    _, (flow05, x05), _ = insts["run_glmcmc_nf_gf05"].last["flow_pull"]
+    bf, chunk = dict(matmul_dtype="bfloat16"), 1 << 20
+
+    def drive():
+        x, s = flow_push_fused(flow, z, **bf)
+        back = flow_pull_fused(flow, x, **bf)
+        pulled05 = flow_pull_fused(flow05, x05, **bf)
+        x20 = x[:, :chunk].contiguous()
+        return (x, s), back, pulled05, x20, flow_pull_fused(flow, x20, **bf)
+
+    (secs, outs), counts = counted(lambda: wall(drive))
+    want = only(flow_push_bf16=1, flow_pull_bf16=3)
+    check(counts == want, f"flow_api_bf16: launches {counts}, expected "
+          f"{want}")
+    pushed, back, pulled05, x20, pulled20 = outs
+    check(all(bool(torch.isfinite(a).all()) for out in
+              (pushed, back, pulled05, pulled20) for a in out),
+          "K7-bf16 on the NF flows: not finite")
+    log(f"[K7-bf16] flow API path: push {z.shape[1]:,} rows, pull them "
+        f"back, pull {x05.shape[1]:,} and {chunk:,} rows (d={z.shape[0]}, "
+        f"{flow.n_layers} layers x {flow.hidden}): wall {secs:.3f} s; "
+        f"launches {counts}")
+
+    def against(kern, fl, inp, got, ref32):
+        """Plain bf16 over chunks of 2^20 rows (its summed CUDA-event
+        time) against ``got``, beside the float32 kernel's ``ref32``."""
+        diff, plain_ms = Bf16Diff(), 0.0
+        for c0 in range(0, inp.shape[1], chunk):
+            sl = lambda t: t[..., c0:c0 + chunk]
+            part = sl(inp).contiguous()
+            t_ms, want = timed(lambda: kern.plain(fl, part), 1)
+            plain_ms += t_ms
+            diff.add([sl(a) for a in got], want, [sl(a) for a in ref32])
+            del want
+        return diff, plain_ms
+
+    def median_ms(fn, reps):
+        fn()                                            # warm
+        return sorted(timed(fn, reps)[0] for _ in range(3))[1]
+
+    push, pull = FlowPush("bfloat16"), FlowPull("bfloat16")
+    push32 = FlowPush().run(flow, z)
+    d_push, push_plain_ms = against(push, flow, z, pushed, push32)
+    d_push.check(f"push on the NF gf=1 flow, {z.shape[1]:,} rows")
+    rt = float((back[0] - z).abs().max())
+    back32 = FlowPull().run(flow, push32[0])
+    rt32 = float((back32[0] - z).abs().max())
+    log(f"[K7-bf16] round trip pull(push(z)) on the NF gf=1 flow, "
+        f"{z.shape[1]:,} rows: max |z' - z| bf16 {rt:.3g}, float32 kernels "
+        f"{rt32:.3g}; max |sum log s (pull) - sum log s (push)| bf16 "
+        f"{float((back[1] - pushed[1]).abs().max()):.3g}, float32 "
+        f"{float((back32[1] - push32[1]).abs().max()):.3g}")
+    del back, back32, push32
+    d_pull, pull_plain_ms = against(pull, flow05, x05, pulled05,
+                                    FlowPull().run(flow05, x05))
+    d_pull.check(f"pull on the NF gf=0.5 flow, {x05.shape[1]:,} rows")
+    d_pull20, _ = against(pull, flow, x20, pulled20,
+                          FlowPull().run(flow, x20))
+    d_pull20.check(f"pull on the NF gf=1 flow, {chunk:,} rows")
+
+    rows = []
+    for key, kern, fl, inp, got, diff, plain_ms, reps, replaces in (
+            ("flow_push_bf16", push, flow, z, pushed, d_push, push_plain_ms,
+             1, "149"),
+            ("flow_pull_bf16", pull, flow05, x05, pulled05, d_pull,
+             pull_plain_ms, 20, "164")):
+        ms = median_ms(lambda: kern.run(fl, inp), reps)
+        d, N = inp.shape
+        tc, ops, sfu = (N * w for w in flow_bf16_work(d, fl.n_layers,
+                                                      fl.hidden))
+        moved = nbytes(inp, *got) + nbytes(*fl.stack())
+        b_ms, b_by, terms = bf16_bound_ms(moved, tc, ops, sfu)
+        log(f"[K7-bf16] {key} at {N:,} rows, d={d}, {fl.n_layers} layers x "
+            f"{fl.hidden}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
+            f"{moved / 1e9:.4f} GB, {tc:.4g} tensor-core FLOPs, {ops:.4g} "
+            f"operations, {sfu:.4g} exponentials -> bound {b_ms:.4f} ms ("
+            + ", ".join(f"{k} {v:.4f}" for k, v in terms.items()) + ")")
+        rows.append(dict(
+            name=f"coupling_flow_bf16 ({key.split('_')[1]})", route="cuda",
+            source="glabc_tpu_torch/csrc/coupling_flow_bf16.cu",
+            replaces=f"glabc_tpu/ops/pallas/flow_kernel.py:{replaces}",
+            key=key, launches=counts[key], max_abs_err=diff.max_abs, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, max_rel_err=diff.max_rel,
+            rows_differing=diff.bad / diff.rows,
+            max_abs_err_vs_f32_x=diff.f32_dx,
+            max_abs_err_vs_f32_sum_log_s=diff.f32_ds))
+    ms20 = median_ms(lambda: pull.run(flow, x20), 5)
+    log(f"[K7-bf16] flow_pull_bf16 at {chunk:,} rows: kernel {ms20:.3f} ms")
+    return counts, rows
+
+
+def flow_bf16_kernel_rows(rows, paths):
+    """The two K7-bf16 rows with their launches on every path driven."""
+    for row in rows:
+        key = row.pop("key")
+        row["launches_by_path"] = {k: v[key] for k, v in paths.items()}
+    return rows
 
 
 def mala_run(tmp, seed, method, chains, iters, output_file=None, **kw):
@@ -2371,6 +2624,7 @@ def main():
     phase_kernel_vs_plain()
     phase_agl_kernels_vs_plain()
     phase_mala_flow_kernels_vs_plain()
+    phase_flow_bf16_vs_plain()
     phase_generic_kernels_vs_plain()
 
     # each path runs with the launch counts set to 0 just before it
@@ -2380,15 +2634,17 @@ def main():
         agl_paths, insts = phase_aglmcmc(tmp)
         mala_paths, mala_insts = phase_glmala(tmp)
         nf_paths, nf_insts = phase_glmcmc_nf(tmp)
+        bf16_counts, bf16_rows = phase_flow_bf16(nf_insts)
         gen_paths, gen_insts = phase_generic(tmp)
     paths = {"bench": bench["launches"], **paths, **agl_paths, **mala_paths,
-             **nf_paths, **gen_paths}
+             **nf_paths, "flow_api_bf16": bf16_counts, **gen_paths}
 
     rows = phase_kernels_line(bench, carry3, prob3, paths)
     rows += agl_kernel_rows(insts, paths)
     del insts
     rows += mala_flow_kernel_rows({**mala_insts, **nf_insts}, paths)
     del mala_insts, nf_insts
+    rows += flow_bf16_kernel_rows(bf16_rows, paths)
     rows += generic_kernel_rows(gen_insts, paths)
     del gen_insts
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -19,7 +19,9 @@ lr 5e-4 / weight-decay 1e-5):
 
 ``push_t``/``pull_t`` are the plain torch transforms on feature-major
 ``(dim, N)`` tiles; they carry autograd and are what training
-(:meth:`CouplingFlow.forward_kld`) differentiates.  :meth:`forward` and
+(:meth:`CouplingFlow.forward_kld`) differentiates.  With
+``matmul_dtype='bfloat16'`` they round the conditioner's product operands
+to bfloat16: the plain version of the K7-bf16 kernel.  :meth:`forward` and
 :meth:`log_prob` evaluate the flow without gradients through
 ``ops/kernels/flow_kernel.py``: on the card that is the K7 kernel, on the
 CPU its plain version (``push_t``/``pull_t`` under ``no_grad``).
@@ -40,6 +42,18 @@ __all__ = ["CouplingFlow", "lecun_normal"]
 _LOG_2PI = math.log(2.0 * math.pi)
 # the standard deviation of a standard normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (to nearest even), held in float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _bf16_operands(matmul_dtype: str) -> bool:
+    if matmul_dtype not in ("float32", "bfloat16"):
+        raise ValueError("matmul_dtype must be 'float32' or 'bfloat16', got "
+                         f"{matmul_dtype!r}")
+    return matmul_dtype == "bfloat16"
 
 
 def lecun_normal(shape, generator=None, device=None) -> torch.Tensor:
@@ -129,37 +143,48 @@ class CouplingFlow(nn.Module):
         return (self.w0, self.b0, self.w1, self.b1, self.w2, self.b2)
 
     # ------------------------------------------------- plain transforms
-    def _conditioner(self, l: int, u1: torch.Tensor) -> torch.Tensor:
-        """Layer ``l``'s MLP on ``u1 (N, d1)`` -> ``(N, 2*d2)``."""
-        h = torch.relu(u1 @ self.w0[l] + self.b0[l])
-        h = torch.relu(h @ self.w1[l] + self.b1[l])
-        return h @ self.w2[l] + self.b2[l]
+    def _conditioner(self, l: int, u1: torch.Tensor,
+                     bf16: bool = False) -> torch.Tensor:
+        """Layer ``l``'s MLP on ``u1 (N, d1)`` -> ``(N, 2*d2)``.  With
+        ``bf16`` the operands of the three products are rounded to bfloat16
+        (to nearest even) and the products accumulate in float32; biases,
+        ReLU and the result stay float32 (JAX ``FusedCouplingFlow(
+        matmul_dtype='bfloat16')``)."""
+        r = _bf16 if bf16 else (lambda t: t)
+        h = torch.relu(r(u1) @ r(self.w0[l]) + self.b0[l])
+        h = torch.relu(r(h) @ r(self.w1[l]) + self.b1[l])
+        return r(h) @ r(self.w2[l]) + self.b2[l]
 
-    def push_t(self, z_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def push_t(self, z_t: torch.Tensor, matmul_dtype: str = "float32"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """base -> data over all layers: ``z_t (dim, N)`` -> ``(x_t (dim,
-        N), sum of the log-scales (N,))``."""
+        N), sum of the log-scales (N,))``; ``matmul_dtype='bfloat16'``
+        rounds the conditioner's product operands (:meth:`_conditioner`)."""
+        bf16 = _bf16_operands(matmul_dtype)
         d2 = self.dim // 2
         d1 = self.dim - d2
         u = z_t.T
         acc = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
         for l in range(self.n_layers):
             u1, u2 = u[:, :d1], u[:, d1:]
-            ts = self._conditioner(l, u1)
+            ts = self._conditioner(l, u1, bf16)
             t, s = ts[:, :d2], ts[:, d2:]
             v2 = u2 * torch.exp(s) + t
             u = torch.cat([v2, u1], dim=1)     # roll([u1, v2], d2)
             acc = acc + s.sum(dim=1)
         return u.T, acc
 
-    def pull_t(self, x_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def pull_t(self, x_t: torch.Tensor, matmul_dtype: str = "float32"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """data -> base over all layers: ``x_t (dim, N)`` -> ``(z_t, sum of
         the log-scales (N,))``."""
+        bf16 = _bf16_operands(matmul_dtype)
         d2 = self.dim // 2
         v = x_t.T
         acc = torch.zeros(v.shape[0], dtype=v.dtype, device=v.device)
         for l in reversed(range(self.n_layers)):
             u1, v2 = v[:, d2:], v[:, :d2]       # roll(v, -d2) = [u1, v2]
-            ts = self._conditioner(l, u1)
+            ts = self._conditioner(l, u1, bf16)
             t, s = ts[:, :d2], ts[:, d2:]
             v = torch.cat([u1, (v2 - t) * torch.exp(-s)], dim=1)
             acc = acc + s.sum(dim=1)

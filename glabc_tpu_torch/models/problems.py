@@ -13,10 +13,11 @@ batch-first functions on tensors; randomness comes from an explicit
 ``y_obs`` is kept on the CPU and moved to the argument's device on use, so
 one problem serves runs on any device.
 
-The JAX package draws the default ``y_obs`` of ``GKProblem`` and
-``MA2Problem`` from fixed JAX keys, which a torch generator cannot
-reproduce; at the default ``num_draws`` the port carries those values as
-float32 literals, and at any other ``num_draws`` ``y_obs`` must be given.
+The JAX package simulates the default ``y_obs`` of ``GKProblem`` and
+``MA2Problem`` from ``theta_true`` with a JAX key, which a torch generator
+cannot reproduce; at the default ``num_draws`` and ``theta_true`` the port
+carries those values as float32 literals.  Any other ``num_draws`` or
+``theta_true``, or any ``key``, needs ``y_obs=``, and without it raises.
 """
 
 from __future__ import annotations
@@ -154,14 +155,25 @@ _GK_Y_OBS_1000 = (2.3917388916015625, 2.568113088607788, 2.768963098526001,
 _SIM_CHUNK = 1 << 20
 
 
-def _default_y_obs(name, y_obs, num_draws, default_draws, literal):
+def _default_y_obs(name, y_obs, num_draws, theta_true, key, default_draws,
+                   default_theta, literal):
+    """``y_obs`` as given, else the JAX package's default dataset, which
+    exists only at its ``num_draws`` and ``theta_true`` and its own key."""
     if y_obs is not None:
         return torch.tensor(np.asarray(y_obs, np.float32).reshape(-1))
+    simulated = (f"the default y_obs is the JAX package's dataset at "
+                 f"num_draws={default_draws}, theta_true={default_theta}, "
+                 "simulated with its own jax.random key")
+    if key is not None:
+        raise ValueError(f"{name}: the port cannot replay jax.random keys "
+                         f"({simulated}); pass y_obs= instead of key=")
     if num_draws != default_draws:
-        raise ValueError(
-            f"{name}: the default y_obs is the JAX package's dataset at "
-            f"num_draws={default_draws}; pass y_obs= for num_draws="
-            f"{num_draws}")
+        raise ValueError(f"{name}: {simulated}; pass y_obs= for num_draws="
+                         f"{num_draws}")
+    if not np.array_equal(np.asarray(theta_true, np.float32),
+                          np.asarray(default_theta, np.float32)):
+        raise ValueError(f"{name}: {simulated}; pass y_obs= for theta_true="
+                         f"{tuple(np.asarray(theta_true).tolist())}")
     return torch.tensor(literal, dtype=torch.float32)
 
 
@@ -185,17 +197,21 @@ class GKProblem(ABCProblem):
     """The g-and-k distribution (``glabc_tpu.models.problems.GKProblem``):
     ``Q(z) = A + B (1 + 0.8 tanh(g z / 2)) (1 + z^2)^k z`` on ``num_draws``
     standard normals, summarized by the seven octiles of the sorted draws;
-    box-uniform prior on ``[prior_low, prior_high]^4``."""
+    box-uniform prior on ``[prior_low, prior_high]^4``.  The arguments are
+    JAX's, in its order; ``theta_true`` and ``key`` only choose the
+    default ``y_obs`` (see :func:`_default_y_obs`)."""
 
     def __init__(self, epsilon: float = 2.0, num_draws: int = 1000,
-                 prior_low=0.0, prior_high=10.0, y_obs=None):
+                 theta_true=(3.0, 1.0, 2.0, 0.5), prior_low=0.0,
+                 prior_high=10.0, y_obs=None, key=None):
         self.epsilon = float(epsilon)
         self.theta_dim = 4
         self.num_draws = int(num_draws)
         self.prior_low = float(prior_low)
         self.prior_high = float(prior_high)
-        self.y_obs = _default_y_obs("GKProblem", y_obs, self.num_draws, 1000,
-                                    _GK_Y_OBS_1000)
+        self.y_obs = _default_y_obs("GKProblem", y_obs, self.num_draws,
+                                    theta_true, key, 1000,
+                                    (3.0, 1.0, 2.0, 0.5), _GK_Y_OBS_1000)
 
     def summaries(self, theta, z):
         """The octiles of ``Q(z; theta)``: ``theta (..., 4)``, ``z (...,
@@ -235,15 +251,18 @@ class MA2Problem(ABCProblem):
     innovations ``e_{-2} .. e_{T-1}``, summarized by the lag-0/1/2
     autocovariances ``s_k = (1/T) sum_t y_t y_{t-k}`` (``y_{t<0} = 0``);
     uniform prior on the triangle ``(-2, 1), (2, 1), (0, -1)``.  Its
-    :meth:`tile_program` is the generic fused kernels' program."""
+    :meth:`tile_program` is the generic fused kernels' program.
+    ``theta_true`` and ``key`` choose the default ``y_obs`` as in JAX (see
+    :func:`_default_y_obs`)."""
 
     def __init__(self, epsilon: float = 0.2, num_draws: int = 100,
-                 theta_true=(0.6, 0.2), y_obs=None):
+                 theta_true=(0.6, 0.2), y_obs=None, key=None):
         self.epsilon = float(epsilon)
         self.theta_dim = 2
         self.num_draws = int(num_draws)
         self.theta_true = torch.tensor(theta_true, dtype=torch.float32)
-        self.y_obs = _default_y_obs("MA2Problem", y_obs, self.num_draws, 100,
+        self.y_obs = _default_y_obs("MA2Problem", y_obs, self.num_draws,
+                                    theta_true, key, 100, (0.6, 0.2),
                                     _MA2_Y_OBS_100)
 
     def summaries(self, theta, z):

@@ -73,6 +73,10 @@ SOURCES = {
         "glabc_coupling_flow": [_P] * 9 + [_I] * 6 + [_P],
         "glabc_coupling_flow_max_rows": [_I, _I],
     },
+    "coupling_flow_bf16": {
+        "glabc_coupling_flow_bf16": [_P] * 4 + [_I] * 7 + [_P],
+        "glabc_coupling_flow_bf16_max_sub": [_I, _I, _I],
+    },
 }
 
 # sources built per tile program -> the C signatures a program build adds

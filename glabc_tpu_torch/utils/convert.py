@@ -154,8 +154,9 @@ def gk_problem_from_numpy(y_obs, epsilon: float, num_draws: int,
                           prior_low: float = 0.0,
                           prior_high: float = 10.0) -> GKProblem:
     """A :class:`GKProblem` with the JAX one's numbers."""
-    return GKProblem(float(epsilon), int(num_draws), float(prior_low),
-                     float(prior_high), y_obs=np.asarray(y_obs, np.float32))
+    return GKProblem(float(epsilon), int(num_draws),
+                     prior_low=float(prior_low), prior_high=float(prior_high),
+                     y_obs=np.asarray(y_obs, np.float32))
 
 
 def mixture_program_from_numpy(y_obs, epsilon: float, noise_std: float, *,

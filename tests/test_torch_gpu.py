@@ -316,6 +316,107 @@ def test_flow_plain_refuses_tf32(cuda):
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
+# ------------------------------- the bf16-operand coupling flow (K7-bf16)
+# A row differs when any of its outputs is more than BF16_ROW_TOL max(1,
+# |plain|) from the plain bf16 version's; at most BF16_SHARE of the rows may,
+# none by more than BF16_MAX_TOL (chip_smoke.py gives the reason).
+BF16_ROW_TOL, BF16_SHARE, BF16_MAX_TOL = 1e-4, 1e-4, 1e-3
+
+
+def _row_diff(got, want):
+    """Per row, the largest difference over its coordinates and its
+    log-scale sum, relative to max(1, |plain|)."""
+    rel = lambda a, b: (a - b).abs() / b.abs().clamp_min(1.0)
+    return torch.maximum(rel(got[0], want[0]).amax(0), rel(got[1], want[1]))
+
+
+def _integer_flow(cuda, d, H, seed):
+    """One layer whose every product operand is a small integer (or one
+    scaled by a power of two), so that each sum is exact in float32 in any
+    order: the kernel must equal the plain version wherever the fragments
+    put every element in its place."""
+    from glabc_tpu_torch.models.flows import CouplingFlow
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    ints = lambda shape, lo, hi: torch.randint(lo, hi, shape, generator=g,
+                                               device=cuda).float()
+    d2 = d // 2
+    d1 = d - d2
+    w2 = ints((1, H, 2 * d2), -1, 2)
+    w2[..., d2:] *= 2.0 ** -16            # s small enough for exp
+    f = CouplingFlow(torch.zeros(d, device=cuda), torch.zeros(d, device=cuda),
+                     ints((1, d1, H), 0, 2), ints((1, H), -1, 2),
+                     ints((1, H, H), -1, 2), ints((1, H), -2, 3), w2,
+                     ints((1, 2 * d2), -2, 3))
+    return f, ints((d, 300), 0, 3)
+
+
+@pytest.mark.parametrize("d", [2, 8, 17])
+@pytest.mark.parametrize("H", [16, 48, 128])
+def test_flow_bf16_fragments_on_integers(cuda, d, H):
+    from glabc_tpu_torch.ops.kernels import FlowPull, FlowPush
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f, z = _integer_flow(cuda, d, H, seed=d * H)
+    for cls in (FlowPush, FlowPull):
+        got = cls("bfloat16").run(f, z)
+        want = cls("bfloat16").plain(f, z)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]), cls.__name__   # exact sums
+        assert torch.allclose(got[0], want[0], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("d,N", [(2, 4099), (3, 1000), (8, 777), (17, 300)])
+@pytest.mark.parametrize("H", [128, 32, 16])
+def test_flow_bf16_kernel_matches_plain(cuda, d, N, H):
+    """K7-bf16 push and pull against the plain bf16 flow; the float32 flow at
+    the same inputs fails the same check by far (it is not a bf16 flow)."""
+    from glabc_tpu_torch.ops.kernels import FlowPull, FlowPush
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f, g = _flow_on(cuda, d, L=8 if H == 128 else 4, H=H, seed=d + N + H)
+    z = torch.randn((d, N), generator=g, device=cuda)
+    for cls in (FlowPush, FlowPull):
+        before = (cls.launches, cls.bf16_launches)
+        got = cls("bfloat16").run(f, z)
+        assert (cls.launches, cls.bf16_launches) == (before[0],
+                                                     before[1] + 1)
+        want = cls("bfloat16").plain(f, z)
+        f32 = cls().plain(f, z)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(a).all() for a in got)
+        diff = _row_diff(got, want)
+        assert (diff > BF16_ROW_TOL).float().mean() <= BF16_SHARE, cls
+        assert diff.max() <= BF16_MAX_TOL, (cls.__name__, diff.max())
+        sep = (_row_diff(f32, want) > BF16_ROW_TOL).float().mean()
+        assert sep >= 10 * BF16_SHARE, (cls.__name__, sep)
+
+
+def test_flow_bf16_pull_inverts_push(cuda):
+    from glabc_tpu_torch.ops.kernels import FlowPull, FlowPush
+
+    f, g = _flow_on(cuda, 2, L=32, H=128, seed=5)
+    z = torch.randn((2, 1 << 16), generator=g, device=cuda)
+    x, s = FlowPush("bfloat16").run(f, z)
+    back, s_b = FlowPull("bfloat16").run(f, x)
+    # bf16 roundings amplify the float32 rounding of each inverse step: the
+    # plain bf16 flow's own round trip is ~2.4e-4 here (float32's ~2.4e-6)
+    assert torch.allclose(back, z, rtol=2e-3, atol=2e-3)
+    assert torch.allclose(s_b, s, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("H", [24, 8, 144])
+def test_flow_bf16_refuses_other_widths(cuda, H):
+    from glabc_tpu_torch.ops.kernels import FlowPush
+
+    f, g = _flow_on(cuda, 2, L=2, H=H)
+    z = torch.randn((2, 64), generator=g, device=cuda)
+    before = FlowPush.bf16_launches
+    with pytest.raises(ValueError, match="hidden"):
+        FlowPush("bfloat16").run(f, z)
+    assert FlowPush.bf16_launches == before
+
+
 # -------------------- the generic kernels over tile programs (K8, K9, K5)
 def _program_state(name, cuda, C, seed):
     from glabc_tpu_torch import MA2Problem, mixture_tile_program
