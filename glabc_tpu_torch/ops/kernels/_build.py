@@ -70,8 +70,8 @@ SOURCES = {
         + [_I, _P],
     },
     "coupling_flow": {
-        "glabc_coupling_flow": [_P] * 9 + [_I] * 6 + [_P],
-        "glabc_coupling_flow_max_rows": [_I, _I],
+        "glabc_coupling_flow": [_P] * 4 + [_I] * 8 + [_P],
+        "glabc_coupling_flow_max_sub": [_I] * 4,
     },
     "coupling_flow_bf16": {
         "glabc_coupling_flow_bf16": [_P] * 4 + [_I] * 7 + [_P],

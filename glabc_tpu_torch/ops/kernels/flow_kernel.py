@@ -9,15 +9,19 @@ the kernels mask their last block.
 
 ``matmul_dtype`` picks the variant, as in the JAX package:
 
-* ``'float32'`` (the default): ``csrc/coupling_flow.cu``, FP32 products,
-  reading the flow's stacked parameters in place (no packing, no padding of
-  the feature axis: the card's layout, not the TPU's);
+* ``'float32'`` (the default): ``csrc/coupling_flow.cu``, the conditioner's
+  products ``u1 w0`` and ``h0 w1`` on the tensor cores as 3xTF32 splits
+  (hi and lo TF32 parts of both operands, three products accumulated in
+  float32: a float32 flow), everything else on the FP32 lanes.
+  :func:`pack_tf32_weights` splits the weights into the per-layer image
+  the kernel copies to shared memory; hidden widths are
+  multiples of 8 up to 128, zero-padded to 32, 64, 96 or 128;
 * ``'bfloat16'``: ``csrc/coupling_flow_bf16.cu``, the conditioner's three
   products on the tensor cores with bfloat16 operands and float32
   accumulation; biases, ReLU, ``exp(+-s)``, the affine update and the
   log-scale sum stay float32.  :func:`pack_bf16_weights` casts the weights
-  once per call (JAX's ``pack_flow_weights``) into the per-layer image the
-  kernel copies to shared memory.  It is for proposal densities, which only
+  (JAX's ``pack_flow_weights``) into the per-layer image the kernel copies
+  to shared memory.  It is for proposal densities, which only
   steer importance weights (its log-scale sum is within about 2e-3 of the
   float32 flow's on a 32 x 128 flow), not for training, which
   differentiates the plain float32 flow.
@@ -27,57 +31,150 @@ The plain version is :meth:`CouplingFlow.push_t` / ``pull_t`` under
 must run in full float32: ``torch.backends.cuda.matmul.allow_tf32`` is
 checked to be False.  On a CUDA tensor the kernel runs, on a CPU tensor the
 plain version.  Each class counts the launches of the float32 kernel in
-``launches`` and those of the bfloat16 kernel in ``bf16_launches``.
+``launches`` and those of the bfloat16 kernel in ``bf16_launches``.  A
+weight image is kept on the flow and made again only after its weights
+change, so that a flow pulled thousands of times between two training
+steps is packed once.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 __all__ = ["FlowPush", "FlowPull", "flow_push_fused", "flow_pull_fused",
-           "pack_bf16_weights"]
+           "flow_grid", "pack_bf16_weights", "pack_tf32_weights",
+           "split_tf32", "tf32_products"]
 
-_ROWS = 64          # the kernel's sub-tile (csrc/coupling_flow.cu kRows)
 _MAX_TS = 16        # 2 * (dim // 2) <= 16
-_BLOCKS_PER_SM = 2  # rows per block are cut so that the grid fills the card
 
 _MATMUL_DTYPES = ("float32", "bfloat16")
-# csrc/coupling_flow_bf16.cu: a warp owns 32-row tiles (two m16 MMA tiles), a
-# block up to 8 warps; the hidden width is 16 (one MMA k-tile) up to 128
-_BF16_TILE = 32
-_BF16_MAX_WARPS = 8
-_BF16_MAX_HIDDEN = 128
+# csrc/coupling_flow.cu and csrc/coupling_flow_bf16.cu: a warp owns 32-row
+# tiles (two m16 MMA tiles), a block up to 8 warps
+_TILE = 32
+_SMALL_TILE = 16    # the float32 kernel's tile when there are few rows
+_MAX_WARPS = 8
+_MAX_HIDDEN = 128
+# float32 kernel: hidden widths zero-padded to one of these instantiations
+_TF32_WIDTHS = (32, 64, 96, 128)
+# bf16 kernel: the hidden width is 16 (one MMA k-tile) up to 128
 _BF16_LDW1 = 8      # bf16 pad of each w1 row in shared memory (ldmatrix banks)
 _BF16_LDW2 = 24     # bf16 row of w2 in shared memory: 2*d2 <= 16, padded
 
 
-def _rows_per_block(n: int, num_sms: int, max_rows: int) -> int:
-    """Rows per CUDA block: whole 64-row sub-tiles, as many as let the grid
-    keep ``_BLOCKS_PER_SM`` blocks per SM busy, at most ``max_rows`` (the
-    shared memory bound)."""
-    tiles = -(-n // _ROWS)
-    want = -(-tiles // (_BLOCKS_PER_SM * num_sms))
-    return _ROWS * max(1, min(want, max_rows // _ROWS))
+def _tf32_width(hidden: int) -> int:
+    """The float32 kernel's padded hidden width, or ``ValueError``."""
+    if hidden % 8 or not 8 <= hidden <= _MAX_HIDDEN:
+        raise ValueError("the float32 kernel takes hidden % 8 == 0 and "
+                         f"8 <= hidden <= {_MAX_HIDDEN}, got {hidden}")
+    return next(w for w in _TF32_WIDTHS if w >= hidden)
 
 
-def bf16_grid(n: int, num_sms: int, max_sub: int):
-    """``(warps per block, 32-row tiles per warp)`` of the bf16 kernel for
-    ``n`` rows: below a full wave of 8-warp blocks, one tile per warp and as
-    many warps per block as spread the tiles over every SM; above it, 8
-    warps and the tiles balanced over whole waves of ``num_sms`` blocks, at
-    most ``max_sub`` (the shared memory bound) per warp."""
-    tiles = -(-n // _BF16_TILE)
-    if tiles < _BF16_MAX_WARPS * num_sms:
-        warps = 1
-        while warps * 2 <= _BF16_MAX_WARPS and warps * 2 * num_sms <= tiles:
-            warps *= 2
-        return warps, 1
-    per_block = _BF16_MAX_WARPS * max_sub
-    waves = -(-tiles // (per_block * num_sms))
-    blocks = waves * num_sms
-    return _BF16_MAX_WARPS, max(1, min(max_sub, -(-tiles // (
-        blocks * _BF16_MAX_WARPS))))
+def split_tf32(x: torch.Tensor):
+    """``x = hi + lo`` in TF32 pieces, as the float32 kernel splits its
+    operands: ``hi`` is ``x`` rounded to TF32 (10 mantissa bits) to nearest
+    with ties away from zero (``cvt.rna.tf32.f32``: add 0x1000 to the bits
+    and clear the low 13), ``lo`` the remainder ``x - hi`` (exact in
+    float32) rounded likewise.  Both float32."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+@functools.lru_cache(maxsize=None)
+def _tf32_image_index(d: int, hidden: int, device: str) -> torch.Tensor:
+    """Where each float of a layer's image comes from, as an index into
+    ``[hi | lo | x]`` of one layer's stacked weights ``x = [w0, b0, w1, b1,
+    w2, b2, 0]`` (the layout :func:`pack_tf32_weights` documents); the last
+    element of ``x`` is the zero of every pad."""
+    d2 = d // 2
+    d1, ts = d - d2, 2 * d2
+    H, hp = hidden, _tf32_width(hidden)
+    nt, nk0 = hp // 8, -(-d1 // 8)
+    sizes = [d1 * H, H, H * H, H, H * ts, ts]
+    o_w0, o_b0, o_w1, o_b1, o_w2, o_b2 = np.cumsum([0] + sizes[:-1])
+    T = sum(sizes) + 1                      # x's length, the zero last
+    zero = T - 1
+
+    def at(base, off, row, col, rows, cols):
+        ok = (row < rows) & (col < cols)
+        return np.where(ok, base + off + row * cols + col, base + zero)
+
+    # B fragments: (k-tile, n-tile, g, t, hi/lo, i)
+    kt, n_t, g, t, part, i = np.meshgrid(np.arange(nt), np.arange(nt),
+                                         np.arange(8), np.arange(4),
+                                         np.arange(2), np.arange(2),
+                                         indexing="ij")
+    w1 = at(part * T, o_w1, 8 * kt + 2 * t + i, 8 * n_t + g, H, H)
+    kk, n_t, g, t, part, i = np.meshgrid(np.arange(nk0), np.arange(nt),
+                                         np.arange(8), np.arange(4),
+                                         np.arange(2), np.arange(2),
+                                         indexing="ij")
+    w0 = at(part * T, o_w0, 8 * kk + 4 * i + t, 8 * n_t + g, d1, H)
+    raw, n = 2 * T, np.arange(hp)
+    b0 = at(raw, o_b0, 0, n, 1, H)
+    b1 = at(raw, o_b1, 0, n, 1, H)
+    # w2 and b2 with t_j, s_j side by side: column c <- (c % 2) d2 + c // 2
+    row, col = np.meshgrid(n, np.arange((ts + 3) & ~3), indexing="ij")
+    src = (col % 2) * d2 + col // 2
+    w2 = np.where(col < ts, at(raw, o_w2, row, src, H, ts), raw + zero)
+    col = np.arange(_MAX_TS)
+    b2 = np.where(col < ts, raw + o_b2 + (col % 2) * d2 + col // 2,
+                  raw + zero)
+    idx = np.concatenate([a.ravel() for a in (w1, w0, b0, b1, w2, b2)])
+    return torch.from_numpy(idx).to(device)
+
+
+def pack_tf32_weights(flow) -> torch.Tensor:
+    """The flow's weights as the float32 kernel stages them, one contiguous
+    float32 image per layer, ``(L, layer_floats)``, the hidden width
+    zero-padded to ``HP`` (:func:`_tf32_width`):
+
+    * ``w1``'s B fragments, hi and lo (:func:`split_tf32`): for each k-tile
+      ``kt`` and n-tile ``nt`` of 8, 32 lanes ``4 g + t`` of
+      ``{hi(w1[8 kt + 2 t, 8 nt + g]), hi(w1[8 kt + 2 t + 1, 8 nt + g]),
+      lo(...), lo(...)}``: the k slots ``t`` and ``t + 4`` of the MMA stand
+      for the hidden units ``8 kt + 2 t`` and ``+ 1``, where the kernel's
+      ``h0`` C fragment holds them;
+    * ``w0``'s B fragments likewise for ``ceil(d1 / 8)`` k-tiles of 8 input
+      coordinates (zero from ``d1`` on), lane ``4 g + t`` of n-tile ``nt``
+      holding ``{hi(w0[8 kk + t, 8 nt + g]), hi(w0[8 kk + t + 4, 8 nt +
+      g]), lo(...), lo(...)}``;
+    * ``b0``, ``b1 (HP,)``;
+    * ``w2 (HP, ldw2)`` and ``b2 (16,)``, their columns interleaved as
+      ``t_0, s_0, t_1, s_1, ...`` and zero-padded (``ldw2`` = ``2 d2``
+      rounded up to 4).
+
+    One split and one gather (:func:`_tf32_image_index`), so that a call
+    costs a handful of launches on the card."""
+    stack = [w.detach() for w in flow.stack()]
+    L = stack[0].shape[0]
+    x = F.pad(torch.cat([w.reshape(L, -1) for w in stack], dim=1), (0, 1))
+    idx = _tf32_image_index(flow.dim, flow.hidden, str(x.device))
+    return torch.cat([*split_tf32(x), x], dim=1)[:, idx]
+
+
+def flow_grid(n: int, num_sms: int, max_sub: int, small_tile: int):
+    """``(warps per block, tiles per warp, rows per tile)`` of either K7
+    kernel for ``n`` rows.  Few rows (at most 8 tiles of ``small_tile`` rows
+    per SM): one tile per warp and as many warps per block as spread the
+    tiles over every SM (a warp's MMAs run in sequence, so more warps of
+    fewer rows finish sooner).  Above that, 8 warps of 32-row tiles,
+    balanced over whole waves of ``num_sms`` blocks, at most ``max_sub``
+    (the shared memory bound) per warp.  The float32 kernel takes
+    ``small_tile`` 16 or 32, the bf16 kernel 32."""
+    small = -(-n // small_tile)
+    if small <= _MAX_WARPS * num_sms:
+        return -(-small // num_sms), 1, small_tile
+    tiles = -(-n // _TILE)
+    waves = -(-tiles // (_MAX_WARPS * max_sub * num_sms))
+    return (_MAX_WARPS, -(-tiles // (waves * num_sms * _MAX_WARPS)), _TILE)
 
 
 def pack_bf16_weights(flow) -> torch.Tensor:
@@ -97,6 +194,56 @@ def pack_bf16_weights(flow) -> torch.Tensor:
     ]
     return torch.cat([p.contiguous().reshape(L, -1).view(torch.uint8)
                       for p in parts], dim=1)
+
+
+def _image(flow, pack):
+    """``pack(flow)``, kept on the flow until one of its weights changes:
+    another tensor, other storage or an in-place write to it (an optimizer
+    step bumps its ``_version``; a write through ``.data`` does not, and is
+    not seen).  The entry holds the weights themselves, so that a replaced
+    tensor cannot hand its address to a new one while the entry names
+    it."""
+    key = tuple((w, w.data_ptr(), w._version) for w in flow.stack())
+    cache = flow.__dict__.setdefault("_kernel_images", {})
+    hit = cache.get(pack)
+    if hit is None or any(a is not b or pa != pb or va != vb
+                          for (a, pa, va), (b, pb, vb) in zip(hit[0], key)):
+        hit = cache[pack] = (key, pack(flow))
+    return hit[1]
+
+
+def tf32_products(flow, x_t, inverse: bool, split: bool = True):
+    """The float32 flow with each layer's hidden product ``h0 w1`` taken
+    from TF32 pieces (:func:`split_tf32`) as a tensor-core kernel takes it:
+    the three split products ``lo hi + hi lo + hi hi`` (``split``, the
+    float32 kernel's design) or ``hi hi`` alone (one TF32 product); every
+    other step as in :meth:`CouplingFlow.push_t` / ``pull_t``.  Each
+    product of TF32 pieces is exact in float32, so the float32 matmuls
+    compute what the tensor cores do up to the order of the sums.  It shows
+    which limit against the float32 flow tells the split kernel from a
+    single-product one.  ``(out (dim, N), sum of the log-scales (N,))``."""
+    if x_t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("tf32_products on the card needs float32 matmuls: "
+                           "set torch.backends.cuda.matmul.allow_tf32 = False")
+    w0, b0, w1, b1, w2, b2 = (w.detach() for w in flow.stack())
+    d2 = flow.dim // 2
+    d1 = flow.dim - d2
+    u = x_t.T
+    acc = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
+    for step in range(flow.n_layers):
+        l = flow.n_layers - 1 - step if inverse else step
+        u1 = u[:, d2:] if inverse else u[:, :d1]
+        ah, al = split_tf32(torch.relu(u1 @ w0[l] + b0[l]))
+        bh, bl = split_tf32(w1[l])
+        prod = al @ bh + ah @ bl + ah @ bh if split else ah @ bh
+        ts = torch.relu(prod + b1[l]) @ w2[l] + b2[l]
+        t, s = ts[:, :d2], ts[:, d2:]
+        if inverse:
+            u = torch.cat([u1, (u[:, :d2] - t) * torch.exp(-s)], dim=1)
+        else:
+            u = torch.cat([u[:, d1:] * torch.exp(s) + t, u1], dim=1)
+        acc = acc + s.sum(dim=1)
+    return u.T.contiguous(), acc
 
 
 class _CouplingFlowKernel:
@@ -133,13 +280,11 @@ class _CouplingFlowKernel:
         """The flow over every layer of ``x_t (dim, N)``: ``(out (dim, N),
         sum of the log-scales (N,))``."""
         self._check(flow, x_t)
-        if x_t.device.type == "cuda":
-            if self.matmul_dtype == "bfloat16":
-                return self._launch_bf16(flow, x_t)
-            return self._launch(flow, x_t)
         if x_t.device.type == "cpu":
             return self.plain(flow, x_t)
-        raise ValueError(f"no kernel for device {x_t.device}")
+        if self.matmul_dtype == "bfloat16":
+            return self._launch_bf16(flow, x_t)
+        return self._launch(flow, x_t)
 
     def plain(self, flow, x_t):
         """The plain torch version on any device: the flow's own per-layer
@@ -155,39 +300,42 @@ class _CouplingFlowKernel:
                       else flow.push_t(x_t, self.matmul_dtype))
         return out.contiguous(), s.contiguous()
 
-    def _weights(self, flow):
-        weights = [w.detach() for w in flow.stack()]
-        for name, w in zip(("w0", "b0", "w1", "b1", "w2", "b2"), weights):
+    def _check_launch(self, flow, x_t):
+        """The checks of a launch after the kernel's own shape checks: the
+        weights' type and layout, and a CUDA device."""
+        for name, w in zip(("w0", "b0", "w1", "b1", "w2", "b2"),
+                           flow.stack()):
             if w.dtype != torch.float32 or not w.is_contiguous():
                 raise ValueError(f"{name} must be contiguous float32")
-        return weights
+        if x_t.device.type != "cuda":
+            raise ValueError(f"no kernel for device {x_t.device}")
 
     def _launch(self, flow, x_t):
         from ._build import load_library
 
         d, N = x_t.shape
-        H = flow.hidden
         if 2 * (d // 2) > _MAX_TS:
             raise ValueError(f"the CUDA kernel takes dim <= 17, got {d}")
-        if H % 8:
-            raise ValueError(f"the CUDA kernel takes hidden % 8 == 0, got {H}")
-        weights = self._weights(flow)
+        hp = _tf32_width(flow.hidden)
+        self._check_launch(flow, x_t)
         lib = load_library("coupling_flow")
         dev = x_t.device
         with torch.cuda.device(dev):
-            max_rows = lib.glabc_coupling_flow_max_rows(d, H)
-            if max_rows < _ROWS:
-                raise ValueError(f"hidden={H} at dim={d} does not fit the "
-                                 "kernel's shared memory")
+            max_sub = lib.glabc_coupling_flow_max_sub(d, hp, _MAX_WARPS,
+                                                      _TILE)
+            if max_sub < 1:
+                raise ValueError(f"hidden={flow.hidden} at dim={d} does not "
+                                 "fit the kernel's shared memory")
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            rows = _rows_per_block(N, sms, max_rows)
+            warps, nsub, rows = flow_grid(N, sms, max_sub, _SMALL_TILE)
+            packed = _image(flow, pack_tf32_weights)
             out = torch.empty_like(x_t)
             s = torch.empty(N, dtype=torch.float32, device=dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.glabc_coupling_flow(
                 x_t.data_ptr(), out.data_ptr(), s.data_ptr(),
-                *(w.data_ptr() for w in weights), d, N, flow.n_layers, H,
-                int(self.inverse), rows // _ROWS, stream)
+                packed.data_ptr(), d, N, flow.n_layers, hp, int(self.inverse),
+                warps, nsub, rows, stream)
         if rc != 0:
             raise RuntimeError(f"coupling_flow launch failed: CUDA error {rc}")
         type(self).launches += 1
@@ -200,21 +348,20 @@ class _CouplingFlowKernel:
         H = flow.hidden
         if 2 * (d // 2) > _MAX_TS:
             raise ValueError(f"the bf16 kernel takes dim <= 17, got {d}")
-        if H % 16 or not 16 <= H <= _BF16_MAX_HIDDEN:
+        if H % 16 or not 16 <= H <= _MAX_HIDDEN:
             raise ValueError("the bf16 kernel takes hidden % 16 == 0 and "
-                             f"16 <= hidden <= {_BF16_MAX_HIDDEN}, got {H}")
-        self._weights(flow)
+                             f"16 <= hidden <= {_MAX_HIDDEN}, got {H}")
+        self._check_launch(flow, x_t)
         lib = load_library("coupling_flow_bf16")
         dev = x_t.device
         with torch.cuda.device(dev):
-            max_sub = lib.glabc_coupling_flow_bf16_max_sub(d, H,
-                                                           _BF16_MAX_WARPS)
+            max_sub = lib.glabc_coupling_flow_bf16_max_sub(d, H, _MAX_WARPS)
             if max_sub < 1:
                 raise ValueError(f"hidden={H} at dim={d} does not fit the "
                                  "bf16 kernel's shared memory")
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            warps, nsub = bf16_grid(N, sms, max_sub)
-            packed = pack_bf16_weights(flow)
+            warps, nsub, _ = flow_grid(N, sms, max_sub, _TILE)
+            packed = _image(flow, pack_bf16_weights)
             out = torch.empty_like(x_t)
             s = torch.empty(N, dtype=torch.float32, device=dev)
             stream = torch.cuda.current_stream(dev).cuda_stream

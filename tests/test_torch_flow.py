@@ -173,6 +173,13 @@ def test_flow_kernel_wrapper_checks():
         flow_pull_fused(f, torch.zeros(10, 2).T)
     with pytest.raises(ValueError, match="no kernel"):
         FlowPush().run(f.to("meta"), torch.zeros(2, 10, device="meta"))
+    # the float32 kernel's widths: multiples of 8 up to 128, checked before
+    # anything is launched (a meta tensor stands in for a CUDA one)
+    for hidden in (136, 12):
+        fh = CouplingFlow.create(2, 2, hidden).to("meta")
+        for cls in (FlowPush, FlowPull):
+            with pytest.raises(ValueError, match="hidden .* 128"):
+                cls().run(fh, torch.zeros(2, 10, device="meta"))
     with pytest.raises(ValueError):
         CouplingFlow.create(1)
 

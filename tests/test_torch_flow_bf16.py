@@ -15,7 +15,7 @@ glabc_tpu's, on the CPU.
   and the carried coordinates left unrounded.
 * The wrapper's choices and what the kernel's wrapper computes on the host:
   the weight image (``pack_bf16_weights``) and the launch geometry
-  (``bf16_grid``).
+  (``flow_grid`` with 32-row tiles).
 """
 
 import jax
@@ -31,7 +31,7 @@ from glabc_tpu.ops.pallas.flow_kernel import (flow_pull_fused as j_pull,
                                               flow_push_fused as j_push)
 from glabc_tpu_torch.ops.kernels import (FlowPull, FlowPush, flow_pull_fused,
                                          flow_push_fused)
-from glabc_tpu_torch.ops.kernels.flow_kernel import (bf16_grid,
+from glabc_tpu_torch.ops.kernels.flow_kernel import (flow_grid,
                                                      pack_bf16_weights)
 from glabc_tpu_torch.utils.convert import coupling_flow_from_numpy
 
@@ -269,8 +269,8 @@ def test_bf16_weight_image(dim, hidden):
 @pytest.mark.parametrize("n", [1, 31, 777, 8192, 4099, 1 << 20, 32768000])
 def test_bf16_grid_covers_the_rows_and_fills_the_card(n):
     sms, max_sub = 132, 35
-    warps, nsub = bf16_grid(n, sms, max_sub)
-    assert warps in (1, 2, 4, 8) and 1 <= nsub <= max_sub
+    warps, nsub, tile = flow_grid(n, sms, max_sub, 32)
+    assert 1 <= warps <= 8 and 1 <= nsub <= max_sub and tile == 32
     rows = warps * nsub * 32
     blocks = -(-n // rows)
     tiles = -(-n // 32)
@@ -280,4 +280,5 @@ def test_bf16_grid_covers_the_rows_and_fills_the_card(n):
         waves = -(-blocks // sms)
         assert blocks > (waves - 1) * sms + sms // 2
     else:                        # one tile per warp, spread over the SMs
-        assert nsub == 1 and (warps == 1 or blocks >= sms)
+        assert nsub == 1 and blocks <= sms
+        assert blocks == tiles or blocks > sms // 2

@@ -276,11 +276,13 @@ def _flow_on(cuda, d, L=8, H=128, seed=0):
     return f, g
 
 
-@pytest.mark.parametrize("d,N", [(2, 4099), (3, 1000), (8, 777), (2, 64)])
-@pytest.mark.parametrize("H", [128, 32])
+@pytest.mark.parametrize("d,N", [(2, 4099), (3, 1000), (8, 777), (2, 64),
+                                 (17, 300)])
+@pytest.mark.parametrize("H", [128, 32, 8, 48])
 def test_flow_kernel_matches_plain(cuda, d, N, H):
     """K7 push and pull against the plain flow (float32 matmuls), to 1e-4
-    max(1, |x|): the kernel sums its products in another order."""
+    max(1, |x|): the kernel's 3xTF32 split products and its sums in another
+    order keep float32 accuracy, not bitwise equality."""
     from glabc_tpu_torch.ops.kernels import FlowPull, FlowPush
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -300,6 +302,45 @@ def test_flow_kernel_matches_plain(cuda, d, N, H):
     back, s_b = FlowPull().run(f, x)
     assert torch.allclose(back, z, rtol=1e-4, atol=1e-4)
     assert torch.allclose(s_b, s, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d,N", [(2, 4099), (3, 1000), (8, 777), (17, 300)])
+def test_flow_kernel_keeps_split_precision(cuda, d, N):
+    """K7 within 3e-6 of the plain flow, where one TF32 product (the hi
+    parts alone, emulated on the same inputs) is not: chip_smoke.py's
+    FLOW_SPLIT_TOL, which tells the 3xTF32 split from a plain TF32 kernel,
+    as 1e-4 does not."""
+    from glabc_tpu_torch.ops.kernels import FlowPull, FlowPush
+    from glabc_tpu_torch.ops.kernels.flow_kernel import tf32_products
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f, g = _flow_on(cuda, d, seed=d + N)
+    z = torch.randn((d, N), generator=g, device=cuda)
+    rel = lambda got, want: max(
+        ((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
+        for a, b in zip(got, want))
+    for cls in (FlowPush, FlowPull):
+        want = cls().plain(f, z)
+        err = rel(cls().run(f, z), want)
+        one = rel(tf32_products(f, z, cls.inverse, split=False), want)
+        assert err <= 3e-6 < one, (cls.__name__, err, one)
+
+
+def test_flow_kernel_sees_a_training_step(cuda):
+    """The weight image kept on the flow is made again after an in-place
+    step, so the kernel runs the new weights."""
+    from glabc_tpu_torch.ops.kernels import FlowPull
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f, g = _flow_on(cuda, 2, L=4, H=32)
+    x = torch.randn((2, 500), generator=g, device=cuda)
+    before = FlowPull().run(f, x)
+    with torch.no_grad():
+        f.w2.add_(torch.randn(f.w2.shape, generator=g, device=cuda) * 0.1)
+    got, want = FlowPull().run(f, x), FlowPull().plain(f, x)
+    assert not torch.allclose(got[1], before[1], rtol=1e-3, atol=1e-3)
+    for a, b in zip(got, want):
+        assert torch.allclose(a, b, rtol=1e-4, atol=1e-4)
 
 
 def test_flow_plain_refuses_tf32(cuda):
@@ -349,6 +390,24 @@ def _integer_flow(cuda, d, H, seed):
                      ints((1, H, H), -1, 2), ints((1, H), -2, 3), w2,
                      ints((1, 2 * d2), -2, 3))
     return f, ints((d, 300), 0, 3)
+
+
+@pytest.mark.parametrize("d", [2, 8, 17])
+@pytest.mark.parametrize("H", [8, 16, 48, 128])
+def test_flow_fragments_on_integers(cuda, d, H):
+    """The float32 kernel on an integer-valued flow: every split product is
+    exact (the lo parts are 0) and every sum too, so the log-scale sums must
+    equal the plain version's bit for bit, for padded widths as well."""
+    from glabc_tpu_torch.ops.kernels import FlowPull, FlowPush
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f, z = _integer_flow(cuda, d, H, seed=d * H + 1)
+    for cls in (FlowPush, FlowPull):
+        got = cls().run(f, z)
+        want = cls().plain(f, z)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]), cls.__name__   # exact sums
+        assert torch.allclose(got[0], want[0], rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("d", [2, 8, 17])
