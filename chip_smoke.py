@@ -69,8 +69,12 @@ Phases, each reported on its own lines:
    plain shared-adaptation path at 2,048; each run's wall time split into
    kernel, initial gradient or epochs, history copies and the rest;
 10. each kernel against its plain version at its main-path shape, times,
-   bytes, operations and bounds, and its launches on every path of phases
-   4-9, counted from 0 just before each path and read just after it.
+   bytes, operations and bounds (K1, K2 and K9 counting the move each
+   chain-step's coin picked, K9 a +-fd pair as one set of draws, the
+   older counts printed beside them), its launches on every path of
+   phases 4-9, counted from 0 just before each path and read just after
+   it, and for K1, K8 and K9 (per-chain coin) the same launch with every
+   coin global and every coin local beside it (warp divergence).
 
 ``python3 chip_smoke.py --seed-spread N [agl] [glmala] [nf] [ma2]
 [glmala_prog] [agl_prog]`` runs only phase 1 and the compared paths of
@@ -241,10 +245,12 @@ def check(cond, msg):
 
 
 # ------------------------------------------------------------ accounting
-def transition_ops(d, B, glmcmc):
-    """32-bit operations one transition of one chain needs at the least:
-    every add, multiply, compare, select and integer operation counts one,
-    and so does each log, sqrt, sin and cos (their accurate versions take
+def transition_ops_both(d, B, glmcmc):
+    """32-bit operations of one transition of one chain when both moves are
+    computed and the coin selects (the count before the kernel read its coin
+    first; printed beside :func:`transition_ops` for comparison): every
+    add, multiply, compare, select and integer operation counts one, and so
+    does each log, sqrt, sin and cos (their accurate versions take
     several), so this is a lower bound."""
     Bp = B if glmcmc else 1                 # proposals drawn per step
     n_scalar = B + 3 if glmcmc else 3       # Gumbels / coin / accept uniforms
@@ -267,6 +273,41 @@ def transition_ops(d, B, glmcmc):
     ops += 16 + 4 * d                       # local MH, coin, final selects,
     #                                         four counters
     return ops
+
+
+def transition_ops(d, B, glmcmc, move):
+    """32-bit operations one transition of one chain needs at the least
+    when its coin picks ``move`` ('global' or 'local'), counted as in
+    :func:`transition_ops_both`: the scalar blocks that hold the slots the
+    move reads (coin first), the candidates' blocks, uniforms, Box-Muller
+    pairs, theta and y, the Gaussian log-densities (the current state's
+    prior is known from the step that made it; iSIR needs the current
+    state's proposal density), the epsilon-kernels, the acceptance (iSIR's
+    Gumbels, scores and argmax; an MH ratio, log u and compare), and per
+    step the coin, the four counters and the state's selects."""
+    P = -(-d // 2)
+    if move == "local":                     # random-walk MH
+        slots = [B + 2, B + 1] if glmcmc else [1, 0]
+        cands, gauss, accept = 1, 1, 5
+    elif glmcmc:                            # iSIR
+        slots = [B + 2, *range(B + 1)]
+        cands, gauss = B, 2 * B + 1
+        accept = 4 * (B + 1) + 3 + B * (7 + 2 * d)
+    else:                                   # independence MH
+        slots = [1, 2]
+        cands, gauss, accept = 1, 3, 7
+    blocks = len({s // 4 for s in slots}) + cands * P
+    ops = 80 * blocks + 5 * (len(slots) + 2 * d * cands)
+    ops += (8 + 5) * d * cands + 6 * d * gauss + (3 * d + 2) * cands
+    return ops + accept + 6 + 2 * d
+
+
+def transition_ops_mix(d, B, glmcmc, transitions, global_attempts):
+    """:func:`transition_ops` over ``transitions`` of which
+    ``global_attempts`` took the global move (a launch's own coins)."""
+    n_g = float(global_attempts)
+    return (n_g * transition_ops(d, B, glmcmc, "global")
+            + (transitions - n_g) * transition_ops(d, B, glmcmc, "local"))
 
 
 def nbytes(*tensors):
@@ -390,16 +431,24 @@ def kernel_intervals(prof, name):
                   and "CUDA" in str(getattr(ev, "device_type", "CUDA")))
 
 
-def sass_counts(lib_path, op=None, contains=None):
-    """Static SASS instruction count of each kernel in the library, by
-    ``cuobjdump -sass``, of every instruction or of those whose opcode
-    (with its modifiers, ``HMMA.1688.F32.TF32``) starts with ``op`` and
-    holds ``contains`` (None when the tool is missing)."""
+def sass_text(lib_path):
+    """``cuobjdump -sass`` of a library (None when the tool is missing)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
-    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                         text=True, timeout=120).stdout
+    return subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=120).stdout
+
+
+def sass_counts(lib_path, op=None, contains=None, text=None):
+    """Static SASS instruction count of each kernel in the library, by
+    ``cuobjdump -sass`` (or of its output ``text``), of every instruction
+    or of those whose opcode (with its modifiers, ``HMMA.1688.F32.TF32``)
+    starts with ``op`` and holds ``contains`` (None when the tool is
+    missing)."""
+    out = sass_text(lib_path) if text is None else text
+    if out is None:
+        return None
     counts, fn = {}, None
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -413,6 +462,84 @@ def sass_counts(lib_path, op=None, contains=None):
                 contains is None or contains in m.group(1)):
             counts[fn] += 1
     return counts
+
+
+SASS_CLASSES = (("MUFU", ("MUFU",)), ("IMAD.WIDE/HI", ("IMAD.WIDE",
+                                                         "IMAD.HI")),
+                ("LOP3", ("LOP3",)), ("FFMA", ("FFMA",)),
+                ("FADD/FMUL", ("FADD", "FMUL")))
+
+
+def k1_sass_line(tag, text, B=5):
+    """K1's d=2 GLMCMC kernel in ``text`` (the library's ``cuobjdump
+    -sass``, or None), by :func:`sass_loop_split`: the instructions of one
+    candidate round and of the rest of a step, by class, and a global
+    step's B rounds plus the rest (static counts on the step's path: every
+    branch of a round counted, the cold range reductions not)."""
+    text = text or ""
+    names = re.findall(r"Function : (\S*mixture_glmcmc_kernelILi2E\S*)", text)
+    names = [n for n in names if "Lb0E" not in n]   # not GlobalMCMC's
+    split = sass_loop_split(text, names[0]) if names else None
+    if split is None:
+        log(f"[{tag}] K1 d=2 SASS split: not measured (no cuobjdump)")
+        return
+    r, rest = split["rounds"], split["step_rest"]
+    total = {k: B * r[k] + rest[k] for k in r}
+    n = sum(total.values())
+    fmt = lambda c: ", ".join(f"{k} {v}" for k, v in c.items())
+    log(f"[{tag}] K1 d=2 SASS on a step's path: a candidate round "
+        f"{sum(r.values())} ({fmt(r)}); the rest of the step "
+        f"{sum(rest.values())} ({fmt(rest)}); a global step, {B} rounds "
+        f"and the rest: {n} ({', '.join(f'{k} {v / n:.1%}' for k, v in total.items())})")
+
+
+def sass_loop_split(sass_text, fn_contains):
+    """Static SASS of the kernel whose name holds ``fn_contains``, on the
+    path a step takes: the step loop (the largest loop) and the largest
+    loop inside it (the candidate rounds), each by instruction class
+    (:data:`SASS_CLASSES`, the rest as 'other'), without the cold regions
+    (ranges of under 200 instructions that a forward branch skips and
+    that load a constant table: the Payne-Hanek range reduction of
+    sinf/cosf for |x| >= 105615, never taken for 2 pi u).  Returns ``{'rounds': {...}, 'step_rest': {...}}``
+    (the step loop less the rounds loop), or None."""
+    ins, fn = [], None
+    for line in sass_text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)"
+                      r"([^;]*);", line)
+        if fn and fn_contains in fn and m:
+            tgt = re.search(r"0x([0-9a-f]+)", m.group(4))
+            ins.append((int(m.group(1), 16), m.group(3), bool(m.group(2)),
+                        int(tgt.group(1), 16) if tgt and m.group(3) == "BRA"
+                        else None))
+    loops = sorted(((t, a) for a, op, _, t in ins if t is not None and t <= a),
+                   key=lambda r: r[0] - r[1])
+    if not loops:
+        return None
+    step = loops[0]
+    inner = [lp for lp in loops[1:] if step[0] <= lp[0] and lp[1] <= step[1]]
+    rounds = inner[0] if inner else (step[0], step[0] - 16)
+    cold = [(a + 16, t) for a, op, pred, t in ins
+            if t is not None and a < t < a + 16 * 200 and pred
+            and any(a < b < t and o.startswith("LDG")
+                    for b, o, _, _ in ins)]
+
+    def split(lo, hi, skip=None):
+        out = dict.fromkeys([c for c, _ in SASS_CLASSES] + ["other"], 0)
+        for a, op, _, _ in ins:
+            if not lo <= a <= hi or any(c0 <= a < c1 for c0, c1 in cold):
+                continue
+            if skip and skip[0] <= a <= skip[1]:
+                continue
+            cls = next((c for c, pre in SASS_CLASSES
+                        if op.startswith(pre)), "other")
+            out[cls] += 1
+        return out
+    return {"rounds": split(*rounds),
+            "step_rest": split(*step, skip=rounds)}
 
 
 def _wrappers():
@@ -502,7 +629,10 @@ def phase_build():
             if "Compiling entry" in line or "registers" in line or \
                     "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-        counts = sass_counts(str(_build.lib_path(stem, prog)))
+        text = sass_text(str(_build.lib_path(stem, prog)))
+        if stem == "mixture_glmcmc":
+            k1_sass_line("build", text)
+        counts = sass_counts(None, text=text)
         if counts is None:
             log(f"[build] {name}: static SASS size: not measured (no "
                 "cuobjdump)")
@@ -511,7 +641,7 @@ def phase_build():
                 log(f"[build] {name}: static SASS {fn}: {n} instructions")
 
 
-def make_kernel(layout, problem, T, algorithm="glmcmc"):
+def make_kernel(layout, problem, T, algorithm="glmcmc", gf=0.9):
     """The canonical config: gf=0.9, B=5, N(0, I) proposal, RW scale 0.35."""
     from glabc_tpu_torch.ops.kernels import (FusedMixtureGLMCMC,
                                              PackedMixtureGLMCMC)
@@ -519,7 +649,7 @@ def make_kernel(layout, problem, T, algorithm="glmcmc"):
     cls = PackedMixtureGLMCMC if layout == "packed" else FusedMixtureGLMCMC
     return cls(problem.theta_dim, problem.y_obs.numpy(),
                epsilon=problem.epsilon, sigma=problem._noise_std,
-               global_frequency=0.9, batch_size=5, ip_loc=0.0, ip_scale=1.0,
+               global_frequency=gf, batch_size=5, ip_loc=0.0, ip_scale=1.0,
                lp_scale=0.35, steps_per_call=T, block_chains=512,
                collect_history=True, algorithm=algorithm)
 
@@ -722,10 +852,17 @@ def phase_entry_points(tmp):
     paths = {}
 
     def path(name, fn, layout):
-        (secs, out), counts = counted(lambda: wall(fn))
+        with Instrument(mixture=True) as inst:
+            (secs, out), counts = counted(lambda: wall(fn))
         paths[name] = counts
         want = only(**{layout: calls})
         check(counts == want, f"{name}: launches {counts}, expected {want}")
+        kern, a, k = inst.last[layout]
+        ms = median_ms(lambda: kern.run(*a, **k))
+        log(f"[entry] {name}: {layout} kernel {ms:.3f} ms per launch (the "
+            f"last of {calls} launches of T=256, {CHAINS:,} chains, timed "
+            f"again alone; card time between events around each call of "
+            f"the run: {inst.kernel_ms(layout) / calls:.3f} ms)")
         return secs, out
 
     lp = DiagGaussian.create(2, 0.0, math.log(0.35))
@@ -918,10 +1055,11 @@ class Instrument:
     history (each between two synchronizes), and the arguments of each
     wrapper's last call, for the timing phase; ``prefer`` maps a launch key
     to a score of ``(kern, args, kwargs)``, and that key keeps the call of
-    the highest score instead (the later on ties).  It launches nothing
-    and counts nothing."""
+    the highest score instead (the later on ties); ``mixture``: the K1/K2
+    wrappers' launches too.  It launches nothing and counts nothing."""
 
-    def __init__(self, prefer=None):
+    def __init__(self, prefer=None, mixture=False):
+        self.mixture = mixture
         self.events, self.last = {}, {}
         self.prefer, self._score = prefer or {}, {}
         for kind in ("epoch", "train", "copy", "grad"):
@@ -968,7 +1106,8 @@ class Instrument:
             setattr(owner, name, new)
 
         for key, (cls, attr) in _wrappers().items():
-            if key in ("packed", "unpacked") or attr != "launches":
+            if (key in ("packed", "unpacked") and not self.mixture
+                    or attr != "launches"):
                 continue
 
             def run(kern, *a, _orig=cls.run, _key=key, **k):
@@ -2083,10 +2222,37 @@ def agl_kernel_rows(insts, paths):
     return rows
 
 
+def median_ms(fn):
+    """The median of 3 timed windows of 3 calls of ``fn``, after one warm
+    call, in ms per call."""
+    fn()
+    return sorted(timed(fn, 3)[0] for _ in range(3))[1]
+
+
+def divergence(tag, make, launch, share_g, ms):
+    """The launch ``launch(kern)`` with every coin global (``make(1.0)``)
+    and every coin local (``make(0.0)``) on the same inputs, beside the
+    mix of the two at the launch's global share ``share_g`` and the
+    launch's own time ``ms``: how much a warp that holds both kinds of
+    lane pays above its two moves."""
+    pure = {}
+    for gf in (1.0, 0.0):
+        kern = make(gf)
+        pure[gf] = median_ms(lambda: launch(kern))
+    mix = share_g * pure[1.0] + (1.0 - share_g) * pure[0.0]
+    log(f"[{tag}] divergence: every coin global {pure[1.0]:.3f} ms, every "
+        f"coin local {pure[0.0]:.3f} ms; at the global share {share_g:.4f} "
+        f"the pure moves' mix is {mix:.3f} ms, the launch {ms:.3f} ms "
+        f"({ms / mix:.3f}x)")
+
+
 def phase_kernels_line(bench, carry3, prob3, paths):
     """``launches`` is each kernel's count on its entry-point path (the
     packed layout: ``run_glmcmc`` at d=2; the unpacked one: ``run_glmcmc``
     at d=3); ``launches_by_path`` gives the count on every path driven."""
+    import torch
+    from glabc_tpu_torch import MixtureProblem
+
     paths = {"bench": bench["launches"], **paths}
     by_path = lambda layout: {k: v[layout] for k, v in paths.items()}
     rows = []
@@ -2100,13 +2266,21 @@ def phase_kernels_line(bench, carry3, prob3, paths):
     check(share <= MAX_DIFF_SHARE, f"packed, main shape: {share:.3%} of "
           "chains differ from the plain version")
     moved = nbytes(*state, *got[:4], *got[4])
-    ops = (transition_ops(2, 5, True) * kern.pack * state[0].shape[1]
-           * kern.T)
+    n = kern.pack * state[0].shape[1] * kern.T
+    n_g = float(got[4].global_attempts.sum(dtype=torch.float64))
+    ops = transition_ops_mix(2, 5, True, n, n_g)
+    ops_both = transition_ops_both(2, 5, True) * n
     b_ms, b_by = bound_ms(moved, ops)
     log(f"[K1] packed d=2 at the main shape: max abs diff {max_abs:.3g} "
         f"(share {share:.3g}); kernel {bench['ms']:.3f} ms, plain "
         f"{plain_ms:.1f} ms; {moved / 1e9:.3f} GB and {ops:.4g} operations "
-        f"-> bound {b_ms:.3f} ms ({b_by})")
+        f"(global share {n_g / n:.4f}; both moves counted: {ops_both:.4g}, "
+        f"bound {bound_ms(moved, ops_both)[0]:.3f} ms) -> bound {b_ms:.3f} "
+        f"ms ({b_by})")
+    divergence("K1", lambda gf: make_kernel("packed", MixtureProblem(0.05),
+                                            kern.T, gf=gf),
+               lambda k: k.run(bench["seed"], *state, step0=bench["step0"]),
+               n_g / n, bench["ms"])
     rows.append(dict(
         name="mixture_glmcmc (packed layout)", route="cuda",
         source="glabc_tpu_torch/csrc/mixture_glmcmc.cu",
@@ -2126,12 +2300,17 @@ def phase_kernels_line(bench, carry3, prob3, paths):
     check(share <= MAX_DIFF_SHARE, f"unpacked d=3: {share:.3%} of chains "
           "differ from the plain version")
     moved = nbytes(*state, *got[:4], *got[4])
-    ops = transition_ops(3, 5, True) * state[0].shape[1] * kern.T
+    n = state[0].shape[1] * kern.T
+    n_g = float(got[4].global_attempts.sum(dtype=torch.float64))
+    ops = transition_ops_mix(3, 5, True, n, n_g)
+    ops_both = transition_ops_both(3, 5, True) * n
     b_ms, b_by = bound_ms(moved, ops)
     log(f"[K2] unpacked d=3, {state[0].shape[1]:,} chains x T=256: max abs "
         f"diff {max_abs:.3g} (share {share:.3g}); kernel {ms:.3f} ms, plain "
         f"{plain_ms:.1f} ms; {moved / 1e9:.3f} GB and {ops:.4g} operations "
-        f"-> bound {b_ms:.3f} ms ({b_by})")
+        f"(global share {n_g / n:.4f}; both moves counted: {ops_both:.4g}, "
+        f"bound {bound_ms(moved, ops_both)[0]:.3f} ms) -> bound {b_ms:.3f} "
+        f"ms ({b_by})")
     rows.append(dict(
         name="mixture_glmcmc (unpacked layout)", route="cuda",
         source="glabc_tpu_torch/csrc/mixture_glmcmc.cu",
@@ -2155,6 +2334,15 @@ def ma2_sim_ops(T):
             + 3), 4 * pairs
 
 
+def ma2_sim_pair_ops(T):
+    """One +-fd pair of MA(2) simulations at the least, ``(ops, sfu)``: the
+    innovations drawn once (the draws of :func:`ma2_sim_ops`), two
+    recursions with their running sums and scalings."""
+    pairs = (T + 3) // 2
+    draws = 80 * -(-2 * pairs // 4) + 5 * 2 * pairs + 4 * pairs
+    return draws + 2 * (10 * T + 3), 4 * pairs
+
+
 _MA2_KERN = 11                       # the epsilon-kernel: 3 x (sub, mul,
 #                                      add) + 2
 
@@ -2170,14 +2358,16 @@ def ma2_local_ops(T):
             2 * 4 + sim_sfu)
 
 
-def ma2_step_ops(T, B, kind, n_grad=0):
+def ma2_step_ops(T, B, kind, n_grad=0, pair=True):
     """32-bit operations of one chain-step of the generic kernels on the
     MA(2) program at the least, ``(ops, sfu)``.  ``kind``: 'global' (B
     candidates: a uniform block, the box draw, a simulation, the
     epsilon-kernel, the triangle test, the Gumbel score and the selects),
     'local' (K8's random walk, :func:`ma2_local_ops`, and its log u),
-    'mala' (K9: the drift pair, the proposal's simulation, 2 d n_grad
-    gradient simulations with their discrepancies and running sums, the
+    'mala' (K9: the drift pair, the proposal's simulation, d n_grad
+    gradient replicates, each a +-fd pair (:func:`ma2_sim_pair_ops`; with
+    ``pair=False`` two whole simulations, the count before the pair was
+    simulated in one pass) with its two discrepancies and running sums, the
     synthetic likelihood and the MH test).  Each step adds the scalar
     blocks, the coin and the counters."""
     sim, sim_sfu = ma2_sim_ops(T)
@@ -2190,9 +2380,11 @@ def ma2_step_ops(T, B, kind, n_grad=0):
         o, s = ma2_local_ops(T)
         ops, sfu = ops + o, sfu + s + 1
     else:
-        grad = 2 * 2 * n_grad * (sim + kern + 4) + 2 * 2 * 20
+        rep, rep_sfu = ((2 * sim, 2 * sim_sfu) if not pair
+                        else ma2_sim_pair_ops(T))
+        grad = 2 * n_grad * (rep + 2 * (kern + 4)) + 2 * 2 * 20
         ops += 80 + 2 * 18 + 8 + sim + kern + grad + 40
-        sfu += 2 * 4 + sim_sfu * (1 + 4 * n_grad) + 4 * n_grad + 8
+        sfu += 2 * 4 + sim_sfu + 2 * n_grad * rep_sfu + 4 * n_grad + 8
     return ops, sfu
 
 
@@ -2542,6 +2734,26 @@ def phase_generic(tmp):
     return paths, insts
 
 
+def k9_bound(kern, a, outs, n_local):
+    """K9's bound for the launch ``kern.run(*a)`` with outputs ``outs`` and
+    ``n_local`` MALA chain-steps among its C x T, from the MA(2) counts:
+    ``(bound, the bound with two whole simulations per +-fd pair, the
+    work as text)``."""
+    C, T, n = a[1].shape[1], kern.T, int(kern.p.params[4])
+    shared = kern.coin_mode == "shared"
+    moved = nbytes(*a[1:5], *((a[5],) if shared else ()), *outs)
+    n_g = C * T - n_local
+    og, sg = ma2_step_ops(n, kern.B, "global")
+    out = []
+    for pair in (True, False):
+        om, sm = ma2_step_ops(n, kern.B, "mala", kern.cfg.n_grad, pair)
+        ops, sfu = n_local * om + n_g * og, n_local * sm + n_g * sg
+        out.append((bound_ms(moved, ops, sfu), ops, sfu))
+    (b, ops, sfu), (b_old, _, _) = out
+    return b, b_old, (f"{moved / 1e9:.4f} GB, {ops:.4g} operations and "
+                      f"{sfu:.4g} special-function operations")
+
+
 def generic_kernel_rows(insts, paths):
     """K8, K9 and K5's program variant at their main-path shapes (the
     arguments of their last launch on their MA(2) entry path; for K9 the
@@ -2549,13 +2761,11 @@ def generic_kernel_rows(insts, paths):
     time per launch, the plain version's time and agreement, bytes,
     operations (of the moves this launch's coins picked) and bound.  No
     single PyTorch call computes these functions: no library time."""
-    from glabc_tpu_torch.ops.kernels import GenericFusedGLMCMC
+    import torch
+    from glabc_tpu_torch.ops.kernels import (GenericFusedGLMALA,
+                                             GenericFusedGLMCMC)
 
     rows = []
-
-    def median_ms(fn):
-        fn()                                            # warm
-        return sorted(timed(fn, 3)[0] for _ in range(3))[1]
 
     def row(name, source, replaces, key, main, max_abs, ms, plain_ms, b):
         return dict(name=name, route="cuda", source=source,
@@ -2595,19 +2805,11 @@ def generic_kernel_rows(insts, paths):
         f"-> bound {b[0]:.4f} ms ({b[1]})")
     # warp divergence: the same launch with every coin global (B
     # simulations per step) and every coin local (one), beside the mix
-    pure = {}
-    for gf in (1.0, 0.0):
-        kp = GenericFusedGLMCMC(kern.p, global_frequency=gf, batch_size=kern.B,
-                                steps_per_call=T, block_chains=kern.C_blk,
-                                collect_history=kern.collect_history,
-                                algorithm=kern.algorithm)
-        pure[gf] = median_ms(lambda: kp.run(*a, **kw8))
-    share_g = n_g / (C * T)
-    mix = share_g * pure[1.0] + (1.0 - share_g) * pure[0.0]
-    log(f"[K8] divergence: every coin global {pure[1.0]:.3f} ms, every coin "
-        f"local {pure[0.0]:.3f} ms; at the global share {share_g:.4f} the "
-        f"pure moves' mix is {mix:.3f} ms, the launch {ms:.3f} ms "
-        f"({ms / mix:.3f}x)")
+    divergence("K8", lambda gf: GenericFusedGLMCMC(
+        kern.p, global_frequency=gf, batch_size=kern.B, steps_per_call=T,
+        block_chains=kern.C_blk, collect_history=kern.collect_history,
+        algorithm=kern.algorithm), lambda k: k.run(*a, **kw8),
+        n_g / (C * T), ms)
     rows.append(row("generic_glmcmc (MA(2) program)",
                     "glabc_tpu_torch/csrc/generic_glmcmc.cu",
                     "glabc_tpu/ops/pallas/generic_kernel.py:186",
@@ -2623,12 +2825,7 @@ def generic_kernel_rows(insts, paths):
     check(share <= MAX_DIFF_SHARE, f"generic_glmala at the main shape: "
           f"{share:.3%} of chains differ")
     n_local = int(T - int(a[5].sum()))
-    og, sg = ma2_step_ops(int(n), kern.B, "global")
-    om, sm = ma2_step_ops(int(n), kern.B, "mala", kern.cfg.n_grad)
-    ops = C * (n_local * om + (T - n_local) * og)
-    sfu = C * (n_local * sm + (T - n_local) * sg)
-    moved = nbytes(*a[1:6], *outs)
-    b = bound_ms(moved, ops, sfu)
+    b, b_old, work = k9_bound(kern, a, outs, C * n_local)
     n_run = paths["run_glmala_prog"]["generic_glmala"]
     mean_ms = insts["run_glmala_prog"].kernel_ms("generic_glmala") / n_run
     log(f"[K9] generic_glmala (MA(2)) at the main shape, {C:,} chains x "
@@ -2636,14 +2833,45 @@ def generic_kernel_rows(insts, paths):
         f"{(1.0 - kern.cfg.gf) * T:.1f}), num_grad={kern.cfg.n_grad}: max "
         f"abs diff {max_abs:.3g}, share of chains differing {share:.3g}; "
         f"kernel {ms:.3f} ms (the entry run's {n_run} launches: "
-        f"{mean_ms:.3f} ms each), plain {plain_ms:.1f} ms; "
-        f"{moved / 1e9:.4f} GB, {ops:.4g} operations and {sfu:.4g} "
-        f"special-function operations -> bound {b[0]:.4f} ms ({b[1]})")
+        f"{mean_ms:.3f} ms each), plain {plain_ms:.1f} ms; {work} "
+        f"-> bound {b[0]:.4f} ms ({b[1]}; two whole simulations per +-fd "
+        f"pair: {b_old[0]:.4f} ms)")
     rows.append(row("generic_glmala (MA(2) program)",
                     "glabc_tpu_torch/csrc/generic_glmala.cu",
                     "glabc_tpu/ops/pallas/generic_glmala_kernel.py:109",
                     "generic_glmala", "run_glmala_prog", max_abs, ms,
                     plain_ms, b))
+    del got, outs, refs
+
+    # K9 with the per-chain coin: the last launch of its entry run
+    main = "run_glmala_prog_per_chain"
+    kern, a, got, ms, plain_ms, outs, refs = measure(
+        "generic_glmala", main, lambda r: [*r[:5], *r[5]])
+    C, T = a[1].shape[1], kern.T
+    max_abs, share = _chain_share(outs, refs, C)
+    check(share <= MAX_DIFF_SHARE, f"generic_glmala per-chain at the main "
+          f"shape: {share:.3%} of chains differ")
+    n_g = float(got[5][1].sum(dtype=torch.float64))
+    b, b_old, work = k9_bound(kern, a, outs, C * T - n_g)
+    kw = insts[main].last["generic_glmala"][2]
+    n_run = paths[main]["generic_glmala"]
+    mean_ms = insts[main].kernel_ms("generic_glmala") / n_run
+    log(f"[K9] generic_glmala (MA(2)), per-chain coin, {C:,} chains x "
+        f"T={T}, global share {n_g / (C * T):.4f}: max abs diff "
+        f"{max_abs:.3g}, share of chains differing {share:.3g}; kernel "
+        f"{ms:.3f} ms (the entry run's {n_run} launches: {mean_ms:.3f} ms "
+        f"each), plain {plain_ms:.1f} ms; {work} -> bound {b[0]:.4f} ms "
+        f"({b[1]}; two whole simulations per +-fd pair: {b_old[0]:.4f} ms)")
+    divergence("K9", lambda gf: GenericFusedGLMALA(
+        kern.p, epsilon=_ma2_setup()[0].epsilon, global_frequency=gf,
+        batch_size=kern.B, tau=kern.cfg.tau, num_grad=kern.cfg.n_grad,
+        fd_step=kern.cfg.fd, steps_per_call=T, block_chains=kern.C_blk,
+        collect_history=kern.collect_history, coin_mode="per_chain"),
+        lambda k: k.run(*a, **kw), n_g / (C * T), ms)
+    rows.append(row("generic_glmala (MA(2) program, per-chain coin)",
+                    "glabc_tpu_torch/csrc/generic_glmala.cu",
+                    "glabc_tpu/ops/pallas/generic_glmala_kernel.py:109",
+                    "generic_glmala", main, max_abs, ms, plain_ms, b))
     del got, outs, refs
 
     # K5, program variant

@@ -16,9 +16,9 @@
 // reverse drift; an accepted move carries its gradient).  The gradient is
 // the JAX generic estimator: for coordinate k and replicate r the program
 // simulates at theta' + fd e_k and at theta' - fd e_k from the same Philox
-// block range (common random numbers: two passes of one cursor replayed,
-// where the TPU kernel re-seeds its generator with _GRAD_STRIDE), keeps
-// running sums of the discrepancy and its square per sign, then
+// block range (common random numbers, where the TPU kernel re-seeds its
+// generator with _GRAD_STRIDE), keeps running sums of the discrepancy and
+// its square per sign, then
 //   mu = s1 / n, var = (s2 - (n mu) mu) / (n - 1), s = var + eps^2,
 //   log p = -log(s)/2 - ((mu/2) mu) / s,
 //   grad_k = (log p(+) - log p(-)) / (2 fd) + prior_grad_k.
@@ -28,12 +28,23 @@
 // per_chain (scalar slot B+2).  A thread computes only the move it takes.
 //
 // What bounds it on an H100: one MA(2) local step at num_grad=100, d=2 runs
-// 2 d num_grad = 400 simulations of 102 innovations (26 Philox blocks, 51
-// Box-Muller pairs, the recursion), about 1.5e6 operations, against 8
-// bytes of history: bound by operations.  The state and the running sums
-// stay in registers; the +fd and -fd simulations are two passes over the
-// same blocks (one pass with the two recursions side by side would halve
-// the Philox work: later work).
+// d num_grad = 200 replicates, each two recursions over 102 innovations
+// (26 Philox blocks, 51 Box-Muller pairs): about 1e6 operations
+// (chip_smoke.py's ma2_step_ops), against 8 bytes of history, so it is
+// bound by the instructions it issues.  The design:
+//   * one pass per +-fd pair: the program's simulate_pair draws each
+//     innovation once and runs the two recursions side by side (two
+//     independent dependency chains in one thread), each bitwise what
+//     simulate gives alone;
+//   * the warp works through its local lanes' (chain, coordinate,
+//     replicate) items 32 at a time with every lane, the discrepancies
+//     staged in shared memory and added by the chain's own lane in
+//     replicate order, so the sums are bitwise a per-thread loop's.  Where
+//     the lanes disagree (the per-chain coin at gf=0.8: ~6 local lanes a
+//     warp) the global lanes help instead of idling through 2 d num_grad
+//     simulations; where all are local (the shared coin's local steps) it
+//     does the per-thread loop's work, a little faster than that loop
+//     (PERF.md).
 //
 // Layouts: theta, grad (D, C); y (Y, C); logk and the four counters (C,);
 // history (T, D, C) when collected; coins (T,) int32 in shared mode.
@@ -107,57 +118,125 @@ __device__ __forceinline__ float sl_lp(const ProgMalaArgs& a, float s1,
   return -0.5f * logf(s) - ((0.5f * mu) * mu) / s;
 }
 
-// grad log p_ABC at th: CRN central differences through the simulator
-__device__ void sl_grad(const ProgMalaArgs& a, uint32_t chain, uint32_t step,
-                        uint32_t first, const float (&th)[D], float (&g)[D]) {
-  const float* p = a.params;
+__device__ __forceinline__ void sl_grad_from_sums(
+    const ProgMalaArgs& a, const float (&th)[D], const float (&s1p)[D],
+    const float (&s2p)[D], const float (&s1m)[D], const float (&s2m)[D],
+    float (&g)[D]) {
   float pg[D];
-  Prog::prior_grad(p, th, pg);
+  Prog::prior_grad(a.params, th, pg);
+#pragma unroll
+  for (int k = 0; k < D; ++k)
+    g[k] = (sl_lp(a, s1p[k], s2p[k]) - sl_lp(a, s1m[k], s2m[k])) / a.two_fd +
+           pg[k];
+}
+
+// theta' +- fd e_k
+__device__ __forceinline__ void fd_pair(const ProgMalaArgs& a,
+                                        const float* th, int k,
+                                        float (&tp)[D], float (&tm)[D]) {
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const float e = (j == k) ? a.fd : 0.0f;
+    tp[j] = th[j] + e;
+    tm[j] = th[j] - e;
+  }
+}
+
+// One warp's staging: the local lanes' theta' by rank, their lanes, and one
+// round's discrepancies (+fd, -fd), one per lane.
+struct WarpStage {
+  float th[32][D];
+  int lane[32];
+  float2 dis[32];
+};
+
+// grad log p_ABC at theta' of each of the warp's local lanes (`loc`;
+// `mine`: this lane is one of them), by the whole warp: CRN central
+// differences through the simulator, replicate r of coordinate k on blocks
+// first + (r D + k) sb of the chain.  Item i = (rank q, coordinate k,
+// replicate r), q-major then k then r, is lane i % 32's in round i / 32: it
+// simulates the pair of chain q's replicate and stages the two
+// discrepancies; then each local lane adds the items of its own range in
+// replicate order, as one thread looping over its replicates would.  Every
+// lane of the warp must call it.
+__device__ void sl_grad(const ProgMalaArgs& a, WarpStage& ws,
+                             unsigned loc, bool mine, uint32_t chain0,
+                             uint32_t step, uint32_t first,
+                             const float (&th)[D], float (&g)[D]) {
+  const float* p = a.params;
+  const int lane = static_cast<int>(threadIdx.x & 31u);
+  const int rank = __popc(loc & ((1u << lane) - 1u));
+  if (mine) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) ws.th[rank][j] = th[j];
+    ws.lane[rank] = lane;
+  }
+  __syncwarp();
+  const int N = a.n_grad;
+  const int per = D * N;                       // items of one chain
+  const int n_items = __popc(loc) * per;
+  const int lo = rank * per;                  // a local lane's items
   const uint32_t sb = static_cast<uint32_t>(a.sb);
+  float s1p[D], s2p[D], s1m[D], s2m[D];
 #pragma unroll
-  for (int k = 0; k < D; ++k) {
-    float tp[D], tm[D];
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      const float e = (j == k) ? a.fd : 0.0f;
-      tp[j] = th[j] + e;
-      tm[j] = th[j] - e;
-    }
-    float s1p = 0.0f, s2p = 0.0f, s1m = 0.0f, s2m = 0.0f;
-    for (int r = 0; r < a.n_grad; ++r) {
+  for (int k = 0; k < D; ++k)
+    s1p[k] = 0.0f, s2p[k] = 0.0f, s1m[k] = 0.0f, s2m[k] = 0.0f;
+  for (int i0 = 0; i0 < n_items; i0 += 32) {
+    const int i = i0 + lane;
+    if (i < n_items) {
+      const int q = i / per;
+      const int kr = i - q * per;
+      const int k = kr / N;
+      const int r = kr - k * N;
+      float tp[D], tm[D];
+      fd_pair(a, ws.th[q], k, tp, tm);
       const uint32_t blk =
           first + (static_cast<uint32_t>(r) * D + static_cast<uint32_t>(k)) *
                       sb;
       float yp[Y], ym[Y];
-      Draws dp(chain, step, a.key0, a.key1, blk);
-      Prog::simulate(p, tp, dp, yp);
-      Draws dm(chain, step, a.key0, a.key1, blk);   // CRN: the same blocks
-      Prog::simulate(p, tm, dm, ym);
-      const float disp = Prog::discrepancy(p, yp);
-      const float dism = Prog::discrepancy(p, ym);
-      s1p = s1p + disp;
-      s2p = s2p + disp * disp;
-      s1m = s1m + dism;
-      s2m = s2m + dism * dism;
+      Draws dr(chain0 + static_cast<uint32_t>(ws.lane[q]), step, a.key0,
+               a.key1, blk);
+      Prog::simulate_pair(p, tp, tm, dr, yp, ym);
+      ws.dis[lane] =
+          make_float2(Prog::discrepancy(p, yp), Prog::discrepancy(p, ym));
     }
-    g[k] = (sl_lp(a, s1p, s2p) - sl_lp(a, s1m, s2m)) / a.two_fd + pg[k];
+    __syncwarp();
+    if (mine) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        const int b1 = min(lo + (k + 1) * N, i0 + 32);
+        for (int j = max(lo + k * N, i0); j < b1; ++j) {
+          const float2 v = ws.dis[j - i0];
+          s1p[k] = s1p[k] + v.x;
+          s2p[k] = s2p[k] + v.x * v.x;
+          s1m[k] = s1m[k] + v.y;
+          s2m[k] = s2m[k] + v.y * v.y;
+        }
+      }
+    }
+    __syncwarp();
   }
+  if (mine) sl_grad_from_sums(a, th, s1p, s2p, s1m, s2m, g);
 }
 
 __global__ void generic_glmala_kernel(ProgMalaArgs a) {
+  extern __shared__ WarpStage stages[];
+  WarpStage& ws = stages[threadIdx.x >> 5];
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= a.C) return;
+  // no early return: every lane of a warp takes part in its gradients
+  const bool valid = c < a.C;
+  const uint32_t chain0 = static_cast<uint32_t>(c) - (threadIdx.x & 31u);
   const size_t C = static_cast<size_t>(a.C);
   const float* p = a.params;
   float th[D], yv[Y], gr[D];
 #pragma unroll
   for (int j = 0; j < D; ++j) {
-    th[j] = a.theta_in[j * C + c];
-    gr[j] = a.grad_in[j * C + c];
+    th[j] = valid ? a.theta_in[j * C + c] : 0.0f;
+    gr[j] = valid ? a.grad_in[j * C + c] : 0.0f;
   }
 #pragma unroll
-  for (int j = 0; j < Y; ++j) yv[j] = a.y_in[j * C + c];
-  float logk = a.logk_in[c];
+  for (int j = 0; j < Y; ++j) yv[j] = valid ? a.y_in[j * C + c] : 0.0f;
+  float logk = valid ? a.logk_in[c] : 0.0f;
   float n_acc = 0.0f, n_gatt = 0.0f, n_gacc = 0.0f, n_lacc = 0.0f;
   const uint32_t chain = static_cast<uint32_t>(c);
   const bool paired = a.paired != 0;
@@ -173,44 +252,53 @@ __global__ void generic_glmala_kernel(ProgMalaArgs a) {
     SlotScalars ss{chain, step, a.key0, a.key1, make_uint4(0u, 0u, 0u, 0u),
                    -1};
     const bool is_g =
-        a.shared ? a.coins[t] != 0 : ss.uniform(a.B + 2) < a.gf;
+        a.shared ? a.coins[t] != 0 : valid && ss.uniform(a.B + 2) < a.gf;
+    const bool local = valid && !is_g;
     bool moved = false;
-    if (is_g) {
+    if (valid && is_g) {
       const CandidateBlocks cb{chain, step,   a.key0, a.key1,
                                S,     g_sim,  g_slot, paired};
       moved = isir_global<Prog>(p, cb, a.B, ss, th, yv, logk);
-    } else {
+    }
+    const unsigned loc = __ballot_sync(0xffffffffu, local);
+    if (loc != 0u) {
       // ---- MALA with the reverse-drift density
-      float z[D], thp[D], gp[D], yp[Y], zr[D];
-      Draws rz(chain, step, a.key0, a.key1, L);
+      float z[D], thp[D], gp[D];
+      if (local) {
+        Draws rz(chain, step, a.key0, a.key1, L);
 #pragma unroll
-      for (int j = 0; j < D; ++j) {
-        float n2;
-        rz.normal_pair(&z[j], &n2);
+        for (int j = 0; j < D; ++j) {
+          float n2;
+          rz.normal_pair(&z[j], &n2);
+        }
+#pragma unroll
+        for (int j = 0; j < D; ++j)
+          thp[j] = (th[j] + a.tau * z[j]) + gr[j] * a.half_tau2;
       }
-      const float log_fwd = std_normal_lp(z, a.c_norm);
+      sl_grad(a, ws, loc, local, chain0, step, grad_block, thp, gp);
+      if (local) {
+        float yp[Y], zr[D];
+        const float log_fwd = std_normal_lp(z, a.c_norm);
+        Draws rs(chain, step, a.key0, a.key1, L + ZB);
+        Prog::simulate(p, thp, rs, yp);
+        const float lkp = Prog::log_kernel(p, yp);
 #pragma unroll
-      for (int j = 0; j < D; ++j)
-        thp[j] = (th[j] + a.tau * z[j]) + gr[j] * a.half_tau2;
-      sl_grad(a, chain, step, grad_block, thp, gp);
-      Draws rs(chain, step, a.key0, a.key1, L + ZB);
-      Prog::simulate(p, thp, rs, yp);
-      const float lkp = Prog::log_kernel(p, yp);
-#pragma unroll
-      for (int j = 0; j < D; ++j)
-        zr[j] = ((th[j] - thp[j]) - gp[j] * a.half_tau2) / a.tau;
-      const float log_rev = std_normal_lp(zr, a.c_norm);
-      const float log_acc =
-          (((Prog::prior_diff_lp(p, thp, th) + lkp) + log_rev) - logk) -
-          log_fwd;
-      moved = logf(ss.uniform(a.B + 1)) < log_acc;
-      if (moved) {
-        copy(th, thp);
-        copy(yv, yp);
-        copy(gr, gp);
-        logk = lkp;
+        for (int j = 0; j < D; ++j)
+          zr[j] = ((th[j] - thp[j]) - gp[j] * a.half_tau2) / a.tau;
+        const float log_rev = std_normal_lp(zr, a.c_norm);
+        const float log_acc =
+            (((Prog::prior_diff_lp(p, thp, th) + lkp) + log_rev) - logk) -
+            log_fwd;
+        moved = logf(ss.uniform(a.B + 1)) < log_acc;
+        if (moved) {
+          copy(th, thp);
+          copy(yv, yp);
+          copy(gr, gp);
+          logk = lkp;
+        }
       }
     }
+    if (!valid) continue;
     n_acc += moved ? 1.0f : 0.0f;
     n_gatt += is_g ? 1.0f : 0.0f;
     n_gacc += (is_g && moved) ? 1.0f : 0.0f;
@@ -221,6 +309,7 @@ __global__ void generic_glmala_kernel(ProgMalaArgs a) {
       for (int j = 0; j < D; ++j) h[j * C] = th[j];
     }
   }
+  if (!valid) return;
 #pragma unroll
   for (int j = 0; j < D; ++j) {
     a.theta_out[j * C + c] = th[j];
@@ -259,7 +348,14 @@ extern "C" int glabc_generic_glmala(
                  tau,       half_tau2, fd,      two_fd,   eps2,
                  c_norm,    key0,     key1,     step0};
   const dim3 grid((C + threads - 1) / threads);
-  generic_glmala_kernel<<<grid, threads, 0,
+  const size_t smem = static_cast<size_t>(threads / 32) * sizeof(WarpStage);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        generic_glmala_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  generic_glmala_kernel<<<grid, threads, smem,
                           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,16 +12,33 @@
 //
 // What bounds it on an H100: per transition at d=2, B=5 the kernel writes
 // 8 bytes of history and reads nothing (the state stays in registers for the
-// whole launch), but runs 8 Philox4x32-10 blocks (80 integer operations
-// each), 12 Box-Muller pairs (logf, sqrtf, sinf, cosf) and 8 more logf for
-// the Gumbels and the accept tests: at least 1,266 32-bit operations
-// (chip_smoke.py's transition_ops) against 8 bytes.  At 3.35 TB/s the bytes
-// allow ~4e11 transitions/s; at one operation per lane per clock
-// (33.5e12/s) the operations allow ~2.6e10.  The kernel is bound by
-// operations, so its design spends nothing on memory: no shared memory, no
-// staging, one coalesced store per dimension per step (consecutive threads
-// own consecutive columns), and every random number made in registers from
-// a counter.
+// whole launch), but a global step runs 7 Philox4x32-10 blocks (2 of
+// scalars, 5 candidates), 10 Box-Muller pairs (logf, sqrtf, sinf, cosf) and
+// up to 7 more logf for the Gumbels, and a local step 2 blocks, 2 pairs and
+// one logf: at least ~1,005 32-bit operations per transition at gf=0.9
+// (chip_smoke.py's transition_ops by move) against 8 bytes.  At 3.35 TB/s
+// the bytes allow ~4e11 transitions/s; at one operation per lane per clock
+// (33.5e12/s) the operations allow ~3.3e10.  The kernel is bound by the
+// instructions it issues (~3,300 static SASS instructions on a global
+// step's path), so its design spends nothing on memory (no shared
+// memory, no staging, one coalesced store per dimension per step, every
+// random number made in registers from a counter) and issues as few as it
+// can:
+//   * the coin is read first, and one loop of candidate rounds serves both
+//     moves: a global lane draws candidate c in round c, a local lane its
+//     random-walk candidate in round 0 and sits out the rest.  A warp that
+//     holds both kinds of lane (nearly every warp at gf=0.9) runs B rounds,
+//     not B + 1, and an all-local warp one; the plain version computes both
+//     moves and selects, with the same numbers;
+//   * a local lane fetches only the scalar block that holds its coin and
+//     accept slots;
+//   * the algorithm (GLMCMC's iSIR or GlobalMCMC's independence MH) is a
+//     template parameter, so a round carries no code of the other;
+//   * the prior log-density of the current state is carried from step to
+//     step (a move takes its candidate's, computed in the same order).
+// Philox's round keys are left to the compiler, which keeps them in uniform
+// registers; a table of them among the kernel's parameters was read with a
+// load per round and made the launch slower (PERF.md).
 //
 // Layouts (the JAX package's, so both packages' tests compare like with like):
 //   packed   (8, C_cols): dim j of chain p*C_cols + c at row p*d + j, col c;
@@ -56,7 +73,7 @@ struct Params {
   float ip_loc, ip_scale, inv_ip_scale, c_ip;
   float lp_scale, sigma, c_kern, a_kern, gf;
   int d, groups, rows_per_group, aux_rows, ncols, nchains;
-  int T, collect, glmcmc, B, n_scalar_blocks, pair_blocks;
+  int T, collect, B, n_scalar_blocks, pair_blocks;
   uint32_t key0, key1, step0;
 };
 
@@ -77,7 +94,7 @@ struct Buffers {
 };
 
 // A chain's d-vector: registers when d is a compile-time constant, a strided
-// column of scratch memory (6 vectors x d x nchains) for the runtime-d build.
+// column of scratch memory (4 vectors x d x nchains) for the runtime-d build.
 template <int D>
 struct Vec {
   float v[D];
@@ -137,13 +154,15 @@ __device__ __forceinline__ void copy_vec(Vec<D>& dst, Vec<D>& src, int d) {
   for (int j = 0; j < (D > 0 ? D : d); ++j) dst[j] = src[j];
 }
 
-// Proposal / local candidate: th_j = base_j + scale * n1_j,
-// y_j = |th_j| + sigma * n2_j, with the pairs of blocks first_block + j/2.
-template <int D, bool kLocal>
+// One candidate from the pairs of blocks first_block + j/2:
+// th_j = base_j + scale * n1_j, y_j = |th_j| + sigma * n2_j, where base_j is
+// ip_loc for a global proposal and the current state for the random walk.
+template <int D>
 __device__ __forceinline__ void candidate(const Params& q, uint32_t chain,
                                           uint32_t step, uint32_t first_block,
-                                          Vec<D>& cur, float loc, float scale,
-                                          Vec<D>& th, Vec<D>& yv, int d) {
+                                          Vec<D>& cur, bool global,
+                                          float scale, Vec<D>& th, Vec<D>& yv,
+                                          int d) {
   uint4 blk = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
   for (int j = 0; j < (D > 0 ? D : d); ++j) {
@@ -157,13 +176,13 @@ __device__ __forceinline__ void candidate(const Params& q, uint32_t chain,
     const float u2 = uniform_from_bits((j & 1) ? blk.w : blk.y);
     float n1, n2;
     normal_pair(u1, u2, &n1, &n2);
-    const float t = kLocal ? cur[j] + scale * n1 : loc + scale * n1;
+    const float t = (global ? q.ip_loc : cur[j]) + scale * n1;
     th[j] = t;
     yv[j] = fabsf(t) + q.sigma * n2;
   }
 }
 
-template <int D>
+template <int D, bool GLMCMC>
 __global__ void mixture_glmcmc_kernel(Buffers b, Params q) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= q.nchains) return;
@@ -176,13 +195,11 @@ __global__ void mixture_glmcmc_kernel(Buffers b, Params q) {
   const size_t plane = static_cast<size_t>(q.groups) * q.rows_per_group * rs;
 
   Chain<D> ch{q, {}};
-  Vec<D> th, yv, wth, wy, cth, cy;
+  Vec<D> th, yv, cth, cy;
   th.bind(b.scratch, 0, d, n, q.nchains);
   yv.bind(b.scratch, 1, d, n, q.nchains);
-  wth.bind(b.scratch, 2, d, n, q.nchains);
-  wy.bind(b.scratch, 3, d, n, q.nchains);
-  cth.bind(b.scratch, 4, d, n, q.nchains);
-  cy.bind(b.scratch, 5, d, n, q.nchains);
+  cth.bind(b.scratch, 2, d, n, q.nchains);
+  cy.bind(b.scratch, 3, d, n, q.nchains);
   if constexpr (D == 0) {
     ch.yo.p = const_cast<float*>(b.y_obs);
     ch.yo.stride = 1;
@@ -198,89 +215,72 @@ __global__ void mixture_glmcmc_kernel(Buffers b, Params q) {
   float logk = b.logk_in[aux];
   float acc = 0.0f, gatt = 0.0f, gacc = 0.0f, lacc = 0.0f;
   const uint32_t chain = static_cast<uint32_t>(n);
-  const int Bp = q.glmcmc ? q.B : 1;
+  const int Bp = GLMCMC ? q.B : 1;
   const uint32_t S = static_cast<uint32_t>(q.n_scalar_blocks);
   const uint32_t P = static_cast<uint32_t>(q.pair_blocks);
   // scalar slots
-  const int s_local = q.glmcmc ? q.B + 1 : 0;
-  const int s_coin = q.glmcmc ? q.B + 2 : 1;
+  const int s_local = GLMCMC ? q.B + 1 : 0;
+  const int s_coin = GLMCMC ? q.B + 2 : 1;
   const int s_global = 2;
+  // the prior log-density of th, carried: a move takes its candidate's
+  float lp_theta = ch.gauss_lp(th, q.prior_loc, q.inv_prior_scale, q.c_prior);
 
   for (int t = 0; t < q.T; ++t) {
     const uint32_t step = q.step0 + static_cast<uint32_t>(t);
-    SlotScalars ss{chain, step, q.key0, q.key1, make_uint4(0u, 0u, 0u, 0u),
-                   -1};
-    const float lp_theta = ch.gauss_lp(th, q.prior_loc, q.inv_prior_scale,
-                                       q.c_prior);
-    float wlogk;
-    bool wmoved;
-    copy_vec(wth, th, d);
-    copy_vec(wy, yv, d);
-    if (q.glmcmc) {
-      // ---- global: iSIR as a streaming Gumbel-argmax, strict > keeps ties
-      const float ip_theta = ch.gauss_lp(th, q.ip_loc, q.inv_ip_scale, q.c_ip);
-      float best = ((lp_theta + logk) - ip_theta) +
-                   gumbel_from_uniform(ss.uniform(0));
-      wlogk = logk;
-      wmoved = false;
-      for (int c = 0; c < q.B; ++c) {
-        candidate<D, false>(q, chain, step, S + static_cast<uint32_t>(c) * P,
-                            th, q.ip_loc, q.ip_scale, cth, cy, d);
-        const float lkp = ch.kern_lp(cy);
-        const float lw = (ch.gauss_lp(cth, q.prior_loc, q.inv_prior_scale,
-                                      q.c_prior) + lkp) -
-                         ch.gauss_lp(cth, q.ip_loc, q.inv_ip_scale, q.c_ip);
-        const float score = lw + gumbel_from_uniform(ss.uniform(c + 1));
-        if (score > best) {
-          best = score;
-          copy_vec(wth, cth, d);
-          copy_vec(wy, cy, d);
-          wlogk = lkp;
-          wmoved = true;
-        }
-      }
-    } else {
-      // ---- global: independence MH
-      candidate<D, false>(q, chain, step, S, th, q.ip_loc, q.ip_scale, cth,
-                          cy, d);
-      const float lkp = ch.kern_lp(cy);
-      const float la =
-          ((((ch.gauss_lp(cth, q.prior_loc, q.inv_prior_scale, q.c_prior) + lkp) +
-             ch.gauss_lp(th, q.ip_loc, q.inv_ip_scale, q.c_ip)) -
-            ch.gauss_lp(cth, q.ip_loc, q.inv_ip_scale, q.c_ip)) -
-           lp_theta) -
-          logk;
-      wmoved = logf(ss.uniform(s_global)) < la;
-      wlogk = wmoved ? lkp : logk;
-      if (wmoved) {
-        copy_vec(wth, cth, d);
-        copy_vec(wy, cy, d);
-      }
-    }
-    // ---- local: random-walk MH
-    candidate<D, true>(q, chain, step, S + static_cast<uint32_t>(Bp) * P, th,
-                       0.0f, q.lp_scale, cth, cy, d);
-    const float lkl = ch.kern_lp(cy);
-    const float la_l =
-        ((ch.gauss_lp(cth, q.prior_loc, q.inv_prior_scale, q.c_prior) + lkl) -
-         lp_theta) -
-        logk;
-    const bool l_acc = logf(ss.uniform(s_local)) < la_l;
-    // ---- coin
+    // the coin's block is pinned, so a global lane fetches each block once
+    // and a local lane only the coin's unless its accept slot lies in another
+    PinnedSlots ss(chain, step, q.key0, q.key1, s_coin);
     const bool is_g = ss.uniform(s_coin) < q.gf;
+    float ip_theta = 0.0f, best = 0.0f;
     if (is_g) {
-      copy_vec(th, wth, d);
-      copy_vec(yv, wy, d);
-      logk = wlogk;
-    } else if (l_acc) {
-      copy_vec(th, cth, d);
-      copy_vec(yv, cy, d);
-      logk = lkl;
+      ip_theta = ch.gauss_lp(th, q.ip_loc, q.inv_ip_scale, q.c_ip);
+      // iSIR as a streaming Gumbel-argmax, strict > keeps ties
+      if constexpr (GLMCMC)
+        best = ((lp_theta + logk) - ip_theta) +
+               gumbel_from_uniform(ss.uniform(0));
     }
-    acc += (is_g ? wmoved : l_acc) ? 1.0f : 0.0f;
+    const float scale = is_g ? q.ip_scale : q.lp_scale;
+    const int rounds = is_g ? Bp : 1;
+    const float lp_cur = lp_theta, logk_cur = logk;
+    bool moved = false;
+    // the candidate rounds, one loop for both moves: a local lane takes its
+    // random-walk candidate (blocks S + Bp P) in round 0 and sits out the rest
+    for (int c = 0; c < rounds; ++c) {
+      const uint32_t first = S + static_cast<uint32_t>(is_g ? c : Bp) * P;
+      candidate<D>(q, chain, step, first, th, is_g, scale, cth, cy, d);
+      const float lk = ch.kern_lp(cy);
+      const float lp_c =
+          ch.gauss_lp(cth, q.prior_loc, q.inv_prior_scale, q.c_prior);
+      const float lw = lp_c + lk;
+      bool take;
+      if (!is_g) {         // random-walk MH
+        take = logf(ss.uniform(s_local)) < ((lw - lp_cur) - logk_cur);
+      } else if constexpr (GLMCMC) {  // iSIR
+        const float score =
+            (lw - ch.gauss_lp(cth, q.ip_loc, q.inv_ip_scale, q.c_ip)) +
+            gumbel_from_uniform(ss.uniform(c + 1));
+        take = score > best;
+        if (take) best = score;
+      } else {              // independence MH
+        const float la =
+            (((lw + ip_theta) -
+              ch.gauss_lp(cth, q.ip_loc, q.inv_ip_scale, q.c_ip)) -
+             lp_cur) -
+            logk_cur;
+        take = logf(ss.uniform(s_global)) < la;
+      }
+      if (take) {
+        copy_vec(th, cth, d);
+        copy_vec(yv, cy, d);
+        logk = lk;
+        lp_theta = lp_c;
+        moved = true;
+      }
+    }
+    acc += moved ? 1.0f : 0.0f;
     gatt += is_g ? 1.0f : 0.0f;
-    gacc += (is_g && wmoved) ? 1.0f : 0.0f;
-    lacc += (!is_g && l_acc) ? 1.0f : 0.0f;
+    gacc += (is_g && moved) ? 1.0f : 0.0f;
+    lacc += (!is_g && moved) ? 1.0f : 0.0f;
 
     if (q.collect) {
       float* h = b.hist + static_cast<size_t>(t) * plane + base;
@@ -310,6 +310,19 @@ __global__ void mixture_glmcmc_kernel(Buffers b, Params q) {
     b.gatt[o] = lead ? gatt : 0.0f;
     b.gacc[o] = lead ? gacc : 0.0f;
     b.lacc[o] = lead ? lacc : 0.0f;
+  }
+}
+
+template <bool GLMCMC>
+void launch(int d, dim3 grid, int threads, cudaStream_t s, const Buffers& b,
+            const Params& q) {
+  switch (d) {
+    case 1: mixture_glmcmc_kernel<1, GLMCMC><<<grid, threads, 0, s>>>(b, q); break;
+    case 2: mixture_glmcmc_kernel<2, GLMCMC><<<grid, threads, 0, s>>>(b, q); break;
+    case 3: mixture_glmcmc_kernel<3, GLMCMC><<<grid, threads, 0, s>>>(b, q); break;
+    case 4: mixture_glmcmc_kernel<4, GLMCMC><<<grid, threads, 0, s>>>(b, q); break;
+    case 8: mixture_glmcmc_kernel<8, GLMCMC><<<grid, threads, 0, s>>>(b, q); break;
+    default: mixture_glmcmc_kernel<0, GLMCMC><<<grid, threads, 0, s>>>(b, q); break;
   }
 }
 
@@ -358,7 +371,6 @@ extern "C" int glabc_mixture_glmcmc(
   q.nchains = groups * ncols;
   q.T = T;
   q.collect = collect;
-  q.glmcmc = glmcmc;
   q.B = B;
   const int n_scalar = glmcmc ? B + 3 : 3;
   q.n_scalar_blocks = (n_scalar + 3) / 4;
@@ -370,14 +382,10 @@ extern "C" int glabc_mixture_glmcmc(
             hist, acc, gatt, gacc, lacc, scratch};
   const dim3 grid((q.nchains + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 1: mixture_glmcmc_kernel<1><<<grid, threads, 0, s>>>(b, q); break;
-    case 2: mixture_glmcmc_kernel<2><<<grid, threads, 0, s>>>(b, q); break;
-    case 3: mixture_glmcmc_kernel<3><<<grid, threads, 0, s>>>(b, q); break;
-    case 4: mixture_glmcmc_kernel<4><<<grid, threads, 0, s>>>(b, q); break;
-    case 8: mixture_glmcmc_kernel<8><<<grid, threads, 0, s>>>(b, q); break;
-    default: mixture_glmcmc_kernel<0><<<grid, threads, 0, s>>>(b, q); break;
-  }
+  if (glmcmc)
+    launch<true>(d, grid, threads, s, b, q);
+  else
+    launch<false>(d, grid, threads, s, b, q);
   return static_cast<int>(cudaGetLastError());
 }
 

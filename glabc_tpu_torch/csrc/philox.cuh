@@ -86,6 +86,29 @@ struct SlotScalars {
   }
 };
 
+// SlotScalars with the block of one slot, read first (the coin), kept beside
+// the cache, so that the other slots, read after it in rising order, do not
+// fetch it again.  A separate type: the check costs the kernels that pin
+// nothing registers and time (generic GLMCMC 0.9 %, PERF.md).
+struct PinnedSlots {
+  SlotScalars cache;
+  uint4 pinned;
+  int pinned_id;
+
+  __device__ __forceinline__ PinnedSlots(uint32_t chain, uint32_t step,
+                                         uint32_t k0, uint32_t k1, int s)
+      : cache{chain, step, k0, k1, make_uint4(0u, 0u, 0u, 0u), -1},
+        pinned_id(s >> 2) {
+    pinned = philox4x32_10(
+        make_uint4(chain, step, static_cast<uint32_t>(pinned_id), 0u), k0, k1);
+  }
+
+  __device__ __forceinline__ float uniform(int s) {
+    if ((s >> 2) == pinned_id) return uniform_from_bits(lane_of(pinned, s & 3));
+    return cache.uniform(s);
+  }
+};
+
 // A cursor over consecutive Philox blocks of one chain and step: it starts
 // at lane 0 of block `first` and hands out one uniform per lane, fetching
 // the next block after lane 3.  A normal pair is Box-Muller on the next two

@@ -50,6 +50,21 @@ struct Program {
     }
   }
 
+  // Two simulations on one cursor (K9's +-fd pair): the noise is drawn once,
+  // and each y is bitwise what simulate() gives on its own cursor.
+  __device__ static void simulate_pair(const float* p, const float (&ta)[D],
+                                       const float (&tb)[D], Draws& r,
+                                       float (&ya)[Y], float (&yb)[Y]) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      float n1, n2;
+      r.normal_pair(&n1, &n2);
+      const float e = p[kSigma] * (r.paired ? n2 : n1);
+      ya[j] = fabsf(ta[j]) + e;
+      yb[j] = fabsf(tb[j]) + e;
+    }
+  }
+
   __device__ static float dis2(const float* p, const float (&y)[Y]) {
     float s = 0.0f;
 #pragma unroll

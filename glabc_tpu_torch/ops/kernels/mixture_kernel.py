@@ -8,9 +8,10 @@ layout and the packed layout of ``packed_kernel.py`` alike.
 
 The plain version is factored as :func:`draw_noise` (torch Philox on the
 kernel's counter layout) plus :func:`transition` (one step for every chain
-on explicit noise).  Like the kernel it evaluates the global and the local
-branch for every chain and then selects by the coin; every float operation
-is written in the kernel's order.  A wrapper takes the plain version only for
+on explicit noise).  It evaluates the global and the local branch for
+every chain and then selects by the coin, where the kernel reads the coin
+first and computes only the move it picks; the numbers are the same, and
+every float operation is written in the kernel's order.  A wrapper takes the plain version only for
 tensors on the CPU; on a CUDA tensor it launches the kernel or raises.
 """
 
@@ -403,9 +404,9 @@ class _MixtureKernelBase:
         if y_obs is None:   # a copy from the host waits for the stream: once
             y_obs = self._y_obs_on[dev] = torch.tensor(
                 cfg.y_obs, dtype=torch.float32, device=dev)
-        # d without a register build keeps six d-vectors per chain in memory
+        # d without a register build keeps four d-vectors per chain in memory
         scratch = (None if lib.glabc_mixture_register_dims(self.d) else
-                   torch.empty(6 * self.d * n, dtype=torch.float32,
+                   torch.empty(4 * self.d * n, dtype=torch.float32,
                                device=dev))
         k0, k1 = seed_key(seed)
         ptr = lambda x: None if x is None else x.data_ptr()

@@ -85,7 +85,9 @@ class TileProgram:
     Callables (theta ``(d, C)``, y ``(y_rows, C)``, log densities
     ``(C,)``; out-of-support log densities are :data:`NEG`, not ``-inf``):
     ``sample_global(draws)``, ``simulate(theta, draws)``,
-    ``log_kernel(y)``, ``prior_minus_global_lp(theta)``,
+    ``simulate_pair(theta_a, theta_b, draws)`` (both simulations on one
+    cursor, the noise drawn once: K9's +-fd pair; each result bitwise
+    ``simulate``'s), ``log_kernel(y)``, ``prior_minus_global_lp(theta)``,
     ``prior_diff_lp(a, b)``, ``sample_local(theta, draws)``,
     ``prior_lp(theta)``, ``discrepancy(y)``, ``prior_grad(theta)``."""
 
@@ -101,6 +103,7 @@ class TileProgram:
     sim_paired: bool
     sample_global: Callable
     simulate: Callable
+    simulate_pair: Callable
     log_kernel: Callable
     prior_minus_global_lp: Callable
     prior_diff_lp: Callable
@@ -168,6 +171,11 @@ def mixture_tile_program(problem, *, ip_loc=0.0, ip_scale=1.0,
         n1, n2 = draws.normal_pairs(d)
         return th.abs() + sig * (n2 if draws.paired else n1).T
 
+    def simulate_pair(th_a, th_b, draws):
+        n1, n2 = draws.normal_pairs(d)
+        e = sig * (n2 if draws.paired else n1).T
+        return th_a.abs() + e, th_b.abs() + e
+
     def log_kernel(y):
         diff = y - _col(y_obs, y)
         return c_kern - div(0.5 * rowsum(diff * diff), eps2)
@@ -201,7 +209,8 @@ def mixture_tile_program(problem, *, ip_loc=0.0, ip_scale=1.0,
         global_blocks=pair_blocks, sim_blocks=pair_blocks,
         local_blocks=pair_blocks, sim_paired=True,
         sample_global=sample_global, simulate=simulate,
-        log_kernel=log_kernel, prior_minus_global_lp=prior_minus_global_lp,
+        simulate_pair=simulate_pair, log_kernel=log_kernel,
+        prior_minus_global_lp=prior_minus_global_lp,
         prior_diff_lp=prior_diff_lp, sample_local=sample_local,
         prior_lp=prior_lp, discrepancy=discrepancy, prior_grad=prior_grad)
 
@@ -244,8 +253,7 @@ def ma2_tile_program(problem, *, lp_scale=0.1) -> TileProgram:
         u = draws.uniforms(2).T
         return _col(_MA2_LO, u) + _col(_MA2_WIDTH, u) * u
 
-    def simulate(th, draws):
-        e = draws.normals(n_innov).T                    # (T + 2, C)
+    def series(th, e):
         y = (e[2:] + th[0] * e[1:-1]) + th[1] * e[:-2]  # (T, C)
         z = torch.zeros_like(y[:2])
         y1 = torch.cat([z[:1], y[:-1]])                 # y_{t-1}
@@ -255,6 +263,13 @@ def ma2_tile_program(problem, *, lp_scale=0.1) -> TileProgram:
         for t in range(1, T):
             s = s + prods[:, t]
         return s * inv_t
+
+    def simulate(th, draws):
+        return series(th, draws.normals(n_innov).T)     # e: (T + 2, C)
+
+    def simulate_pair(th_a, th_b, draws):
+        e = draws.normals(n_innov).T
+        return series(th_a, e), series(th_b, e)
 
     def log_kernel(y):
         diff = y - _col(y_obs, y)
@@ -290,6 +305,7 @@ def ma2_tile_program(problem, *, lp_scale=0.1) -> TileProgram:
         defines=(), params=params, global_blocks=1,
         sim_blocks=-(-(2 * -(-n_innov // 2)) // 4), local_blocks=1,
         sim_paired=False, sample_global=sample_global, simulate=simulate,
-        log_kernel=log_kernel, prior_minus_global_lp=prior_minus_global_lp,
+        simulate_pair=simulate_pair, log_kernel=log_kernel,
+        prior_minus_global_lp=prior_minus_global_lp,
         prior_diff_lp=prior_diff_lp, sample_local=sample_local,
         prior_lp=prior_lp, discrepancy=discrepancy, prior_grad=prior_grad)

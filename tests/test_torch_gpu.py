@@ -95,6 +95,34 @@ def test_kernel_matches_plain_version(cuda, layout, d, algorithm):
     assert torch.allclose(got[3][0], want[3][0], rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("gf", [0.0, 0.5, 0.9, 1.0])
+@pytest.mark.parametrize("algorithm", ["glmcmc", "global"])
+@pytest.mark.parametrize("layout,d", [("packed", 2), ("unpacked", 3),
+                                      ("unpacked", 5), ("unpacked", 12)])
+def test_kernel_matches_plain_at_every_coin_share(cuda, layout, d,
+                                                  algorithm, gf):
+    """The kernel reads each chain's coin first and computes only the move
+    it picks, in one loop of candidate rounds: all-local, mixed and
+    all-global warps, the register builds and the scratch build (d=5, 12),
+    against the plain version, which computes both moves and selects."""
+    kern, state = _kernel_and_state(layout, d, algorithm, cuda,
+                                    global_frequency=gf)
+    got = kern.run(13, *state, step0=64)
+    want = kern.plain(13, *state, step0=64)
+    torch.cuda.synchronize()
+    ncols = state[0].shape[1]
+    bad = torch.zeros(ncols, dtype=torch.bool, device=cuda)
+    for a, b in zip([*got[:4], *got[4]], [*want[:4], *want[4]]):
+        assert torch.isfinite(a).all()
+        bad |= ((a - b).abs() > 1e-5).reshape(-1, ncols).any(0)
+    assert bad.float().mean().item() <= 1e-3
+    for a, b in zip(got[4], want[4]):
+        assert torch.equal(a, b)
+    g_share = got[4].global_attempts.sum().item() / (4096 * kern.T)
+    assert abs(g_share - gf) < 0.03
+    assert got[4].accepted.sum().item() > 0
+
+
 def test_block_chains_does_not_change_results(cuda):
     a_kern, state = _kernel_and_state("packed", 2, "glmcmc", cuda,
                                       block_chains=512)
@@ -546,6 +574,74 @@ def test_generic_glmala_matches_plain(cuda, name, coin_mode):
     assert _share_differing([*got[:5], *got[5]], [*want[:5], *want[5]],
                             C) <= 1e-3
     assert 0 < got[5][3].sum().item()      # local MALA moves are accepted
+
+
+@pytest.mark.parametrize("block_chains", [32, 256])
+@pytest.mark.parametrize("gf", [0.0, 0.5, 0.8, 0.97, 1.0])
+@pytest.mark.parametrize("name", ["mixture", "ma2"])
+def test_generic_glmala_per_chain_warps(cuda, name, gf, block_chains):
+    """K9 with the per-chain coin: all-local warps (one thread per chain),
+    mixed warps (the warp-cooperative gradient) and nearly all-global
+    ones, on a chain count that is no multiple of 32, against the plain
+    version: the same chains, the same counters."""
+    from glabc_tpu_torch.ops.kernels import GenericFusedGLMALA
+
+    T, C = 6, 1000
+    prob, prog, th, y, logk, g = _program_state(name, cuda, C, 4)
+    grad = torch.randn((2, C), generator=g, device=cuda)
+    kern = GenericFusedGLMALA(prog, epsilon=prob.epsilon,
+                              global_frequency=gf, tau=0.1, num_grad=10,
+                              steps_per_call=T, block_chains=block_chains,
+                              coin_mode="per_chain")
+    got = kern.run(9, th, y, logk, grad, step0=32)
+    want = kern.plain(9, th, y, logk, grad, step0=32)
+    torch.cuda.synchronize()
+    assert _share_differing([*got[:5], *got[5]], [*want[:5], *want[5]],
+                            C) <= 1e-3
+    for a, b in zip(got[5], want[5]):
+        assert torch.equal(a, b)
+    g_share = got[5][1].sum().item() / (C * T)
+    assert abs(g_share - gf) < 0.05
+    if gf < 1.0:
+        assert got[5][3].sum().item() > 0   # local MALA moves are accepted
+
+
+@pytest.mark.parametrize("num_draws", [1, 16, 37, 101])
+def test_ma2_series_lengths_match_plain(cuda, num_draws):
+    """The MA(2) program draws whole Philox blocks once its cursor is
+    block-aligned, with a tail for the last steps: K8 and K9 (per-chain
+    coin, mixed warps) on series of other lengths against their plain
+    versions."""
+    from glabc_tpu_torch import MA2Problem
+    from glabc_tpu_torch.ops.kernels import (GenericFusedGLMALA,
+                                             GenericFusedGLMCMC)
+
+    prob = MA2Problem(num_draws=num_draws, y_obs=[1.0, 0.4, 0.1])
+    prog = prob.tile_program()
+    C = 1000
+    g = torch.Generator(device=cuda).manual_seed(5)
+    th = ((torch.rand((2, C), generator=g, device=cuda) - 0.5)
+          * 0.3).contiguous()
+    y = prob.simulate(th.T.contiguous(), g).T.contiguous()
+    logk = prob.log_kernel_of_y(y.T).contiguous()
+    k8 = GenericFusedGLMCMC(prog, global_frequency=0.8, batch_size=5,
+                            steps_per_call=8, block_chains=128)
+    got, want = k8.run(2, th, y, logk, step0=8), k8.plain(2, th, y, logk,
+                                                        step0=8)
+    torch.cuda.synchronize()
+    assert _share_differing([*got[:4], *got[4]], [*want[:4], *want[4]],
+                            C) <= 1e-3
+    grad = torch.randn((2, C), generator=g, device=cuda)
+    k9 = GenericFusedGLMALA(prog, epsilon=prob.epsilon, global_frequency=0.5,
+                            tau=0.1, num_grad=6, steps_per_call=4,
+                            coin_mode="per_chain")
+    got = k9.run(4, th, y, logk, grad, step0=16)
+    want = k9.plain(4, th, y, logk, grad, step0=16)
+    torch.cuda.synchronize()
+    assert _share_differing([*got[:5], *got[5]], [*want[:5], *want[5]],
+                            C) <= 1e-3
+    for a, b in zip(got[5], want[5]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("name", ["mixture", "ma2"])
