@@ -18,7 +18,7 @@ Phases, each reported on its own lines:
    d in {2, 3, 8}, B in {5, 7} with -inf pool weights, bitwise; the batched
    KDE density (K4) at d in {2, 3, 8}, P in {1000, 250}, to
    1e-4 max(1, |log q|); the mixed kernel (K5) at d in {2, 3},
-   S in {1024, 100}, gf in {0.5, 0.9}, within MAX_DIFF_SHARE;
+   S in {1024, 100}, gf in {0.5, 0.9}, bitwise;
 4. the main path at bench.py's shape: ``PackedMixtureGLMCMC.run`` on
    524,288 columns x 4 = 2,097,152 chains, T=256 with the history on the
    card, one warm-up and 3 x 4 timed launches, and the posterior check
@@ -74,7 +74,13 @@ Phases, each reported on its own lines:
    older counts printed beside them), its launches on every path of
    phases 4-9, counted from 0 just before each path and read just after
    it, and for K1, K8 and K9 (per-chain coin) the same launch with every
-   coin global and every coin local beside it (warp divergence).
+   coin global and every coin local beside it (warp divergence); K5's
+   bounds count the resident density only on the chain-steps that need
+   it (each chain's first, and those after a move), with the share of
+   such chain-steps and lanes per warp-step; K4 also at the shape of the
+   gf=0.5 run's shared-epoch density (32,768,000 points, 1,024
+   components) beside ``KernelDensity.log_prob`` as the epoch calls it.
+   Phase 2 prints K1's and K4's static SASS split by instruction class.
 
 ``python3 chip_smoke.py --seed-spread N [agl] [glmala] [nf] [ma2]
 [glmala_prog] [agl_prog]`` runs only phase 1 and the compared paths of
@@ -354,6 +360,55 @@ def mixed_isir_ops(d, B, S):
     return ops, S + 2 * (B + 1) + 2
 
 
+def resident_ops(d, S):
+    """The resident logsumexp of one K5 chain-step at the least, the part of
+    :func:`mixed_isir_ops` that only a chain-step after a move (or a chain's
+    first) needs, ``(ops, sfu)``: S (d + 3) operations, and the S
+    exponentials and the log of the sum."""
+    return S * (d + 3), S + 1
+
+
+def resident_recomputes(theta_in, hist):
+    """The chain-steps of a K5 launch that need the resident density: each
+    chain's first step and every step whose starting state differs from
+    the step before's, from the launch's input state ``(d, C)`` and its
+    history ``(T, d, C)``.  Returns ``(count, share of chain-steps, mean
+    such lanes per warp-step, share of warp-steps with any)``; a warp is 32
+    consecutive chains."""
+    import torch
+
+    T, _, C = hist.shape
+    start = torch.cat([theta_in[None], hist[:-1]])          # (T, d, C)
+    need = torch.ones((T, C), dtype=torch.bool, device=hist.device)
+    need[1:] = (start[1:] != start[:-1]).any(dim=1)
+    n = int(need.sum())
+    lanes = torch.nn.functional.pad(need, (0, -C % 32)).reshape(
+        T, -1, 32).sum(-1)
+    return (n, n / (T * C), float(lanes.float().mean()),
+            float((lanes > 0).float().mean()))
+
+
+def k5_bound(tag, a, got, ops, sfu, moved):
+    """A K5 launch's bound for the work its moves need: ``ops``/``sfu`` per
+    chain-step with the resident logsumexp in every step (the count before
+    the kernel carried it, printed in brackets), less that logsumexp on the
+    chain-steps that start where the step before started.  ``a``: the
+    launch's ``run`` arguments, ``got`` its outputs (history included)."""
+    T, B, d, C = a[2].shape
+    S = a[1].pre.shape[0]
+    check(got[6] is not None, f"{tag}: the launch kept no history")
+    n, share, lanes, any_share = resident_recomputes(a[6], got[6])
+    ro, rs = resident_ops(d, S)
+    skip = C * T - n
+    b = bound_ms(moved, ops * C * T - ro * skip, sfu * C * T - rs * skip)
+    b_old = bound_ms(moved, ops * C * T, sfu * C * T)
+    log(f"[{tag}] resident density: {n:,} of {C * T:,} chain-steps compute "
+        f"it (share {share:.5f}), {lanes:.3f} lanes per warp-step, "
+        f"{any_share:.4f} of warp-steps with any; bound {b[0]:.4f} ms "
+        f"({b[1]}; the density at every chain-step: {b_old[0]:.4f} ms)")
+    return b
+
+
 def builtin_local_ops(d):
     """The built-in Mixture move's own work per K5 chain-step at the least,
     ``(ops, sfu)``: ceil(d/2) Philox blocks, d Box-Muller pairs (8 each:
@@ -493,15 +548,9 @@ def k1_sass_line(tag, text, B=5):
         f"and the rest: {n} ({', '.join(f'{k} {v / n:.1%}' for k, v in total.items())})")
 
 
-def sass_loop_split(sass_text, fn_contains):
-    """Static SASS of the kernel whose name holds ``fn_contains``, on the
-    path a step takes: the step loop (the largest loop) and the largest
-    loop inside it (the candidate rounds), each by instruction class
-    (:data:`SASS_CLASSES`, the rest as 'other'), without the cold regions
-    (ranges of under 200 instructions that a forward branch skips and
-    that load a constant table: the Payne-Hanek range reduction of
-    sinf/cosf for |x| >= 105615, never taken for 2 pi u).  Returns ``{'rounds': {...}, 'step_rest': {...}}``
-    (the step loop less the rounds loop), or None."""
+def sass_instructions(sass_text, fn_contains):
+    """``(address, opcode, predicated, branch target or None)`` of every
+    instruction of the kernel whose name holds ``fn_contains``."""
     ins, fn = [], None
     for line in sass_text.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -515,6 +564,63 @@ def sass_loop_split(sass_text, fn_contains):
             ins.append((int(m.group(1), 16), m.group(3), bool(m.group(2)),
                         int(tgt.group(1), 16) if tgt and m.group(3) == "BRA"
                         else None))
+    return ins
+
+
+# K4's chunk loop: R points a thread x K components a chunk, R (K + 1)
+# exponentials (csrc/kde_logprob.cu, kKdeR and kKdeK)
+K4_R, K4_K = 2, 16
+K4_CLASSES = (("MUFU", ("MUFU",)), ("FFMA", ("FFMA",)),
+              ("FADD/FMUL/FMNMX", ("FADD", "FMUL", "FMNMX")),
+              ("LDS", ("LDS",)))
+
+
+def k4_inner_loop(sass_text, fn_contains="kde_logprob_kernelILi2E"):
+    """K4's inner loop (the innermost backward branch whose body holds a
+    MUFU) in ``cuobjdump -sass`` text, by :data:`K4_CLASSES` (the rest as
+    'other'), or None."""
+    ins = sass_instructions(sass_text, fn_contains)
+    loops = sorted(((t, a) for a, op, _, t in ins if t is not None and t <= a),
+                   key=lambda r: r[1] - r[0])
+    for lo, hi in loops:
+        body = [op for a, op, _, _ in ins if lo <= a <= hi]
+        if any(op.startswith("MUFU") for op in body):
+            out = dict.fromkeys([c for c, _ in K4_CLASSES] + ["other"], 0)
+            for op in body:
+                out[next((c for c, pre in K4_CLASSES
+                          if op.startswith(pre)), "other")] += 1
+            return out
+    return None
+
+
+def k4_sass_line(tag, text):
+    """K4's d=2 inner loop per term: its issued instructions by class over
+    the K4_R x K4_K terms one iteration computes (static counts)."""
+    split = k4_inner_loop(text or "")
+    if split is None:
+        log(f"[{tag}] K4 d=2 inner loop SASS: not measured (no cuobjdump "
+            "or no loop found)")
+        return None
+    terms = K4_R * K4_K
+    n = sum(split.values())
+    log(f"[{tag}] K4 d=2 inner loop SASS: {n} instructions for {terms} "
+        f"terms ({K4_R} points x {K4_K} components), per term "
+        f"{n / terms:.3f}: "
+        + ", ".join(f"{k} {v / terms:.3f}" for k, v in split.items())
+        + f"; besides the MUFU {(n - split['MUFU']) / terms:.3f}")
+    return split
+
+
+def sass_loop_split(sass_text, fn_contains):
+    """Static SASS of the kernel whose name holds ``fn_contains``, on the
+    path a step takes: the step loop (the largest loop) and the largest
+    loop inside it (the candidate rounds), each by instruction class
+    (:data:`SASS_CLASSES`, the rest as 'other'), without the cold regions
+    (ranges of under 200 instructions that a forward branch skips and
+    that load a constant table: the Payne-Hanek range reduction of
+    sinf/cosf for |x| >= 105615, never taken for 2 pi u).  Returns ``{'rounds': {...}, 'step_rest': {...}}``
+    (the step loop less the rounds loop), or None."""
+    ins = sass_instructions(sass_text, fn_contains)
     loops = sorted(((t, a) for a, op, _, t in ins if t is not None and t <= a),
                    key=lambda r: r[0] - r[1])
     if not loops:
@@ -632,6 +738,8 @@ def phase_build():
         text = sass_text(str(_build.lib_path(stem, prog)))
         if stem == "mixture_glmcmc":
             k1_sass_line("build", text)
+        if stem == "kde_logprob":
+            k4_sass_line("build", text)
         counts = sass_counts(None, text=text)
         if counts is None:
             log(f"[build] {name}: static SASS size: not measured (no "
@@ -1043,6 +1151,8 @@ def phase_agl_kernels_vs_plain():
                     f"{float(got[3].mean()) / T:.4f}")
                 check(share <= MAX_DIFF_SHARE, f"pool_isir_mixed d={d} "
                       f"S={S} gf={gf}: {share:.3%} of chains differ")
+                check(same, f"pool_isir_mixed d={d} S={S} gf={gf} is not "
+                      "bitwise equal to its plain version")
 
 
 _MISSING = object()
@@ -2203,23 +2313,72 @@ def agl_kernel_rows(insts, paths):
     T, B, d, C = a[2].shape
     S = a[1].pre.shape[0]
     max_abs, share = _chain_share(got, want, C)
+    same, _ = _bitwise(got, want)
     check(share <= MAX_DIFF_SHARE, f"pool_isir_mixed at the main shape: "
           f"{share:.3%} of chains differ")
+    check(same, "pool_isir_mixed at the main shape is not bitwise equal to "
+          "its plain version")
     ops, sfu = map(sum, zip(mixed_isir_ops(d, B, S), builtin_local_ops(d)))
     moved = nbytes(*a[1], *a[2:9], *(x for x in got if x is not None))
-    b = bound_ms(moved, ops * C * T, sfu * C * T)
+    b = k5_bound("K5", a, got, ops, sfu, moved)
     log(f"[K5] pool_isir_mixed at the main shape, {C:,} chains x T={T}, "
-        f"B={B}, S={S}, d={d}: max abs diff {max_abs:.3g}, share of chains "
+        f"B={B}, S={S}, d={d}, (threads a block, chains a warp) "
+        f"{kern._geometry(C, a[6].device)}: bitwise {same}, max abs diff "
+        f"{max_abs:.3g}, share of chains "
         f"differing {share:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.1f} "
-        f"ms; {moved / 1e9:.4f} GB, {ops * C * T:.4g} operations and "
-        f"{sfu * C * T:.4g} special-function operations -> bound "
-        f"{b[0]:.3f} ms ({b[1]})")
+        f"ms; {moved / 1e9:.4f} GB -> bound {b[0]:.3f} ms ({b[1]})")
     rows.append(_agl_row(
         "pool_isir_mixed", "glabc_tpu_torch/csrc/pool_isir_mixed.cu",
         "glabc_tpu/ops/pallas/pool_isir_mixed_kernel.py:190",
         "pool_isir_mixed", paths, "run_aglmcmc_gf05", max_abs, ms, plain_ms,
         b))
     return rows
+
+
+def k4_shared_epoch_line():
+    """K4 at the shape of the AGLMCMC gf=0.5 run's shared-epoch density:
+    one KDE of 1,024 support points (d = 2) over MIXED_CHAINS x 2,000 pool
+    points as one chain (C = 1), beside ``KernelDensity.log_prob`` as the
+    epoch calls it (chunks of 512 chains' points): both times and their
+    largest relative difference.  The epoch does not take K4 (the JAX
+    package computes this density with XLA, not Pallas)."""
+    import torch
+    from glabc_tpu_torch.models import KernelDensity
+    from glabc_tpu_torch.ops.kernels import (BatchedMixtureLogProb,
+                                             resident_from_kde)
+
+    P_pool, S, chunk, d = 2000, 1024, 512, 2
+    g = torch.Generator(device=DEVICE).manual_seed(12)
+    kde = KernelDensity.fit(torch.randn((S, d), generator=g, device=DEVICE)
+                            * 1.4)
+    x = torch.randn((MIXED_CHAINS, P_pool, d), generator=g,
+                    device=DEVICE) * 1.4
+    res = resident_from_kde(kde)
+    args = (x.reshape(1, -1, d), res.mu_scaled[None].contiguous(),
+            res.pre[None].contiguous(), res.inv2h[None].contiguous())
+    kern = BatchedMixtureLogProb()
+    ms = median_ms(lambda: kern.run(*args))
+    got = kern.run(*args).reshape(MIXED_CHAINS, P_pool)
+
+    def epoch_density():
+        return torch.cat([kde.log_prob(x[c0:c0 + chunk])
+                          for c0 in range(0, MIXED_CHAINS, chunk)])
+
+    epoch_density()                                      # warm
+    lp_ms, lp = timed(epoch_density, 1)
+    err = float(((got - lp).abs() / lp.abs().clamp_min(1.0)).max())
+    work = MIXED_CHAINS * P_pool * S
+    b = bound_ms(nbytes(*args) + 4 * MIXED_CHAINS * P_pool, work * kde_ops(d),
+                 work)
+    log(f"[K4-epoch] the gf=0.5 run's shared-epoch density as one K4 call, "
+        f"C=1 x N={MIXED_CHAINS * P_pool:,} points x P={S} components, d={d}: "
+        f"kernel {ms:.3f} ms (bound {b[0]:.3f} ms, {b[1]}); "
+        f"KernelDensity.log_prob in {MIXED_CHAINS // chunk} chunks of {chunk}"
+        f" x {P_pool} points {lp_ms:.1f} ms ({lp_ms / ms:.1f}x); max |diff| "
+        f"/ max(1, |log q|) {err:.3g}")
+    check(bool(torch.isfinite(got).all()) and err <= 1e-3,
+          f"K4 at the shared-epoch shape against KernelDensity.log_prob: "
+          f"{err:.3g} > 1e-3")
 
 
 def median_ms(fn):
@@ -2563,6 +2722,8 @@ def phase_generic_kernels_vs_plain():
     report("K5-program", f"ma2 S=1024 gf=0.5: {C:,} chains x {T} steps, "
            f"global share {float(got[3].mean()) / T:.4f}, local accepts "
            f"{float(got[5].sum()):.0f}", got, want, C)
+    check(_bitwise(got, want)[0], "pool_isir_mixed (program) is not bitwise "
+          "equal to its plain version")
 
 
 def phase_generic(tmp):
@@ -2880,19 +3041,21 @@ def generic_kernel_rows(insts, paths):
     T, B, d, C = a[2].shape
     S = a[1].pre.shape[0]
     max_abs, share = _chain_share(outs, refs, C)
+    same, _ = _bitwise(outs, refs)
     check(share <= MAX_DIFF_SHARE, f"pool_isir_mixed (program) at the main "
           f"shape: {share:.3%} of chains differ")
+    check(same, "pool_isir_mixed (program) at the main shape is not bitwise "
+          "equal to its plain version")
     o5, s5 = mixed_isir_ops(d, B, S)
     ol, sl = ma2_local_ops(int(kern.program.params[4]))
-    ops, sfu = (o5 + ol) * C * T, (s5 + sl) * C * T
     moved = nbytes(*a[1], *a[2:9], *(x for x in outs if x is not None))
-    b = bound_ms(moved, ops, sfu)
+    b = k5_bound("K5-program", a, got, o5 + ol, s5 + sl, moved)
     log(f"[K5-program] pool_isir_mixed (MA(2) program) at the main shape, "
-        f"{C:,} chains x T={T}, B={B}, S={S}: max abs diff {max_abs:.3g}, "
-        f"share of chains differing {share:.3g}; kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.1f} ms; {moved / 1e9:.4f} GB, {ops:.4g} operations and "
-        f"{sfu:.4g} special-function operations -> bound {b[0]:.3f} ms "
-        f"({b[1]})")
+        f"{C:,} chains x T={T}, B={B}, S={S}, (threads a block, chains a "
+        f"warp) {kern._geometry(C, a[6].device)}: bitwise {same}, "
+        f"max abs diff {max_abs:.3g}, share of chains differing "
+        f"{share:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
+        f"{moved / 1e9:.4f} GB -> bound {b[0]:.3f} ms ({b[1]})")
     rows.append(row("pool_isir_mixed (MA(2) program)",
                     "glabc_tpu_torch/csrc/pool_isir_mixed.cu",
                     "glabc_tpu/ops/pallas/pool_isir_mixed_kernel.py:213",
@@ -2946,6 +3109,7 @@ def main():
     rows = phase_kernels_line(bench, carry3, prob3, paths)
     rows += agl_kernel_rows(insts, paths)
     del insts
+    k4_shared_epoch_line()
     rows += mala_flow_kernel_rows({**mala_insts, **nf_insts}, paths)
     del mala_insts, nf_insts
     rows += flow_bf16_kernel_rows(bf16_rows, paths)

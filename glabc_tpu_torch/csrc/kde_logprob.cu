@@ -11,23 +11,42 @@
 //                - 0.5 sum_f x_f^2 inv_h2[c,f]
 //
 // with ms = mu / h^2 and pre = log(w + 1e-10) - 0.5 sum_f mu_f^2 / h_f^2
-// - sum_f log h_f - (d/2) log 2 pi, computed by the wrapper.  The terms are
-// added in the plain version's order (--fmad=false); the logsumexp is a
-// running one (max and rescaled sum) here and a two-pass one there, so the
-// two agree to float32 rounding of the sum, not to the bit.
+// - sum_f log h_f - (d/2) log 2 pi, computed by the wrapper.  pre is finite
+// (the 1e-10 stabilizer).
 //
-// What bounds it on an H100: C * N * P exponentials, each with d + 3
-// further 32-bit operations (the affine term as d multiply-adds, the
-// running max, the subtraction, the add), against 4 (C P (d+1) + C N (d+1))
-// bytes.  At the canonical 32,768 chains, N = P = 1000, d = 2 that is
-// 3.3e10 exponentials per epoch: 7.8 ms at the special-function units' 16
-// per SM per clock, about 5 ms of other operations at one per lane per
-// clock, and 0.8 ms of bytes.  The kernel is bound by its exponentials.  Its
-// design spends nothing on memory: one thread block per (chain, tile of
-// 256 points); the chain's support (pre and ms, (d+1) P floats, 12 KB at
-// P=1000, d=2) is staged in shared memory, where every thread reads the
-// same word at once (a broadcast); each thread owns one point, keeps it in
-// registers and streams the support once.
+// What bounds it on an H100 (SXM, 700 W: 132 SMs at 1.98 GHz): C N P
+// exponentials, each with d + 3 further 32-bit operations (the affine term
+// as d multiply-adds, the max, the subtraction, the add), against
+// 4 (C P (d+1) + C N (d+1)) bytes.  At the canonical 32,768 chains,
+// N = P = 1000, d = 2 that is 3.3e10 exponentials: a bound of 7.8 ms at the
+// special-function units' 16 per SM per clock, against about 5 ms of other
+// operations at one per lane per clock and 0.8 ms of bytes.  So the kernel
+// keeps every other instruction of a term under the 8 issue cycles one
+// warp's exponential takes on its scheduler's MUFU unit:
+//
+// - the work is done in the log2 domain: pre and ms are scaled by log2(e)
+//   as they are staged into shared memory, a term is d __fmaf_rn, and its
+//   exponential is one ex2.approx.ftz.f32 (one MUFU.EX2) of (term - max);
+//   the result is (max ln 2 + logf(sum)) - 0.5 q2.  So the kernel is not
+//   bitwise with its plain version (it never was: its logsumexp is a
+//   running one); chip_smoke.py holds it to 1e-4 max(1, |log q|);
+// - the logsumexp is branch-free: a chunk of K = 16 components is computed
+//   into registers for each of the thread's R = 2 points, the chunk max is
+//   folded into the running max and the running sum rescaled once a chunk
+//   (1 + 1/K exponentials a term), then the K exponentials are added with
+//   no compare;
+// - a block owns R * 256 points of one chain (two blocks per chain at
+//   N = 1000), each thread R of them, so the support is staged once per
+//   block and each shared-memory read feeds R terms; a component is one
+//   16-byte row (pre, ms_0, ms_1, ms_2) for d <= 3, read by one broadcast
+//   LDS.128 (wider d: d + 1 floats a row, zero-padded to the template
+//   width); shared memory is sized to P (rows in chunks of at most 48 KB
+//   when P does not fit, rows past P padded with pre = -inf).
+// On an NVIDIA H100 80GB HBM3 at 700 W the inner loop issues 5.8
+// instructions a term besides 1.06 MUFU (cuobjdump -sass, printed by
+// chip_smoke.py's k4_sass_line), and the main shape takes 10.8 ms, 78 % of
+// the MUFU rate a microbenchmark reaches on the same card (PERF.md).  R = 4,
+// K = 8 (one block per chain) took 11.2 ms.
 
 #include <cuda_runtime.h>
 
@@ -38,7 +57,14 @@
 namespace glabc {
 
 constexpr int kKdeThreads = 256;
-constexpr int kKdeSmemFloats = 12 * 1024;   // 48 KB of staged support
+constexpr int kKdeR = 2;                    // points per thread
+constexpr int kKdeK = 16;                   // components per chunk
+constexpr int kKdeSmemFloats = 12 * 1024;   // at most 48 KB of staged rows
+constexpr float kLog2e = 1.44269504088896340736f;
+constexpr float kLn2 = 0.69314718055994530942f;
+
+// floats per staged component: (pre, ms_0 .. ms_{D-1}), 4 for D <= 3
+__host__ __device__ constexpr int kde_row(int D) { return D <= 3 ? 4 : D + 1; }
 
 struct KdeArgs {
   const float* x;       // (C, N, d)
@@ -46,61 +72,128 @@ struct KdeArgs {
   const float* pre;     // (C, P)
   const float* inv_h2;  // (C, d)
   float* out;           // (C, N)
-  int C, N, P, d, tile, tiles_n;
+  int C, N, P, d, rows, tiles_n;
 };
 
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 template <int D>
-__global__ void kde_logprob_kernel(KdeArgs a) {
-  __shared__ float smem[kKdeSmemFloats];
+__global__ void __launch_bounds__(kKdeThreads)
+kde_logprob_kernel(KdeArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int W = kde_row(D);
+  constexpr int kTile = kKdeR * kKdeThreads;
   const int d = a.d;
   const int c = blockIdx.x / a.tiles_n;
-  const int n = (blockIdx.x - c * a.tiles_n) * blockDim.x + threadIdx.x;
-  const bool live = n < a.N;
-  float xv[D];
+  const int n0 = (blockIdx.x - c * a.tiles_n) * kTile + threadIdx.x;
+  // the thread's points, zero past d and past N (those lanes compute and
+  // do not write)
+  float xv[kKdeR][D];
 #pragma unroll
-  for (int f = 0; f < D; ++f) {
-    if (f < d) {
-      xv[f] = live ? a.x[(static_cast<size_t>(c) * a.N + n) * d + f] : 0.0f;
+  for (int r = 0; r < kKdeR; ++r) {
+    const int n = n0 + r * kKdeThreads;
+#pragma unroll
+    for (int f = 0; f < D; ++f) {
+      xv[r][f] = (f < d && n < a.N)
+                     ? a.x[(static_cast<size_t>(c) * a.N + n) * d + f]
+                     : 0.0f;
     }
   }
-  float m = -INFINITY;
-  float s = 0.0f;
-  float* spre = smem;
-  float* sms = smem + a.tile;
-  const size_t base = static_cast<size_t>(c) * a.P;
-  for (int p0 = 0; p0 < a.P; p0 += a.tile) {
-    const int np = min(a.tile, a.P - p0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < np; i += blockDim.x) {
-      spre[i] = a.pre[base + p0 + i];
-    }
-    for (int k = threadIdx.x; k < np * d; k += blockDim.x) {
-      sms[k] = a.ms[(base + p0) * d + k];
-    }
-    __syncthreads();
-    if (live) {
-      for (int i = 0; i < np; ++i) {
-        float lw = spre[i];
+  float m[kKdeR], s[kKdeR];
 #pragma unroll
-        for (int f = 0; f < D; ++f) {
-          if (f < d) lw = lw + xv[f] * sms[i * d + f];
-        }
-        if (lw > m) {
-          s = s * expf(m - lw) + 1.0f;
-          m = lw;
+  for (int r = 0; r < kKdeR; ++r) {
+    m[r] = -INFINITY;
+    s[r] = 0.0f;
+  }
+  const size_t base = static_cast<size_t>(c) * a.P;
+  for (int p0 = 0; p0 < a.P; p0 += a.rows) {
+    const int np = min(a.rows, a.P - p0);
+    const int npad = (np + kKdeK - 1) / kKdeK * kKdeK;
+    __syncthreads();
+    for (int k = threadIdx.x; k < npad * W; k += kKdeThreads) {
+      const int i = k / W, f = k - i * W;
+      float v = 0.0f;
+      if (i >= np) {
+        v = f == 0 ? -INFINITY : 0.0f;
+      } else if (f == 0) {
+        v = a.pre[base + p0 + i] * kLog2e;
+      } else if (f <= d) {
+        v = a.ms[(base + p0 + i) * d + (f - 1)] * kLog2e;
+      }
+      smem[k] = v;
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int i0 = 0; i0 < npad; i0 += kKdeK) {
+      float t[kKdeR][kKdeK];
+#pragma unroll
+      for (int k = 0; k < kKdeK; ++k) {
+        float w[W];
+        const float* row = smem + (i0 + k) * W;
+        if constexpr (W == 4) {
+          const float4 v = *reinterpret_cast<const float4*>(row);
+          w[0] = v.x;
+          w[1] = v.y;
+          w[2] = v.z;
+          w[3] = v.w;
         } else {
-          s = s + expf(lw - m);
+#pragma unroll
+          for (int f = 0; f < W; ++f) w[f] = row[f];
         }
+#pragma unroll
+        for (int r = 0; r < kKdeR; ++r) {
+          float acc = w[0];
+#pragma unroll
+          for (int f = 0; f < D; ++f) acc = __fmaf_rn(xv[r][f], w[1 + f], acc);
+          t[r][k] = acc;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kKdeR; ++r) {
+        float mx = t[r][0];
+#pragma unroll
+        for (int k = 1; k < kKdeK; ++k) mx = fmaxf(mx, t[r][k]);
+        const float mn = fmaxf(m[r], mx);
+        float acc = s[r] * ex2_approx(m[r] - mn);
+#pragma unroll
+        for (int k = 0; k < kKdeK; ++k) acc = acc + ex2_approx(t[r][k] - mn);
+        s[r] = acc;
+        m[r] = mn;
       }
     }
   }
-  if (!live) return;
-  float q2 = 0.0f;
 #pragma unroll
-  for (int f = 0; f < D; ++f) {
-    if (f < d) q2 = q2 + (xv[f] * xv[f]) * a.inv_h2[static_cast<size_t>(c) * d + f];
+  for (int r = 0; r < kKdeR; ++r) {
+    const int n = n0 + r * kKdeThreads;
+    if (n >= a.N) continue;
+    float q2 = 0.0f;
+#pragma unroll
+    for (int f = 0; f < D; ++f) {
+      if (f < d) {
+        q2 = q2 + (xv[r][f] * xv[r][f]) *
+                      a.inv_h2[static_cast<size_t>(c) * d + f];
+      }
+    }
+    a.out[static_cast<size_t>(c) * a.N + n] =
+        (m[r] * kLn2 + logf(s[r])) - 0.5f * q2;
   }
-  a.out[static_cast<size_t>(c) * a.N + n] = (m + logf(s)) - 0.5f * q2;
+}
+
+template <int D>
+int launch_kde(KdeArgs a, cudaStream_t s) {
+  constexpr int W = kde_row(D);
+  constexpr int cap = kKdeSmemFloats / W / kKdeK * kKdeK;
+  a.rows = min((a.P + kKdeK - 1) / kKdeK * kKdeK, cap);
+  const int tile = kKdeR * kKdeThreads;
+  a.tiles_n = (a.N + tile - 1) / tile;
+  const dim3 grid(static_cast<unsigned>(a.C) * a.tiles_n);
+  const size_t smem = static_cast<size_t>(a.rows) * W * sizeof(float);
+  kde_logprob_kernel<D><<<grid, kKdeThreads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace glabc
@@ -111,25 +204,14 @@ extern "C" int glabc_kde_logprob(const float* x, const float* ms,
                                  void* stream) {
   using namespace glabc;
   if (d < 1 || d > 32 || P < 1) return -1;
-  const int tile = kKdeSmemFloats / (d + 1);
-  const int tiles_n = (N + kKdeThreads - 1) / kKdeThreads;
-  KdeArgs a{x, ms, pre, inv_h2, out, C, N, P, d, tile, tiles_n};
-  const dim3 grid(static_cast<unsigned>(C) * tiles_n);
+  if (C == 0 || N == 0) return 0;
+  KdeArgs a{x, ms, pre, inv_h2, out, C, N, P, d, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 1) {
-    kde_logprob_kernel<1><<<grid, kKdeThreads, 0, s>>>(a);
-  } else if (d <= 2) {
-    kde_logprob_kernel<2><<<grid, kKdeThreads, 0, s>>>(a);
-  } else if (d <= 3) {
-    kde_logprob_kernel<3><<<grid, kKdeThreads, 0, s>>>(a);
-  } else if (d <= 4) {
-    kde_logprob_kernel<4><<<grid, kKdeThreads, 0, s>>>(a);
-  } else if (d <= 8) {
-    kde_logprob_kernel<8><<<grid, kKdeThreads, 0, s>>>(a);
-  } else if (d <= 16) {
-    kde_logprob_kernel<16><<<grid, kKdeThreads, 0, s>>>(a);
-  } else {
-    kde_logprob_kernel<32><<<grid, kKdeThreads, 0, s>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (d <= 1) return launch_kde<1>(a, s);
+  if (d <= 2) return launch_kde<2>(a, s);
+  if (d <= 3) return launch_kde<3>(a, s);
+  if (d <= 4) return launch_kde<4>(a, s);
+  if (d <= 8) return launch_kde<8>(a, s);
+  if (d <= 16) return launch_kde<16>(a, s);
+  return launch_kde<32>(a, s);
 }

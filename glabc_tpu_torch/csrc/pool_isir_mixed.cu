@@ -12,16 +12,15 @@
 // rows (Y of them) change.  The plain torch version is
 // glabc_tpu_torch/ops/kernels/pool_isir_mixed_kernel.py (draw_mixed_noise +
 // mixed_transition, or program_transition); the float operations below are
-// in its order and the library is built with --fmad=false, except the order
-// of the sum in step 1.
+// in its order and the library is built with --fmad=false.
 //
 // Per step, in the TPU kernel's order:
 //   1. log q(theta) of the current state under the resident shared mixture
-//      (S components: mu / h^2, pre, 1/h^2), a logsumexp over S: the max,
-//      then the float32 sum of exp(sc - m), as the plain version computes
-//      it.  The two sum in different orders, so they differ by float32
-//      rounding of the sum: a chain whose iSIR decision sits at that
-//      rounding can go either way;
+//      (S components: mu / h^2, pre, 1/h^2), a logsumexp over S, and the
+//      prior of theta: carried in registers, and recomputed only at the
+//      launch's first step and after a step in which the chain moved (the
+//      mixture is fixed for the launch, so both are functions of theta
+//      alone and an unmoved chain's are the last step's to the bit);
 //   2. logw_cur = prior(theta) + log K - log q;
 //   3. iSIR over pool slice t by a Gumbel-argmax over B + 1 log-weights
 //      (slot B is the current state; strict > keeps the earlier on ties),
@@ -32,17 +31,45 @@
 //      simulate, log_kernel and log alpha = prior_diff_lp + log K' - log K;
 //   5. the coin u < gf, then the three counters and the history row.
 //
-// What bounds it on an H100: per chain-step the resident logsumexp needs S
-// exponentials and S (d + 3) other operations (the affine term, the max,
-// the subtraction, the add; the second pass repeats the affine term and
-// adds 2 d + 1 more); the pool costs 2 B d + 2 B floats read and d
-// written.  At S = 1024, d = 2, B = 5 that is 1024 exponentials against 68
-// bytes: the kernel is bound by the special-function units' exponentials.
-// So the mixture (S (d+1) + 2d floats, 12 KB at S = 1024) is staged in
-// shared memory once per block, where all threads of a warp read the same
-// word (a broadcast), and the chain's state stays in registers for the
-// whole launch; chains are the fastest axis of every array, so pool loads
-// and history stores coalesce.
+// The resident logsumexp is warp-cooperative: the lanes that need it are
+// taken from a __ballot_sync one at a time (__ffs); the owner's theta is
+// broadcast by __shfl_sync, lane l takes components l, l + 32, l + 64, ...
+// (the max, combined by an xor butterfly, then its float32 sum of
+// expf(sc - max) in that order), and the 32 partial sums are combined by
+// an xor butterfly (offsets 16, 8, 4, 2, 1).  The plain version
+// (resident_log_q) sums in exactly this order, so with the accurate expf
+// and --fmad=false the kernel is bitwise equal to it.  Lanes without a
+// chain (past C, or past the warp's chain count) stay in their warp as
+// inert lanes (loads clamped to chain C - 1, no stores), so every shuffle
+// has its whole warp.
+//
+// What bounds it on an H100: the resident logsumexp costs S exponentials
+// and S (d + 3) other operations, but only on the chain-steps that follow
+// a move (2.5 % at the AGLMCMC gf=0.5 entry run's acceptance, 0.8 lanes a
+// warp-step; 44 % on the MA(2) program's run); the rest of a step is its
+// Philox blocks, Gumbels, the local move and B (d + yd + 2) floats of pool
+// read (30 at d = yd = 2, B = 5).  With one chain per thread the
+// launch is latency-bound: a few warps per SM, each waiting on its loads,
+// shuffles and exponentials in turn.  So:
+// - a warp takes 32 chains, or 16 when 32 would leave one of the card's
+//   schedulers without a warp (the wrapper's choice; the inert upper half
+//   still shares the resident densities): 8,192 chains run as 512 warps;
+// - the block size comes from the chain count, so that every SM gets work;
+// - the step's pool slice is loaded into registers at the top of the step,
+//   so its loads are in flight while the Philox blocks and the density
+//   run, where a load per slot in the iSIR loop waited on memory B times;
+// - the density's strided loops are unrolled by 8: a lane's loads, affine
+//   terms and exponentials overlap while its sum still adds them in order;
+// - the mixture (one 16-byte row (mu_scaled_0..2, pre) a component for
+//   d <= 3, so the strided lanes read distinct rows; (mu_0..mu_{d-1}, pre)
+//   for wider d) is staged in shared memory once per block, and the
+//   chain's state stays in registers for the whole launch; chains are the
+//   fastest axis of every array, so pool loads and history stores
+//   coalesce.
+// On an NVIDIA H100 80GB HBM3 at 700 W the gf=0.5 entry run's launch
+// (16,384 chains x 400 steps, S = 1024) takes 1.55 ms where the per-thread
+// two-pass logsumexp at every step took 18.3 ms, and the MA(2) program's
+// (8,192 x 400) 9.8 ms where it took 26.1 ms (PERF.md).
 //
 // Random numbers: counter (chain, step0 + t, block, 0).  Scalar slots
 // (lane s % 4 of block s / 4): Gumbels 0..B, u_local B+1, u_coin B+2; then
@@ -84,6 +111,7 @@ struct MixedArgs {
   float prior_loc, inv_prior_scale, c_prior, lp_scale, sigma, c_kern, a_kern,
       gf;
   uint32_t key0, key1, step0;
+  int lanes;             // chains per warp (lanes past it are inert)
 };
 
 struct Scalars {
@@ -184,43 +212,139 @@ struct ProgramLocal {
 };
 #endif
 
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// floats per staged mixture component: (mu_0 .. mu_{d-1}, pre), 4 for d <= 3
+__host__ __device__ constexpr int mix_row(int d) { return d <= 3 ? 4 : d + 1; }
+
+// logf(sum) + max of the resident logsumexp at theta tv, by the whole warp:
+// lane l takes components l, l + 32, ...; every lane returns the same value.
+template <int D>
+__device__ __forceinline__ float warp_resident_lse(const float* s_rows, int S,
+                                                  int d, const float (&tv)[D],
+                                                  int lane) {
+  const int W = mix_row(d);
+  auto score = [&](int i) {
+    const float* row = s_rows + i * W;
+    float mu[D];
+    float pre;
+    if constexpr (D <= 3) {
+      const float4 v = *reinterpret_cast<const float4*>(row);
+      const float r4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int f = 0; f < D; ++f) mu[f] = r4[f];
+      pre = v.w;
+    } else {
+#pragma unroll
+      for (int f = 0; f < D; ++f) mu[f] = f < d ? row[f] : 0.0f;
+      pre = row[d];
+    }
+    float dot = 0.0f;
+#pragma unroll
+    for (int f = 0; f < D; ++f) {
+      if (f < d) {
+        const float p = mu[f] * tv[f];
+        dot = (f == 0) ? p : dot + p;
+      }
+    }
+    return dot + pre;
+  };
+  // unrolled: a lane's loads, affine terms and exponentials of several
+  // components are in flight at once; its sum still adds them in order
+  float m = -1.0e30f;
+#pragma unroll 8
+  for (int i = lane; i < S; i += 32) m = fmaxf(m, score(i));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(kFullMask, m, off));
+  float sum = 0.0f;
+#pragma unroll 8
+  for (int i = lane; i < S; i += 32) sum = sum + expf(score(i) - m);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sum = sum + __shfl_xor_sync(kFullMask, sum, off);
+  return logf(sum) + m;
+}
+
+constexpr int kMaxB = 7;
+
+// One step's pool slice of one chain (B <= kMaxB slots) in registers.
+template <int D, int YD>
+struct PoolSlice {
+  float lw[kMaxB], lk[kMaxB], th[kMaxB][D], x[kMaxB][YD];
+
+  __device__ __forceinline__ void load(const MixedArgs& a, int t, int cl) {
+    const size_t C = static_cast<size_t>(a.C);
+#pragma unroll
+    for (int j = 0; j < kMaxB; ++j) {
+      if (j < a.B) {
+        const size_t slot = static_cast<size_t>(t) * a.B + j;
+        lw[j] = a.plogw[slot * C + cl];
+        lk[j] = a.plogk[slot * C + cl];
+#pragma unroll
+        for (int f = 0; f < D; ++f) {
+          if (f < a.d) th[j][f] = a.ptheta[(slot * a.d + f) * C + cl];
+        }
+#pragma unroll
+        for (int f = 0; f < YD; ++f) {
+          if (f < a.yd) x[j][f] = a.px[(slot * a.yd + f) * C + cl];
+        }
+      }
+    }
+  }
+};
+
 // D, YD: register capacity of theta and y (a.d <= D, a.yd <= YD live).
-template <int D, int YD, class Local>
-__global__ void pool_isir_mixed_kernel(MixedArgs a) {
-  extern __shared__ float smem[];
+// MaxThreads: the block size the registers are budgeted for (256, or 1024
+// for larger blocks).
+template <int D, int YD, class Local, int MaxThreads>
+__global__ void __launch_bounds__(MaxThreads)
+pool_isir_mixed_kernel(MixedArgs a) {
+  extern __shared__ __align__(16) float smem[];
   const int d = a.d, yd = a.yd;
-  float* s_mu = smem;                       // S * d
-  float* s_pre = smem + a.S * d;            // S
-  float* s_inv2h = s_pre + a.S;             // d
+  const int W = mix_row(d);
+  float* s_rows = smem;                     // S * W
+  float* s_inv2h = smem + a.S * W;          // d
   float* s_yobs = s_inv2h + d;              // d
-  for (int k = threadIdx.x; k < a.S * d; k += blockDim.x) s_mu[k] = a.mu[k];
-  for (int k = threadIdx.x; k < a.S; k += blockDim.x) s_pre[k] = a.pre[k];
+  for (int k = threadIdx.x; k < a.S * W; k += blockDim.x) {
+    const int i = k / W, f = k - i * W;
+    s_rows[k] = f < d ? a.mu[i * d + f] : (f == W - 1 ? a.pre[i] : 0.0f);
+  }
   for (int k = threadIdx.x; k < d; k += blockDim.x) {
     s_inv2h[k] = a.inv2h[k];
     s_yobs[k] = a.y_obs ? a.y_obs[k] : 0.0f;
   }
   __syncthreads();
 
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= a.C) return;
+  const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int c = warp * a.lanes + lane;
+  const bool live = lane < a.lanes && c < a.C;
+  const int cl = live ? c : a.C - 1;        // an inert lane reads chain C - 1
   const size_t C = static_cast<size_t>(a.C);
   float th[D], yv[YD], cth[D], cy[YD];
 #pragma unroll
   for (int j = 0; j < D; ++j) {
-    if (j < d) th[j] = a.theta_in[j * C + c];
+    if (j < d) th[j] = a.theta_in[j * C + cl];
   }
 #pragma unroll
   for (int j = 0; j < YD; ++j) {
-    if (j < yd) yv[j] = a.y_in[j * C + c];
+    if (j < yd) yv[j] = a.y_in[j * C + cl];
   }
-  float logk = a.logk_in[c];
+  float logk = a.logk_in[cl];
   float gatt = 0.0f, gacc = 0.0f, lacc = 0.0f;
   const uint32_t chain = static_cast<uint32_t>(c);
   const int n_scalar_blocks = (a.B + 3 + 3) / 4;
   const int B = a.B;
+  bool dirty = live;       // log q and the prior of theta need computing
+  float logq = 0.0f, lp_theta = 0.0f;
 
   for (int t = 0; t < a.T; ++t) {
     const uint32_t step = a.step0 + static_cast<uint32_t>(t);
+    // the step's pool slice, loaded at the top of the step: its loads are
+    // in flight while the Philox blocks and the resident density run
+    PoolSlice<D, YD> cur;
+    cur.load(a, t, cl);
     Scalars sc;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -231,46 +355,34 @@ __global__ void pool_isir_mixed_kernel(MixedArgs a) {
                     : make_uint4(0u, 0u, 0u, 0u);
     }
 
-    // ---- 1. resident proposal density at the current state, in two
-    // passes over the S components: the max, then the float32 sum of
-    // exp(sc - m).  The second pass recomputes the affine term: with one
-    // chain per thread there is about one warp per scheduler, and a
-    // one-pass running logsumexp, whose exponentials wait on the running
-    // max, ran slower on an H100 than these two independent loops.
-    float m = -1.0e30f;
-    for (int i = 0; i < a.S; ++i) {
-      float dot = 0.0f;
+    // ---- 1. resident proposal density and prior at the current state,
+    // for the lanes whose state moved (all at t = 0), one lane at a time
+    // by the whole warp
+    unsigned need = __ballot_sync(kFullMask, dirty);
+    float lse = 0.0f;
+    while (need) {
+      const int src = __ffs(need) - 1;
+      need &= need - 1;
+      float tv[D];
+#pragma unroll
+      for (int f = 0; f < D; ++f) {
+        if (f < d) tv[f] = __shfl_sync(kFullMask, th[f], src);
+      }
+      const float v = warp_resident_lse<D>(s_rows, a.S, d, tv, lane);
+      if (lane == src) lse = v;
+    }
+    if (dirty) {
+      float q2 = 0.0f;
 #pragma unroll
       for (int f = 0; f < D; ++f) {
         if (f < d) {
-          const float p = s_mu[i * d + f] * th[f];
-          dot = (f == 0) ? p : dot + p;
+          const float p = (th[f] * th[f]) * s_inv2h[f];
+          q2 = (f == 0) ? p : q2 + p;
         }
       }
-      m = fmaxf(m, dot + s_pre[i]);
+      logq = lse - 0.5f * q2;
+      lp_theta = Local::template prior<D>(a, th, d);
     }
-    float sum = 0.0f;
-    for (int i = 0; i < a.S; ++i) {
-      float dot = 0.0f;
-#pragma unroll
-      for (int f = 0; f < D; ++f) {
-        if (f < d) {
-          const float p = s_mu[i * d + f] * th[f];
-          dot = (f == 0) ? p : dot + p;
-        }
-      }
-      sum = sum + expf((dot + s_pre[i]) - m);
-    }
-    float q2 = 0.0f;
-#pragma unroll
-    for (int f = 0; f < D; ++f) {
-      if (f < d) {
-        const float p = (th[f] * th[f]) * s_inv2h[f];
-        q2 = (f == 0) ? p : q2 + p;
-      }
-    }
-    const float logq = (logf(sum) + m) - 0.5f * q2;
-    const float lp_theta = Local::template prior<D>(a, th, d);
     const float logw_cur = (lp_theta + logk) - logq;
 
     // ---- 2. global: iSIR over pool slice t
@@ -286,17 +398,17 @@ __global__ void pool_isir_mixed_kernel(MixedArgs a) {
     }
     float blogk = logk;
     bool bmoved = false;
-    for (int j = 0; j < B; ++j) {
-      const size_t slot = static_cast<size_t>(t) * B + j;
-      const float lw = a.plogw[slot * C + c];
-      const float lk = a.plogk[slot * C + c];
+#pragma unroll
+    for (int j = 0; j < kMaxB; ++j) {
+      if (j >= B) break;
+      const float lw = cur.lw[j], lk = cur.lk[j];
 #pragma unroll
       for (int f = 0; f < D; ++f) {
-        if (f < d) cth[f] = a.ptheta[(slot * d + f) * C + c];
+        if (f < d) cth[f] = cur.th[j][f];
       }
 #pragma unroll
       for (int f = 0; f < YD; ++f) {
-        if (f < yd) cy[f] = a.px[(slot * yd + f) * C + c];
+        if (f < yd) cy[f] = cur.x[j][f];
       }
       const float score = lw + gumbel_from_uniform(sc.u(j));
       if (score > best) {
@@ -344,10 +456,11 @@ __global__ void pool_isir_mixed_kernel(MixedArgs a) {
       }
       logk = lkl;
     }
+    dirty = live && (is_g ? bmoved : l_acc);
     gatt += is_g ? 1.0f : 0.0f;
     gacc += (is_g && bmoved) ? 1.0f : 0.0f;
     lacc += (!is_g && l_acc) ? 1.0f : 0.0f;
-    if (a.collect) {
+    if (a.collect && live) {
       float* h = a.hist + static_cast<size_t>(t) * d * C + c;
 #pragma unroll
       for (int f = 0; f < D; ++f) {
@@ -355,6 +468,7 @@ __global__ void pool_isir_mixed_kernel(MixedArgs a) {
       }
     }
   }
+  if (!live) return;
 #pragma unroll
   for (int f = 0; f < D; ++f) {
     if (f < d) a.theta_out[f * C + c] = th[f];
@@ -369,19 +483,33 @@ __global__ void pool_isir_mixed_kernel(MixedArgs a) {
   a.lacc[c] = lacc;
 }
 
-template <int D, int YD, class Local>
-int launch_mixed(const MixedArgs& a, int threads, cudaStream_t s) {
-  const size_t smem = (static_cast<size_t>(a.S) * (a.d + 1) + 2 * a.d) *
-                      sizeof(float);
+template <int D, int YD, class Local, int MaxThreads>
+int launch_mixed_at(const MixedArgs& a, int threads, size_t smem,
+                    cudaStream_t s) {
+  auto kernel = pool_isir_mixed_kernel<D, YD, Local, MaxThreads>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        pool_isir_mixed_kernel<D, YD, Local>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid((a.C + threads - 1) / threads);
-  pool_isir_mixed_kernel<D, YD, Local><<<grid, threads, smem, s>>>(a);
+  const long long warps = (a.C + a.lanes - 1) / a.lanes;
+  const dim3 grid(static_cast<unsigned>((warps * 32 + threads - 1) / threads));
+  kernel<<<grid, threads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int YD, class Local>
+int launch_mixed(const MixedArgs& a, int threads, cudaStream_t s) {
+  if (threads < 32 || threads > 1024 || threads % 32 || a.lanes < 1 ||
+      a.lanes > 32)
+    return -1;
+  if (a.C == 0) return 0;
+  const size_t smem =
+      (static_cast<size_t>(a.S) * mix_row(a.d) + 2 * a.d) * sizeof(float);
+  if (threads <= 256)
+    return launch_mixed_at<D, YD, Local, 256>(a, threads, smem, s);
+  return launch_mixed_at<D, YD, Local, 1024>(a, threads, smem, s);
 }
 
 template <int D>
@@ -400,16 +528,16 @@ extern "C" int glabc_pool_isir_mixed(
     int B, int S, int collect, float prior_loc, float inv_prior_scale,
     float c_prior, float lp_scale, float sigma, float c_kern, float a_kern,
     float gf, unsigned int key0, unsigned int key1, unsigned int step0,
-    int threads, void* stream) {
+    int threads, int lanes, void* stream) {
   using namespace glabc;
-  if (d < 1 || d > 32 || B < 1 || B > 7 || S < 1) return -1;
+  if (d < 1 || d > 32 || B < 1 || B > kMaxB || S < 1) return -1;
   MixedArgs a{mu,        pre,      inv2h,    y_obs,    nullptr,  ptheta,
               px,        plogw,    plogk,    theta_in, y_in,     logk_in,
               theta_out, y_out,    logk_out, gatt,     gacc,     lacc,
               hist,      d,        d,        C,        T,        B,
               S,         collect,  0,        0,        prior_loc,
               inv_prior_scale,     c_prior,  lp_scale, sigma,    c_kern,
-              a_kern,    gf,       key0,     key1,     step0};
+              a_kern,    gf,       key0,     key1,     step0,    lanes};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 1) return launch_builtin<1>(a, threads, s);
   if (d <= 2) return launch_builtin<2>(a, threads, s);
@@ -429,9 +557,10 @@ extern "C" int glabc_pool_isir_mixed_program(
     float* gatt, float* gacc, float* lacc, float* hist, int d, int y_rows,
     int C, int T, int B, int S, int collect, int local_blocks, int paired,
     float gf, unsigned int key0, unsigned int key1, unsigned int step0,
-    int threads, void* stream) {
+    int threads, int lanes, void* stream) {
   using namespace glabc;
-  if (d != Program::D || y_rows != Program::Y || B < 1 || B > 7 || S < 1)
+  if (d != Program::D || y_rows != Program::Y || B < 1 || B > kMaxB ||
+      S < 1)
     return -1;
   MixedArgs a{mu,        pre,      inv2h,    nullptr,  prog,     ptheta,
               px,        plogw,    plogk,    theta_in, y_in,     logk_in,
@@ -439,7 +568,7 @@ extern "C" int glabc_pool_isir_mixed_program(
               hist,      d,        y_rows,   C,        T,        B,
               S,         collect,  local_blocks, paired, 0.0f,
               0.0f,      0.0f,     0.0f,     0.0f,     0.0f,
-              0.0f,      gf,       key0,     key1,     step0};
+              0.0f,      gf,       key0,     key1,     step0,    lanes};
   return launch_mixed<Program::D, Program::Y, ProgramLocal>(
       a, threads, static_cast<cudaStream_t>(stream));
 }

@@ -63,7 +63,7 @@ SOURCES = {
     },
     "pool_isir_mixed": {
         "glabc_pool_isir_mixed": [_P] * 18 + [_I] * 6 + [_F] * 8
-        + [_U] * 3 + [_I, _P],
+        + [_U] * 3 + [_I, _I, _P],
     },
     "glmala": {
         "glabc_glmala": [_P] * 15 + [_I] * 7 + [_F] * 18 + [_U] * 3
@@ -92,7 +92,7 @@ PROGRAM_SOURCES = {
     },
     "pool_isir_mixed": {
         "glabc_pool_isir_mixed_program": [_P] * 18 + [_I] * 9 + [_F]
-        + [_U] * 3 + [_I, _P],
+        + [_U] * 3 + [_I, _I, _P],
     },
 }
 

@@ -10,7 +10,8 @@ step a per-chain coin picks
 * global: iSIR over pool slice ``t``.  The current state may have arrived
   by a local move, so its log-weight is recomputed: its density under the
   resident shared mixture (the epoch's shared KDE, or the initial Gaussian
-  proposal before the first epoch), a logsumexp over its S components;
+  proposal before the first epoch), a logsumexp over its S components
+  (the kernel carries it, with the prior, while the chain does not move);
 * local: the Mixture-family random-walk MH move (``y = |theta| + sigma z``,
   Gaussian epsilon-kernel), the arithmetic of ``mixture_kernel.transition``;
   or, with ``program=``, a tile program's move (``sample_local``,
@@ -39,13 +40,14 @@ from .mixture_kernel import MixtureConfig, _gauss_lp, _kern_lp, _sum_dims
 from .philox import gumbel, normal_pair, philox4x32, seed_key, uniform_from_bits
 from .program import TileProgram
 
-__all__ = ["PoolISIRMixed", "ResidentProposal", "resident_from_gaussian",
-           "resident_from_kde", "resident_log_q", "MixedNoise",
-           "draw_mixed_noise", "mixed_transition", "program_transition",
-           "run_plain"]
+__all__ = ["PoolISIRMixed", "ResidentProposal", "default_launch",
+           "resident_from_gaussian", "resident_from_kde", "resident_log_q",
+           "MixedNoise", "draw_mixed_noise", "mixed_transition",
+           "program_transition", "run_plain"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _NEG = -1.0e30
+_LANES = 32          # the warp the kernel sums a resident density over
 
 
 class ResidentProposal(NamedTuple):
@@ -91,10 +93,14 @@ def resident_from_kde(kde) -> ResidentProposal:
 
 
 def resident_log_q(res: ResidentProposal, theta: torch.Tensor) -> torch.Tensor:
-    """``log q`` of ``theta (C, d)`` as the kernel computes it: the affine
-    terms left to right, the max over components (floored at -1e30), then
-    the float32 sum of ``exp(sc - m)``.  The kernel sums in another order,
-    so the two agree to float32 rounding of the sum."""
+    """``log q`` of ``theta (C, d)`` as the kernel's warp computes it: the
+    affine terms left to right; component ``i`` belongs to lane ``i % 32``;
+    the max over components (floored at -1e30); each lane's float32 sum of
+    ``exp(sc - m)`` over its components in rising order; then the lanes'
+    sums combined by an xor butterfly, ``p = p + p[lane ^ off]`` for off =
+    16, 8, 4, 2, 1 (every lane ends with the same value).  S is padded to a
+    multiple of 32 with terms that add exactly 0.0.  Bitwise equal to the
+    kernel on the card."""
     d = theta.shape[1]
     dot = None
     for f in range(d):
@@ -102,9 +108,20 @@ def resident_log_q(res: ResidentProposal, theta: torch.Tensor) -> torch.Tensor:
         dot = p if dot is None else dot + p
     sc = dot + res.pre[None, :]                                    # (C, S)
     m = torch.clamp_min(torch.amax(sc, dim=-1), _NEG)
-    s = torch.sum(torch.exp(sc - m[:, None]), dim=-1)
+    e = torch.exp(sc - m[:, None])
+    C, S = e.shape
+    pad = -S % _LANES
+    if pad:
+        e = torch.cat([e, e.new_zeros((C, pad))], dim=1)
+    e = e.reshape(C, -1, _LANES)                     # (C, S / 32, lane)
+    s = e[:, 0]
+    for k in range(1, e.shape[1]):
+        s = s + e[:, k]
+    idx = torch.arange(_LANES, device=s.device)
+    for off in (16, 8, 4, 2, 1):
+        s = s + s[:, idx ^ off]
     q2 = _sum_dims((theta * theta) * res.inv2h)
-    return (torch.log(s) + m) - 0.5 * q2
+    return (torch.log(s[:, 0]) + m) - 0.5 * q2
 
 
 class MixedNoise(NamedTuple):
@@ -231,9 +248,11 @@ def run_plain(res: ResidentProposal, ptheta, px, plogw, plogk, theta, y,
               logk, cfg: MixtureConfig, noise: Callable[[int], MixedNoise],
               collect_history: bool = True, program=None):
     """The launch's T steps on explicit noise, in the kernel's layouts; the
-    results of :meth:`PoolISIRMixed.run` up to the float32 rounding of the
-    resident logsumexp.  ``noise(t)``: a :class:`MixedNoise`, or with a
-    ``program`` ``(u (C, B + 3), draws(first, paired))``."""
+    results of :meth:`PoolISIRMixed.run` bit for bit.  Every step
+    recomputes the current state's resident density, where the kernel
+    carries it while the chain stays: the value is the same.  ``noise(t)``:
+    a :class:`MixedNoise`, or with a ``program`` ``(u (C, B + 3),
+    draws(first, paired))``."""
     T = plogw.shape[0]
     transposed = program is None
     state = (theta.T, y.T, logk) if transposed else (theta, y, logk)
@@ -254,6 +273,22 @@ def run_plain(res: ResidentProposal, ptheta, px, plogw, plogk, theta, y,
     return (th.contiguous(), yy.contiguous(), state[2], *counters, hist)
 
 
+def default_launch(num_chains: int, num_sms: int):
+    """``(threads per block, chains per warp)`` for ``num_chains`` chains on
+    a card of ``num_sms`` SMs.  A warp takes 32 chains, or 16 when 32 would
+    leave one of the SMs' 4 schedulers without a warp (the lanes past 16
+    are inert but share the resident densities); the block is the largest
+    of 256, 128 and 64 threads that still makes a block for every SM, else
+    32.  16,384 chains on 132 SMs: 1,024 warps of 16 in 256 blocks of 128
+    threads."""
+    lanes = 32 if -(-num_chains // 32) >= 4 * num_sms else 16
+    warps = -(-num_chains // lanes)
+    for threads in (256, 128, 64):
+        if -(-warps * 32 // threads) >= num_sms:
+            return threads, lanes
+    return 32, lanes
+
+
 class PoolISIRMixed:
     """Fused pool-iSIR + local-RW kernel (``global_frequency < 1``), with
     the built-in Mixture local move or a :class:`TileProgram`'s
@@ -261,8 +296,9 @@ class PoolISIRMixed:
     ``prior_*`` are the program's and are ignored here).  ``launches``
     counts launches of the built-in kernel and ``program_launches`` those of
     a program's (class-wide), each rising for nothing else;
-    ``block_chains`` (threads per CUDA block) does not change the
-    results."""
+    ``block_chains`` (threads per CUDA block, a multiple of 32 up to 1024;
+    None: :func:`default_launch`'s for the launch's chain count) does not
+    change the results."""
 
     launches = 0
     program_launches = 0
@@ -271,7 +307,7 @@ class PoolISIRMixed:
                  sigma: float = 0.05, global_frequency: float = 0.5,
                  batch_size: int = 5, steps_per_call: int = 400,
                  lp_scale: float = 0.35, prior_loc: float = 0.0,
-                 prior_scale: float = 1.0, block_chains: int = 256,
+                 prior_scale: float = 1.0, block_chains: int | None = None,
                  collect_history: bool = True, program=None):
         self.d = int(theta_dim)
         if self.d < 1:
@@ -292,10 +328,11 @@ class PoolISIRMixed:
         if not 1 <= self.B <= 7:
             raise ValueError(f"batch_size must be in [1, 7], got {batch_size}")
         self.T = int(steps_per_call)
-        self.C_blk = int(block_chains)
-        if self.C_blk % 32 or not 32 <= self.C_blk <= 1024:
-            raise ValueError("block_chains must be a multiple of 32 in "
-                             f"[32, 1024], got {block_chains}")
+        self.C_blk = None if block_chains is None else int(block_chains)
+        if self.C_blk is not None and (self.C_blk % 32
+                                       or not 32 <= self.C_blk <= 1024):
+            raise ValueError("block_chains must be None or a multiple of 32 "
+                             f"in [32, 1024], got {block_chains}")
         self.collect_history = bool(collect_history)
         self.cfg = MixtureConfig.create(
             self.d, y_obs, epsilon=epsilon, sigma=sigma,
@@ -371,6 +408,12 @@ class PoolISIRMixed:
         return run_plain(res, ptheta, px, plogw, plogk, theta, y, logk,
                          self.cfg, noise, self.collect_history, self.program)
 
+    def _geometry(self, C: int, dev):
+        """``(threads per block, chains per warp)`` of a launch on ``dev``."""
+        threads, lanes = default_launch(
+            C, torch.cuda.get_device_properties(dev).multi_processor_count)
+        return (threads if self.C_blk is None else self.C_blk), lanes
+
     def _launch(self, seed, res, ptheta, px, plogw, plogk, theta, y, logk,
                 step0):
         from ._build import load_library
@@ -403,7 +446,7 @@ class PoolISIRMixed:
                 self.d, C, self.T, self.B, S, int(self.collect_history),
                 cfg.prior_loc, cfg.inv_prior_scale, cfg.c_prior,
                 cfg.lp_scale, cfg.sigma, cfg.c_kern, cfg.a_kern, cfg.gf,
-                k0, k1, int(step0), self.C_blk, stream)
+                k0, k1, int(step0), *self._geometry(C, dev), stream)
         if rc != 0:
             raise RuntimeError(f"pool_isir_mixed launch failed: CUDA error "
                                f"{rc}")
@@ -435,7 +478,7 @@ class PoolISIRMixed:
                 self.d, self.y_rows, C, self.T, self.B, S,
                 int(self.collect_history), p.local_blocks,
                 int(p.sim_paired), self.cfg.gf, k0, k1, int(step0),
-                self.C_blk, stream)
+                *self._geometry(C, dev), stream)
         if rc != 0:
             raise RuntimeError(f"pool_isir_mixed (program) launch failed: "
                                f"CUDA error {rc}")

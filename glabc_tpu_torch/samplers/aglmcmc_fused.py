@@ -168,7 +168,8 @@ def run_aglmcmc_fused(problem, generator, num_ite, theta0,
                       initial_isir_proposal, *, batch_size: int = 5,
                       step_size: int = 200, alpha: float = 0.8,
                       hat_eps_T: float = 0.2, oversample: int = 4,
-                      num_chains: int = 4096, block_chains: int = 256,
+                      num_chains: int = 4096,
+                      block_chains: int | None = None,
                       collect_history: bool = True, y0=None,
                       seed: int | None = None, epoch_chunk: int = 0,
                       on_segment=None, mesh=None,
@@ -189,6 +190,9 @@ def run_aglmcmc_fused(problem, generator, num_ite, theta0,
     ``num_ite - 1`` is not a multiple of the launch length, the history is
     still ``num_ite`` long, the final carry is ahead of it, and the last
     launch's counts are pro rata.
+
+    ``block_chains``: threads per CUDA block (None: each kernel's
+    default; the mixed kernel's is chosen from ``num_chains``).
 
     ``pack_chunk``: launch ``step_size / pack_chunk`` sub-segments of that
     many steps, so only that part of the pool is ever held in the kernel's
@@ -231,9 +235,9 @@ def run_aglmcmc_fused(problem, generator, num_ite, theta0,
         raise ValueError(f"pack_chunk={pack_chunk} must divide "
                          f"step_size={T}")
     n_sub = T // sub_T
+    blk = {} if block_chains is None else {"block_chains": block_chains}
     kern = PoolISIR(d, batch_size=B, steps_per_call=sub_T,
-                    block_chains=block_chains,
-                    collect_history=collect_history)
+                    collect_history=collect_history, **blk)
     epoch_fn = _agl.make_epoch_fn(problem, cfg, C, epoch_chunk)
     thin, hist_dt = _history_opts(thin, history_dtype, on_segment)
     ip = initial_isir_proposal.to(dev)
@@ -338,7 +342,8 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
                             global_frequency: float, batch_size: int = 5,
                             step_size: int = 200, alpha: float = 0.8,
                             hat_eps_T: float = 0.2, oversample: int = 4,
-                            num_chains: int = 4096, block_chains: int = 256,
+                            num_chains: int = 4096,
+                            block_chains: int | None = None,
                             collect_history: bool = True, y0=None,
                             seed: int | None = None, on_segment=None,
                             mesh=None, lp_scale: float = 0.35,

@@ -706,3 +706,112 @@ def test_program_builds_are_keyed_by_content(cuda):
     lib3 = _build.load_library("generic_glmcmc", mix3)   # built at first use
     assert os.path.exists(_build.lib_path("generic_glmcmc", mix3))
     assert lib3 is not _build.load_library("generic_glmcmc", ma2)
+
+
+# ---------------------- K4 and K5 as redesigned for the H100 (bitwise K5)
+def _mixed_case(name, cuda, C, T, B, S, gf, seed):
+    """Inputs of a K5 launch, built-in Mixture move or MA(2) program."""
+    from glabc_tpu_torch.models.kde import KernelDensity
+
+    if name == "ma2":
+        prob, prog, th, y, logk, g = _program_state(name, cuda, C, seed)
+        ptheta = ((torch.rand((T, B, 2, C), generator=g, device=cuda) - 0.5)
+                  * 0.6)
+        px = prob.simulate(ptheta.permute(0, 1, 3, 2).contiguous(),
+                           g).permute(0, 1, 3, 2).contiguous()
+        plogk = prob.log_kernel_of_y(px.permute(0, 1, 3, 2)).contiguous()
+        plogw = (plogk + torch.randn(plogk.shape, generator=g,
+                                     device=cuda)).contiguous()
+        scale = 0.3
+        kw = dict(program=prog)
+    else:
+        prob = _problem(2)
+        ptheta, plogw, g = _pool_inputs(cuda, T, B, 2, C, seed=seed)
+        px = (ptheta.abs() + 0.2 * torch.randn(ptheta.shape, generator=g,
+                                               device=cuda)).contiguous()
+        plogk = torch.randn((T, B, C), generator=g, device=cuda) - 1.0
+        th = torch.randn((2, C), generator=g, device=cuda)
+        y = (th.abs() + 0.2 * torch.randn((2, C), generator=g,
+                                          device=cuda)).contiguous()
+        logk = prob.log_kernel_of_y(y.T.contiguous())
+        scale = 1.4
+        kw = dict(y_obs=prob.y_obs.numpy(), epsilon=prob.epsilon,
+                  sigma=prob._noise_std)
+    res = resident_from_kde(KernelDensity.fit(
+        torch.randn((S, 2), generator=g, device=cuda) * scale))
+    args = (res, ptheta, px, plogw, plogk, th, y, logk)
+    make = lambda blk: PoolISIRMixed(2, global_frequency=gf, batch_size=B,
+                                     steps_per_call=T, block_chains=blk,
+                                     **kw)
+    return make, args
+
+
+@pytest.mark.parametrize("name", ["builtin", "ma2"])
+@pytest.mark.parametrize("S", [1024, 100, 37])
+@pytest.mark.parametrize("gf", [0.5, 0.9])
+@pytest.mark.parametrize("C", [4113, 17011])
+def test_pool_isir_mixed_bitwise_at_every_block_size(cuda, name, S, gf, C):
+    """K5 (both local moves) equals its plain version to the bit at blocks
+    of 32, 64, 256 and 1024 threads and the default chosen from the chain
+    count: block_chains does not change the results.  On an H100 4,113
+    chains run 16 a warp (the last warp holds one chain beside 31 inert
+    lanes) and 17,011 run 32 a warp (the last holds 19)."""
+    T, B = 24, 5
+    make, args = _mixed_case(name, cuda, C, T, B, S, gf, S + int(10 * gf))
+    want = make(None).plain(5, *args, step0=300)
+    attr = "program_launches" if name == "ma2" else "launches"
+    for blk in (None, 32, 64, 256, 1024):
+        before = getattr(PoolISIRMixed, attr)
+        got = make(blk).run(5, *args, step0=300)
+        assert getattr(PoolISIRMixed, attr) == before + 1
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), blk
+    assert float(got[4].sum() + got[5].sum()) > 0      # chains moved
+    assert abs(got[3].mean().item() / T - gf) < 0.05
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 8])
+@pytest.mark.parametrize("P", [1000, 250, 37])
+def test_kde_logprob_ragged_shapes(cuda, d, P):
+    """K4 with N not a multiple of a block's 1,024 points (a full and a
+    ragged tile) and P not a multiple of the 8-component chunk, to 1e-4
+    max(1, |log q|) of its plain version and 1e-3 of
+    KernelDensity.log_prob."""
+    from glabc_tpu_torch.models.kde import KernelDensity
+
+    C, N = 24, 1500
+    g = torch.Generator(device=cuda).manual_seed(d * P + 1)
+    X = torch.randn((C, P, d), generator=g, device=cuda)
+    w = torch.rand((C, P), generator=g, device=cuda)
+    w[:, ::7] = 0.0
+    kdes = KernelDensity.fit(X, w)
+    x = torch.randn((C, N, d), generator=g, device=cuda) * 1.5
+    args = (x, *kde_logprob_inputs(kdes))
+    kern = BatchedMixtureLogProb()
+    before = BatchedMixtureLogProb.launches
+    got = kern.run(*args)
+    assert BatchedMixtureLogProb.launches == before + 1
+    want = kern.plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() / want.abs().clamp_min(1.0)).max() <= 1e-4
+    lp = kdes.log_prob(x)
+    assert ((got - lp).abs() / lp.abs().clamp_min(1.0)).max() <= 1e-3
+
+
+def test_kde_logprob_one_chain_many_points(cuda):
+    """K4 with one chain and 2^20 points (1,024 blocks over one support,
+    as the shared epoch's density would be), against its plain version."""
+    from glabc_tpu_torch.models.kde import KernelDensity
+
+    g = torch.Generator(device=cuda).manual_seed(20)
+    kdes = KernelDensity.fit(torch.randn((1, 1024, 2), generator=g,
+                                         device=cuda) * 1.4)
+    x = torch.randn((1, 1 << 20, 2), generator=g, device=cuda) * 1.4
+    args = (x, *kde_logprob_inputs(kdes))
+    got = BatchedMixtureLogProb().run(*args)
+    want = BatchedMixtureLogProb().plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() / want.abs().clamp_min(1.0)).max() <= 1e-4
