@@ -46,9 +46,9 @@ Phases, each reported on its own lines:
    {2, 3, 8}, ragged row counts and 1,048,576 rows, with the TF32 HMMA
    instructions of its split products in its SASS, K7-bf16 (the bf16
    tensor-core flow) likewise and at hidden widths 16 and 32, with the
-   HMMA instructions in its SASS, and the generic kernels K8 and K9 on the
-   Mixture and MA(2) programs and K5's program variant on MA(2), against
-   their plain versions);
+   wgmma (HGMMA) instructions in its SASS, and the generic kernels K8 and
+   K9 on the Mixture and MA(2) programs and K5's program variant on
+   MA(2), against their plain versions);
 8. GLMCMC-NF through ``MCMCRunner.run_glmcmc_nf``: ``method='fused'`` at
    gf=1 (32,768 chains x 801: K7 pushes the pools, K3 runs the segments,
    one K7 pull per epoch) and at gf=0.5 (8,192 x 4,001, slice cadence: one
@@ -80,7 +80,8 @@ Phases, each reported on its own lines:
    such chain-steps and lanes per warp-step; K4 also at the shape of the
    gf=0.5 run's shared-epoch density (32,768,000 points, 1,024
    components) beside ``KernelDensity.log_prob`` as the epoch calls it.
-   Phase 2 prints K1's and K4's static SASS split by instruction class.
+   Phase 2 prints K1's and K4's static SASS split by instruction class,
+   and K8's and K7-bf16's registers as ptxas reports them.
 
 ``python3 chip_smoke.py --seed-spread N [agl] [glmala] [nf] [ma2]
 [glmala_prog] [agl_prog]`` runs only phase 1 and the compared paths of
@@ -717,6 +718,23 @@ def phase_device():
     return name, card
 
 
+def ptxas_registers(text):
+    """Registers of each kernel in ``nvcc -Xptxas -v`` output: ``{mangled
+    name: (registers, spill stores in bytes)}``."""
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if fn and m:
+            out[fn] = (None, int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if fn and m:
+            out[fn] = (int(m.group(1)), out.get(fn, (None, 0))[1])
+    return out
+
+
 def phase_build():
     from glabc_tpu_torch.ops.kernels import _build
 
@@ -747,6 +765,16 @@ def phase_build():
         else:
             for fn, n in counts.items():
                 log(f"[build] {name}: static SASS {fn}: {n} instructions")
+    for stem, prog in libs:
+        tag = {"generic_glmcmc": "K8", "coupling_flow_bf16": "K7-bf16"}.get(
+            stem)
+        if tag is None:
+            continue
+        regs = ptxas_registers(_build.build_log(stem, prog))
+        where = f" ({prog[0]})" if prog else ""
+        log(f"[{tag}] ptxas registers{where}, per kernel: " + (", ".join(
+            f"{fn} {r} (spill stores {sp} B)" for fn, (r, sp) in
+            regs.items()) or "not measured (built by another process)"))
 
 
 def make_kernel(layout, problem, T, algorithm="glmcmc", gf=0.9):
@@ -1761,15 +1789,23 @@ def phase_flow_bf16_vs_plain():
     """K7-bf16 push and pull at small shapes, each against its plain bf16
     version beside the float32 flow: 32 x 128 at d in {2, 3, 8} with ragged
     row counts and at 1,048,576 rows, and the JAX fixtures' widths H in
-    {16, 32} on 3- and 4-layer flows; and the tensor-core (HMMA)
-    instructions in the kernel's SASS."""
+    {16, 32} on 3- and 4-layer flows; and the wgmma instructions (SASS
+    HGMMA) in every kernel of its library, beside its mma.sync (HMMA)
+    count."""
     import torch
     from glabc_tpu_torch.ops.kernels import FlowPull, FlowPush, _build
 
-    hmma = sass_counts(str(_build.lib_path("coupling_flow_bf16")), "HMMA")
-    log(f"[K7-bf16] HMMA instructions in the SASS, per kernel: {hmma}")
-    check(bool(hmma) and all(n > 0 for n in hmma.values()),
-          "coupling_flow_bf16: no tensor-core instructions in its SASS")
+    text = sass_text(str(_build.lib_path("coupling_flow_bf16")))
+    hmma, hgmma = ((None, None) if text is None else
+                   (sass_counts(None, op, text=text)
+                    for op in ("HMMA", "HGMMA")))
+    log(f"[K7-bf16] HMMA (mma.sync) instructions in the SASS, per kernel: "
+        f"{hmma}")
+    log(f"[K7-bf16] HGMMA (wgmma) instructions in the SASS, per kernel: "
+        f"{hgmma}")
+    check(bool(hgmma) and all(n > 0 for n in hgmma.values()),
+          "coupling_flow_bf16: no wgmma (HGMMA) instructions in the SASS "
+          "of every kernel")
     for d, N, L, H in ((2, 4099, 32, 128), (3, 1000, 32, 128),
                        (8, 777, 32, 128), (2, 1 << 20, 32, 128),
                        (2, 4099, 4, 16), (3, 1000, 4, 32), (8, 777, 3, 16)):

@@ -15,7 +15,7 @@
 //   global, 'glmcmc': iSIR as a streaming Gumbel-argmax over the current
 //     state (log w = prior_minus_global_lp + log K) and B candidates from
 //     sample_global, each simulated once; strict > keeps the earlier (the
-//     move generic_moves.cuh shares with K9);
+//     fold of generic_moves.cuh's isir_global, which K9 runs);
 //   global, 'global': independence MH with one candidate;
 //   local: random-walk MH, sample_local + simulate, log alpha =
 //     prior_diff_lp(theta', theta) + log K' - log K.
@@ -29,8 +29,15 @@
 // against 8 bytes of history per chain-step.  So the kernel is bound by
 // operations; the state stays in registers for the whole launch, nothing is
 // staged, and every load and store is coalesced (chains are the fastest
-// axis).  Warps diverge where a global step (B simulations) and a local
-// step (one) meet; chip_smoke.py measures it.
+// axis).  A warp whose lanes hold both moves (nearly every warp at gf=0.9)
+// would run B global simulations and then the local one in turn; instead
+// one loop of candidate rounds serves both: in round r a global lane draws
+// candidate r (sample_global), a local lane its random-walk proposal in
+// round 0 (sample_local) and sits out the rest, and then every active lane
+// runs the one Prog::simulate + Prog::log_kernel on its own cursor.  Such a
+// warp runs B simulations a step, an all-local warp one.  The algorithm is
+// a template parameter, so a round carries no code of the other.
+// chip_smoke.py measures what the warps still pay (its divergence line).
 //
 // Layouts: theta (D, C), y (Y, C), logk and the four counters (C,), history
 // (T, D, C) when collected; params the program's float vector.
@@ -81,6 +88,7 @@ using Prog = Program;
 constexpr int D = Prog::D;
 constexpr int Y = Prog::Y;
 
+template <bool GLMCMC>
 __global__ void generic_glmcmc_kernel(GenericArgs a) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= a.C) return;
@@ -95,53 +103,63 @@ __global__ void generic_glmcmc_kernel(GenericArgs a) {
   float n_acc = 0.0f, n_gatt = 0.0f, n_gacc = 0.0f, n_lacc = 0.0f;
   const uint32_t chain = static_cast<uint32_t>(c);
   const bool paired = a.paired != 0;
-  const int n_scalar = a.glmcmc ? a.B + 3 : 3;
+  const int Bp = GLMCMC ? a.B : 1;
+  const int n_scalar = GLMCMC ? a.B + 3 : 3;
   const uint32_t S = static_cast<uint32_t>((n_scalar + 3) / 4);
   const uint32_t g_sim = paired ? 0u : static_cast<uint32_t>(a.gb);
   const uint32_t g_slot = max(static_cast<uint32_t>(a.gb),
                               g_sim + static_cast<uint32_t>(a.sb));
   const uint32_t l_sim = paired ? 0u : static_cast<uint32_t>(a.lb);
-  const uint32_t local_block =
-      S + static_cast<uint32_t>(a.glmcmc ? a.B : 1) * g_slot;
-  const int s_local = a.glmcmc ? a.B + 1 : 0;
-  const int s_coin = a.glmcmc ? a.B + 2 : 1;
+  const uint32_t local_block = S + static_cast<uint32_t>(Bp) * g_slot;
+  const int s_local = GLMCMC ? a.B + 1 : 0;
+  const int s_coin = GLMCMC ? a.B + 2 : 1;
 
   for (int t = 0; t < a.T; ++t) {
     const uint32_t step = a.step0 + static_cast<uint32_t>(t);
     SlotScalars ss{chain, step, a.key0, a.key1, make_uint4(0u, 0u, 0u, 0u),
                    -1};
     const bool is_g = ss.uniform(s_coin) < a.gf;
+    float best = 0.0f;
+    if (GLMCMC && is_g)
+      best = (Prog::prior_minus_global_lp(p, th) + logk) +
+             gumbel_from_uniform(ss.uniform(0));
+    const int rounds = is_g ? Bp : 1;
     bool moved = false;
-    float cth[D], cy[Y];
-    const CandidateBlocks cb{chain, step,   a.key0, a.key1,
-                             S,     g_sim,  g_slot, paired};
-    if (is_g && a.glmcmc) {
-      moved = isir_global<Prog>(p, cb, a.B, ss, th, yv, logk);
-    } else if (is_g) {
-      // ---- independence MH
-      const float lkp = global_candidate<Prog>(p, cb, 0, cth, cy);
-      const float la = ((Prog::prior_minus_global_lp(p, cth) + lkp) -
-                        Prog::prior_minus_global_lp(p, th)) -
-                       logk;
-      moved = logf(ss.uniform(2)) < la;
-      if (moved) {
-        copy(th, cth);
-        copy(yv, cy);
-        logk = lkp;
-      }
-    } else {
-      // ---- local: random-walk MH
-      Draws rl(chain, step, a.key0, a.key1, local_block);
-      Prog::sample_local(p, th, rl, cth);
-      Draws rs(chain, step, a.key0, a.key1, local_block + l_sim, paired);
+    // the candidate rounds, one loop for both moves: only the proposal
+    // differs, the simulation is the same code for every lane
+    for (int r = 0; r < rounds; ++r) {
+      float cth[D], cy[Y];
+      const uint32_t first =
+          is_g ? S + static_cast<uint32_t>(r) * g_slot : local_block;
+      Draws rp(chain, step, a.key0, a.key1, first);
+      if (is_g)
+        Prog::sample_global(p, rp, cth);
+      else
+        Prog::sample_local(p, th, rp, cth);
+      Draws rs(chain, step, a.key0, a.key1, first + (is_g ? g_sim : l_sim),
+               paired);
       Prog::simulate(p, cth, rs, cy);
-      const float lkl = Prog::log_kernel(p, cy);
-      const float la = (Prog::prior_diff_lp(p, cth, th) + lkl) - logk;
-      moved = logf(ss.uniform(s_local)) < la;
-      if (moved) {
+      const float lk = Prog::log_kernel(p, cy);
+      bool take;
+      if (!is_g) {                     // random-walk MH
+        take = logf(ss.uniform(s_local)) <
+               (Prog::prior_diff_lp(p, cth, th) + lk) - logk;
+      } else if constexpr (GLMCMC) {   // iSIR
+        const float score = (Prog::prior_minus_global_lp(p, cth) + lk) +
+                            gumbel_from_uniform(ss.uniform(r + 1));
+        take = score > best;
+        if (take) best = score;
+      } else {                         // independence MH
+        const float la = ((Prog::prior_minus_global_lp(p, cth) + lk) -
+                          Prog::prior_minus_global_lp(p, th)) -
+                         logk;
+        take = logf(ss.uniform(2)) < la;
+      }
+      if (take) {
         copy(th, cth);
         copy(yv, cy);
-        logk = lkl;
+        logk = lk;
+        moved = true;
       }
     }
     n_acc += moved ? 1.0f : 0.0f;
@@ -183,7 +201,10 @@ extern "C" int glabc_generic_glmcmc(
                 glmcmc,   B,     global_blocks, sim_blocks, local_blocks,
                 sim_paired, gf,  key0,    key1,         step0};
   const dim3 grid((C + threads - 1) / threads);
-  generic_glmcmc_kernel<<<grid, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(a);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (glmcmc)
+    generic_glmcmc_kernel<true><<<grid, threads, 0, s>>>(a);
+  else
+    generic_glmcmc_kernel<false><<<grid, threads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

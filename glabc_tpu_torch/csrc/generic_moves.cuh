@@ -1,6 +1,7 @@
-// The global move the generic kernels share (generic_glmcmc.cu, K8, and
-// generic_glmala.cu, K9), as templates over a tile program `P`
-// (csrc/programs/*.cuh).  The torch twin is ops/kernels/generic_kernel.py's
+// The global move of the generic kernels, as templates over a tile program
+// `P` (csrc/programs/*.cuh): generic_glmala.cu (K9) runs isir_global whole;
+// generic_glmcmc.cu (K8) folds the same scores, in the same order, into its
+// loop of candidate rounds.  The torch twin is ops/kernels/generic_kernel.py's
 // global_candidate and isir_global; the float operations are in its order.
 //
 // Candidate b of a step draws sample_global from block first + b * slot and

@@ -56,13 +56,16 @@ __device__ __forceinline__ float gumbel_from_uniform(float u) {
   return -logf(-logf(u));
 }
 
-// Box-Muller: both the cos and the sin branch are used.
+// Box-Muller: both the cos and the sin branch are used, from one sincosf
+// (one range reduction; the same bits as cosf and sinf apart, which every
+// kernel's bitwise check against its plain version holds it to).
 __device__ __forceinline__ void normal_pair(float u1, float u2, float* n1,
                                             float* n2) {
   const float r = sqrtf(-2.0f * logf(u1));
-  const float a = kTwoPi * u2;
-  *n1 = r * cosf(a);
-  *n2 = r * sinf(a);
+  float s, c;
+  sincosf(kTwoPi * u2, &s, &c);
+  *n1 = r * c;
+  *n2 = r * s;
 }
 
 __device__ __forceinline__ uint32_t lane_of(uint4 v, int i) {

@@ -74,8 +74,9 @@ SOURCES = {
         "glabc_coupling_flow_max_sub": [_I] * 4,
     },
     "coupling_flow_bf16": {
-        "glabc_coupling_flow_bf16": [_P] * 4 + [_I] * 7 + [_P],
-        "glabc_coupling_flow_bf16_max_sub": [_I, _I, _I],
+        "glabc_coupling_flow_bf16": [_P] * 4 + [_I] * 6 + [_P],
+        "glabc_coupling_flow_bf16_max_tiles": [_I, _I],
+        "glabc_coupling_flow_bf16_layer_bytes": [_I, _I],
     },
 }
 

@@ -16,12 +16,14 @@ the kernels mask their last block.
   :func:`pack_tf32_weights` splits the weights into the per-layer image
   the kernel copies to shared memory; hidden widths are
   multiples of 8 up to 128, zero-padded to 32, 64, 96 or 128;
-* ``'bfloat16'``: ``csrc/coupling_flow_bf16.cu``, the conditioner's three
-  products on the tensor cores with bfloat16 operands and float32
-  accumulation; biases, ReLU, ``exp(+-s)``, the affine update and the
-  log-scale sum stay float32.  :func:`pack_bf16_weights` casts the weights
-  (JAX's ``pack_flow_weights``) into the per-layer image the kernel copies
-  to shared memory.  It is for proposal densities, which only
+* ``'bfloat16'``: ``csrc/coupling_flow_bf16.cu``, the conditioner's two
+  hidden products on the tensor cores by ``wgmma`` with bfloat16 operands
+  and float32 accumulation; biases, ReLU, ``exp(+-s)``, the affine update
+  and the log-scale sum stay float32.  :func:`pack_bf16_weights` casts the
+  weights (JAX's ``pack_flow_weights``) into the per-layer image that the
+  kernel copies to shared memory with one bulk copy, its matrices in
+  ``wgmma``'s 128-byte-swizzled layout; :func:`bf16_grid` sizes its blocks
+  of 64-row tiles.  It is for proposal densities, which only
   steer importance weights (its log-scale sum is within about 2e-3 of the
   float32 flow's on a 32 x 128 flow), not for training, which
   differentiates the plain float32 flow.
@@ -46,23 +48,26 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["FlowPush", "FlowPull", "flow_push_fused", "flow_pull_fused",
-           "flow_grid", "pack_bf16_weights", "pack_tf32_weights",
-           "split_tf32", "tf32_products"]
+           "flow_grid", "bf16_grid", "bf16_layer_image", "pack_bf16_weights",
+           "pack_tf32_weights", "split_tf32", "tf32_products"]
 
 _MAX_TS = 16        # 2 * (dim // 2) <= 16
 
 _MATMUL_DTYPES = ("float32", "bfloat16")
-# csrc/coupling_flow.cu and csrc/coupling_flow_bf16.cu: a warp owns 32-row
-# tiles (two m16 MMA tiles), a block up to 8 warps
+# csrc/coupling_flow.cu: a warp owns 32-row tiles (two m16 MMA tiles), a
+# block up to 8 warps
 _TILE = 32
 _SMALL_TILE = 16    # the float32 kernel's tile when there are few rows
 _MAX_WARPS = 8
 _MAX_HIDDEN = 128
 # float32 kernel: hidden widths zero-padded to one of these instantiations
 _TF32_WIDTHS = (32, 64, 96, 128)
-# bf16 kernel: the hidden width is 16 (one MMA k-tile) up to 128
-_BF16_LDW1 = 8      # bf16 pad of each w1 row in shared memory (ldmatrix banks)
-_BF16_LDW2 = 24     # bf16 row of w2 in shared memory: 2*d2 <= 16, padded
+# bf16 kernel (csrc/coupling_flow_bf16.cu): the hidden width is 16 (one
+# wgmma k-step) up to 128; a consumer warpgroup owns 64-row tiles; its
+# matrices sit in 128-byte swizzled rows of 64 bf16 values, 8 rows an atom
+_BF16_TILE = 64
+_SW_VALUES = 64
+_SW_ATOM = 1024
 
 
 def _tf32_width(hidden: int) -> int:
@@ -161,14 +166,13 @@ def pack_tf32_weights(flow) -> torch.Tensor:
 
 
 def flow_grid(n: int, num_sms: int, max_sub: int, small_tile: int):
-    """``(warps per block, tiles per warp, rows per tile)`` of either K7
-    kernel for ``n`` rows.  Few rows (at most 8 tiles of ``small_tile`` rows
+    """``(warps per block, tiles per warp, rows per tile)`` of the float32
+    K7 kernel for ``n`` rows.  Few rows (at most 8 tiles of ``small_tile`` rows
     per SM): one tile per warp and as many warps per block as spread the
     tiles over every SM (a warp's MMAs run in sequence, so more warps of
     fewer rows finish sooner).  Above that, 8 warps of 32-row tiles,
     balanced over whole waves of ``num_sms`` blocks, at most ``max_sub``
-    (the shared memory bound) per warp.  The float32 kernel takes
-    ``small_tile`` 16 or 32, the bf16 kernel 32."""
+    (the shared memory bound) per warp.  ``small_tile`` is 16 or 32."""
     small = -(-n // small_tile)
     if small <= _MAX_WARPS * num_sms:
         return -(-small // num_sms), 1, small_tile
@@ -177,23 +181,89 @@ def flow_grid(n: int, num_sms: int, max_sub: int, small_tile: int):
     return (_MAX_WARPS, -(-tiles // (waves * num_sms * _MAX_WARPS)), _TILE)
 
 
+def bf16_grid(n: int, num_sms: int, max_tiles: int) -> int:
+    """64-row tiles per block of the bf16 kernel for ``n`` rows: the tiles
+    spread over whole waves of ``num_sms`` blocks (one block fills an SM's
+    shared memory), at most ``max_tiles`` (the shared memory bound) a
+    block.  With no more tiles than SMs, one a block: the layers of a tile
+    run one after another, so the work of few rows is latency, and a tile
+    of its own on every SM finishes soonest."""
+    tiles = -(-n // _BF16_TILE)
+    waves = -(-tiles // (max_tiles * num_sms))
+    return -(-tiles // (waves * num_sms))
+
+
+def _ts_rows(d: int) -> int:
+    """Rows of the bf16 kernel's w2 image: ts's 2 (d // 2) columns padded
+    to wgmma's n8 or n16."""
+    return 8 if d // 2 <= 4 else 16
+
+
+def bf16_layer_image(d: int, hidden: int) -> dict:
+    """Byte offsets of ``w1, w2, w0, b0, b1, b2`` in one layer's image of
+    the bf16 kernel, and its size ``bytes`` (``layer_image`` in
+    ``csrc/coupling_flow_bf16.cu``)."""
+    H, kc, d1 = hidden, -(-hidden // _SW_VALUES), d - d // 2
+    o = {"w1": 0}
+    o["w2"] = o["w1"] + kc * H * 2 * _SW_VALUES
+    o["w0"] = o["w2"] + kc * _ts_rows(d) * 2 * _SW_VALUES
+    o["b0"] = o["w0"] + d1 * H * 4
+    o["b1"] = o["b0"] + H * 4
+    o["b2"] = o["b1"] + H * 4
+    o["bytes"] = -(-(o["b2"] + _MAX_TS * 4) // _SW_ATOM) * _SW_ATOM
+    return o
+
+
+def _sw128_index(K: int, rows: int, src):
+    """The 128-byte-swizzled K-major image of a matrix with ``rows`` rows
+    (the wgmma N side) and ``K`` values a row, as ``src(n, k)``: an index
+    array over the image's bf16 slots, ``ceil(K / 64)`` blocks of ``rows``
+    rows x 64 values, value ``k`` of row ``n`` in 16-byte chunk
+    ``(k % 64 // 8) ^ (n % 8)`` of its row."""
+    kc, n, chunk, e = np.meshgrid(np.arange(-(-K // _SW_VALUES)),
+                                  np.arange(rows), np.arange(8), np.arange(8),
+                                  indexing="ij")
+    return src(n, kc * _SW_VALUES + (chunk ^ (n % 8)) * 8 + e)
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_image_index(d: int, hidden: int, device: str) -> torch.Tensor:
+    """Where each bf16 slot of a layer's ``w1`` and ``w2`` images comes
+    from, as an index into ``[w1 (H, H), w2 (H, 2 d2), 0]`` flattened; the
+    last element is the zero of every pad."""
+    H, d2 = hidden, d // 2
+    ts = 2 * d2
+    zero = H * H + H * ts
+    w1 = _sw128_index(H, H, lambda n, k: np.where(k < H, k * H + n, zero))
+    col = lambda n: (n % 2) * d2 + n // 2     # rows t_0, s_0, t_1, s_1, ...
+    w2 = _sw128_index(H, _ts_rows(d), lambda n, k: np.where(
+        (k < H) & (n < ts), H * H + k * ts + col(n), zero))
+    idx = np.concatenate([w1.ravel(), w2.ravel()])
+    return torch.from_numpy(idx).to(device)
+
+
 def pack_bf16_weights(flow) -> torch.Tensor:
     """The flow's weights as the bf16 kernel stages them, one contiguous byte
-    image per layer, ``(L, layer_bytes)`` uint8: ``w1 (H, H + 8)`` and ``w2
-    (H, 24)`` in bfloat16 (zero-padded columns), ``w0 (d1, H)`` rounded to
-    bfloat16 and held in float32, then ``b0``, ``b1 (H,)`` and ``b2`` padded
-    to 16, in float32."""
+    image per layer, ``(L, layer_bytes)`` uint8, at the offsets of
+    :func:`bf16_layer_image`: ``w1`` and ``w2`` in bfloat16 as wgmma's
+    K-major operands in the 128-byte swizzle (:func:`_sw128_index`; ``w2``'s
+    columns interleaved as ``t_0, s_0, t_1, s_1, ...`` and zero-padded to 8
+    or 16), then ``w0 (d1, H)`` rounded to bfloat16 and held in float32,
+    ``b0``, ``b1 (H,)`` and ``b2`` interleaved and padded to 16, in float32;
+    the image zero-padded to a multiple of 1,024 bytes."""
     w0, b0, w1, b1, w2, b2 = (w.detach() for w in flow.stack())
     L, H = w1.shape[0], w1.shape[-1]
-    ts = w2.shape[-1]
-    parts = [
-        F.pad(w1.to(torch.bfloat16), (0, _BF16_LDW1)),
-        F.pad(w2.to(torch.bfloat16), (0, _BF16_LDW2 - ts)),
-        w0.to(torch.bfloat16).to(torch.float32),
-        b0, b1, F.pad(b2, (0, _MAX_TS - ts)),
-    ]
-    return torch.cat([p.contiguous().reshape(L, -1).view(torch.uint8)
-                      for p in parts], dim=1)
+    d2 = w2.shape[-1] // 2
+    ts = 2 * d2
+    img = bf16_layer_image(flow.dim, H)
+    x = torch.cat([w1.reshape(L, -1), w2.reshape(L, -1),
+                   w1.new_zeros(L, 1)], dim=1).to(torch.bfloat16)
+    mats = x[:, _bf16_image_index(flow.dim, H, str(x.device))]
+    col = [(c % 2) * d2 + c // 2 for c in range(ts)]
+    floats = torch.cat([w0.to(torch.bfloat16).to(torch.float32).reshape(L, -1),
+                        b0, b1, F.pad(b2[:, col], (0, _MAX_TS - ts))], dim=1)
+    out = torch.cat([mats.view(torch.uint8), floats.view(torch.uint8)], dim=1)
+    return F.pad(out, (0, img["bytes"] - out.shape[1])).contiguous()
 
 
 def _image(flow, pack):
@@ -355,20 +425,24 @@ class _CouplingFlowKernel:
         lib = load_library("coupling_flow_bf16")
         dev = x_t.device
         with torch.cuda.device(dev):
-            max_sub = lib.glabc_coupling_flow_bf16_max_sub(d, H, _MAX_WARPS)
-            if max_sub < 1:
+            max_tiles = lib.glabc_coupling_flow_bf16_max_tiles(d, H)
+            if max_tiles < 1:
                 raise ValueError(f"hidden={H} at dim={d} does not fit the "
                                  "bf16 kernel's shared memory")
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            warps, nsub, _ = flow_grid(N, sms, max_sub, _TILE)
+            ntiles = bf16_grid(N, sms, max_tiles)
             packed = _image(flow, pack_bf16_weights)
+            if packed.shape[1] != lib.glabc_coupling_flow_bf16_layer_bytes(
+                    d, H):
+                raise RuntimeError("pack_bf16_weights and the bf16 kernel "
+                                   "disagree on the layer image's size")
             out = torch.empty_like(x_t)
             s = torch.empty(N, dtype=torch.float32, device=dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.glabc_coupling_flow_bf16(
                 x_t.data_ptr(), out.data_ptr(), s.data_ptr(),
                 packed.data_ptr(), d, N, flow.n_layers, H, int(self.inverse),
-                warps, nsub, stream)
+                ntiles, stream)
         if rc != 0:
             raise RuntimeError("coupling_flow_bf16 launch failed: CUDA error "
                                f"{rc}")

@@ -14,9 +14,12 @@ glabc_tpu's, on the CPU.
   round-to-nearest-even bit arithmetic at the three product operands only,
   and the carried coordinates left unrounded.
 * The wrapper's choices and what the kernel's wrapper computes on the host:
-  the weight image (``pack_bf16_weights``) and the launch geometry
-  (``flow_grid`` with 32-row tiles).
+  the weight image (``pack_bf16_weights``: its matrices in wgmma's
+  128-byte swizzle, read back by a pure-Python inverse, its size and
+  alignment) and the launch geometry (``bf16_grid``, 64-row tiles).
 """
+
+import struct
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +34,8 @@ from glabc_tpu.ops.pallas.flow_kernel import (flow_pull_fused as j_pull,
                                               flow_push_fused as j_push)
 from glabc_tpu_torch.ops.kernels import (FlowPull, FlowPush, flow_pull_fused,
                                          flow_push_fused)
-from glabc_tpu_torch.ops.kernels.flow_kernel import (flow_grid,
+from glabc_tpu_torch.ops.kernels.flow_kernel import (bf16_grid,
+                                                     bf16_layer_image,
                                                      pack_bf16_weights)
 from glabc_tpu_torch.utils.convert import coupling_flow_from_numpy
 
@@ -233,52 +237,184 @@ def test_bf16_wrapper_checks():
     assert FlowPush.bf16_launches == FlowPull.bf16_launches == 0
 
 
-@pytest.mark.parametrize("dim,hidden", [(2, 128), (3, 16), (17, 32)])
+def _read_bf16_image(raw, dim, H):
+    """A pure-Python inverse of one layer's image (the layout of
+    ``csrc/coupling_flow_bf16.cu``'s header): ``(w0, b0, w1, b1, w2, b2)``
+    as lists of floats, and the set of bytes they came from.  A matrix
+    sits K-major in rows of 128 bytes (64 bf16 values of k) with the
+    128-byte swizzle: value k of row n at ``kc rows 128 + n 128 + ((k % 64
+    // 8) ^ (n % 8)) 16 + (k % 8) 2``; ``w2``'s rows are its columns in the
+    order t_0, s_0, t_1, s_1, ..."""
+    d2 = dim // 2
+    d1, ts = dim - d2, 2 * d2
+    kc, tsn = -(-H // 64), (8 if d2 <= 4 else 16)
+    used = set()
+
+    def bf16(off):
+        used.update((off, off + 1))
+        bits = struct.unpack_from("<H", raw, off)[0] << 16
+        return struct.unpack("<f", struct.pack("<I", bits))[0]
+
+    def f32(off):
+        used.update(range(off, off + 4))
+        return struct.unpack_from("<f", raw, off)[0]
+
+    def sw(base, rows, n, k):
+        return (base + (k // 64) * rows * 128 + n * 128
+                + ((k % 64 // 8) ^ (n % 8)) * 16 + (k % 8) * 2)
+
+    o_w2 = kc * H * 128
+    o_w0 = o_w2 + kc * tsn * 128
+    o_b0 = o_w0 + d1 * H * 4
+    o_b1, o_b2 = o_b0 + H * 4, o_b0 + 2 * H * 4
+    row = lambda c: 2 * (c % d2) + c // d2       # w2's column c -> its row
+    w1 = [[bf16(sw(0, H, n, k)) for n in range(H)] for k in range(H)]
+    w2 = [[bf16(sw(o_w2, tsn, row(c), k)) for c in range(ts)]
+          for k in range(H)]
+    w0 = [[f32(o_w0 + 4 * (j * H + c)) for c in range(H)] for j in range(d1)]
+    b0 = [f32(o_b0 + 4 * c) for c in range(H)]
+    b1 = [f32(o_b1 + 4 * c) for c in range(H)]
+    b2 = [f32(o_b2 + 4 * row(c)) for c in range(ts)]
+    return (w0, b0, w1, b1, w2, b2), used
+
+
+@pytest.mark.parametrize("dim,hidden", [(d, H) for d in (2, 3, 17)
+                                        for H in (16, 48, 128)] + [(17, 32)])
 def test_bf16_weight_image(dim, hidden):
-    """The per-layer byte image the kernel copies to shared memory, in the
-    order and with the pads of ``csrc/coupling_flow_bf16.cu`` ``layer_image``:
-    w1 (H, H + 8) and w2 (H, 24) bf16, w0 (d1, H), b0, b1 (H,), b2 (16,)
-    float32."""
+    """The per-layer byte image the kernel copies to shared memory with one
+    bulk copy: a pure-Python inverse gives back w0, w1, w2 rounded to bf16
+    and b0, b1, b2 exactly, every other byte is 0, and the image's size and
+    offsets are ``bf16_layer_image``'s, a multiple of 1,024 bytes (the
+    128-byte swizzle's atom, where each stage and each matrix starts) and
+    of 16 (``cp.async.bulk``)."""
     jf = _jax_flow(dim, n_layers=2, hidden=hidden, seed=dim)
     f = _port(jf)
     d2 = dim // 2
-    d1, ts, H = dim - d2, 2 * d2, hidden
+    H = hidden
     img = pack_bf16_weights(f)
-    sizes = [H * (H + 8) * 2, H * 24 * 2, d1 * H * 4, H * 4, H * 4, 16 * 4]
-    assert img.dtype == torch.uint8 and img.shape == (2, sum(sizes))
-    assert all(s % 16 == 0 for s in sizes)     # 16-byte cp.async chunks
-    parts = torch.split(img, sizes, dim=1)
-    bf = lambda p, shape: p.contiguous().view(torch.bfloat16).reshape(
-        2, *shape).float()
-    fl = lambda p, shape: p.contiguous().view(torch.float32).reshape(
-        2, *shape)
-    r = lambda w: w.detach().to(torch.bfloat16).float()
-    w1, w2 = bf(parts[0], (H, H + 8)), bf(parts[1], (H, 24))
-    assert torch.equal(w1[..., :H], r(f.w1))
-    assert torch.count_nonzero(w1[..., H:]) == 0
-    assert torch.equal(w2[..., :ts], r(f.w2))
-    assert torch.count_nonzero(w2[..., ts:]) == 0
-    assert torch.equal(fl(parts[2], (d1, H)), r(f.w0))
-    assert torch.equal(fl(parts[3], (H,)), f.b0.detach())
-    assert torch.equal(fl(parts[4], (H,)), f.b1.detach())
-    b2 = fl(parts[5], (16,))
-    assert torch.equal(b2[:, :ts], f.b2.detach())
-    assert torch.count_nonzero(b2[:, ts:]) == 0
+    lay = bf16_layer_image(dim, H)
+    kc, tsn = -(-H // 64), (8 if d2 <= 4 else 16)
+    assert lay["w2"] == kc * H * 128
+    assert lay["w0"] == lay["w2"] + kc * tsn * 128
+    assert lay["bytes"] % 1024 == 0 and lay["w2"] % 1024 == 0
+    assert all(lay[k] % 16 == 0 for k in ("w0", "b0", "b1", "b2"))
+    assert lay["bytes"] - 1024 < lay["b2"] + 16 * 4 <= lay["bytes"]
+    assert img.dtype == torch.uint8 and img.shape == (2, lay["bytes"])
+    r = lambda w: w.detach().to(torch.bfloat16).float().tolist()
+    for l in range(2):
+        raw = img[l].numpy().tobytes()
+        (w0, b0, w1, b1, w2, b2), used = _read_bf16_image(raw, dim, H)
+        assert w0 == r(f.w0[l]) and w1 == r(f.w1[l]) and w2 == r(f.w2[l])
+        assert b0 == f.b0[l].tolist() and b1 == f.b1[l].tolist()
+        assert b2 == f.b2[l].tolist()
+        assert not any(raw[i] for i in range(len(raw)) if i not in used)
 
 
-@pytest.mark.parametrize("n", [1, 31, 777, 8192, 4099, 1 << 20, 32768000])
+@pytest.mark.parametrize("n", [1, 31, 777, 8192, 4099, 1 << 20, 32768000,
+                               133 * 64])
 def test_bf16_grid_covers_the_rows_and_fills_the_card(n):
-    sms, max_sub = 132, 35
-    warps, nsub, tile = flow_grid(n, sms, max_sub, 32)
-    assert 1 <= warps <= 8 and 1 <= nsub <= max_sub and tile == 32
-    rows = warps * nsub * 32
-    blocks = -(-n // rows)
-    tiles = -(-n // 32)
-    assert blocks * rows >= n and (blocks - 1) * rows < n
-    if tiles >= 8 * sms:         # whole waves of 8-warp blocks
-        assert warps == 8
-        waves = -(-blocks // sms)
-        assert blocks > (waves - 1) * sms + sms // 2
-    else:                        # one tile per warp, spread over the SMs
-        assert nsub == 1 and blocks <= sms
-        assert blocks == tiles or blocks > sms // 2
+    """``bf16_grid``'s 64-row tiles per block cover every row once; with no
+    more tiles than SMs every tile is a block of its own, above that the
+    blocks fill the fewest waves the shared memory allows, none of them
+    idle (a single wave at least half full), at the bounds of d=2 and d=17
+    at H=128."""
+    sms = 132
+    for max_tiles in (133, 22):
+        per = bf16_grid(n, sms, max_tiles)
+        assert 1 <= per <= max_tiles
+        rows = per * 64
+        blocks = -(-n // rows)
+        tiles = -(-n // 64)
+        assert blocks * rows >= n and (blocks - 1) * rows < n
+        if tiles <= sms:
+            assert per == 1 and blocks == tiles
+        else:
+            waves = -(-blocks // sms)
+            assert waves == -(-tiles // (max_tiles * sms))
+            assert blocks > (waves - 1) * sms + (sms // 2 if waves == 1
+                                                  else 0)
+
+
+def _slot_flow(flow, x_t, inverse):
+    """The bf16 kernel's bookkeeping in torch: the rows' coordinates stay in
+    their slots, logical coordinate i of a row in slot (off + i) mod d, a
+    layer transforms the slots of its d2 coordinates in place and only
+    advances off (by d1 for push, d2 for pull), with the plain bf16
+    conditioner for the arithmetic."""
+    d, L = flow.dim, flow.n_layers
+    d2 = d // 2
+    d1 = d - d2
+    in0, out0 = (d2, 0) if inverse else (0, d1)
+    U = x_t.clone()
+    acc = torch.zeros(x_t.shape[1])
+    off = 0
+
+    def slot(i):
+        return off + i - d if off + i >= d else off + i
+
+    with torch.no_grad():
+        for step in range(L):
+            l = L - 1 - step if inverse else step
+            u1 = torch.stack([U[slot(in0 + j)] for j in range(d1)], dim=1)
+            ts = flow._conditioner(l, u1, True)
+            t, s = ts[:, :d2], ts[:, d2:]
+            for j in range(d2):
+                p = slot(out0 + j)
+                U[p] = ((U[p] - t[:, j]) * torch.exp(-s[:, j]) if inverse
+                        else U[p] * torch.exp(s[:, j]) + t[:, j])
+            acc = acc + s.sum(dim=1)
+            off = slot(d2 if inverse else d1)
+        return torch.stack([U[slot(i)] for i in range(d)]), acc
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("dim", [2, 3, 8, 17])
+def test_bf16_slots_replace_the_roll(dim, inverse):
+    """The kernel moves no coordinate between layers: its slot rotation
+    gives the plain bf16 flow's rolled result bit for bit, over a flow of
+    more layers than coordinates (the offset wraps)."""
+    f = _port(_jax_flow(dim, n_layers=2 * dim + 1, hidden=16, seed=dim))
+    x = torch.from_numpy(np.random.default_rng(dim).normal(
+        size=(dim, 37)).astype(np.float32))
+    want = (f.pull_t if inverse else f.push_t)(x, "bfloat16")
+    got = _slot_flow(f, x, inverse)
+    assert torch.equal(got[0], want[0].detach())
+    assert torch.equal(got[1], want[1].detach())
+
+
+def test_chip_smoke_reads_registers_and_wgmma():
+    """``chip_smoke.py``'s readers of the bf16 kernel's build: registers and
+    spills per kernel from ``nvcc -Xptxas -v`` output, and the wgmma
+    (HGMMA) and mma.sync (HMMA) instructions per kernel from ``cuobjdump
+    -sass`` text, told apart."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    log = """ptxas info    : Compiling entry function '_Z1aILb0EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z1aILb0EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 159 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'
+ptxas info    : Function properties for _Z1bv
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers
+"""
+    assert cs.ptxas_registers(log) == {"_Z1aILb0EEvv": (159, 0),
+                                       "_Z1bv": (255, 8)}
+    sass = """	code for sm_90a
+		Function : _Z1aILb0EEvv
+        /*0100*/                   HGMMA.64x128x16.F32.BF16 R24, R88, gdesc[UR4], RZ, !UPT ;
+        /*0110*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+        /*0120*/                   HGMMA.64x8x16.F32.BF16 R88, R24, gdesc[UR4], R88, gsb0 ;
+		Function : _Z1bv
+        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0110*/              @P0  HMMA.16816.F32.BF16 R4, R8, R14, R4 ;
+"""
+    assert cs.sass_counts(None, "HGMMA", text=sass) == {"_Z1aILb0EEvv": 2,
+                                                        "_Z1bv": 0}
+    assert cs.sass_counts(None, "HMMA", text=sass) == {"_Z1aILb0EEvv": 0,
+                                                       "_Z1bv": 2}

@@ -492,6 +492,75 @@ def test_flow_bf16_pull_inverts_push(cuda):
     assert torch.allclose(s_b, s, rtol=2e-3, atol=2e-3)
 
 
+_BF16_WIDTHS = (16, 32, 48, 64, 80, 96, 112, 128)
+_BF16_DIMS = (2, 3, 8, 17)
+_BF16_ROWS = (1, 63, 64, 65, 8209)
+
+
+def _bf16_against_plain(cuda, H, d, N):
+    """K7-bf16 push and pull on a 4-layer flow at (H, d, N) beside the
+    plain bf16 and float32 flows: ``{class: (kernel's outputs, row
+    differences from the plain bf16 flow, the float32 flow's)}``."""
+    from glabc_tpu_torch.ops.kernels import FlowPull, FlowPush
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f, g = _flow_on(cuda, d, L=4, H=H, seed=H + d + N)
+    z = torch.randn((d, N), generator=g, device=cuda)
+    out = {}
+    for cls in (FlowPush, FlowPull):
+        got = cls("bfloat16").run(f, z)
+        want = cls("bfloat16").plain(f, z)
+        f32 = cls().plain(f, z)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(a).all() for a in got)
+        out[cls] = (got, _row_diff(got, want), _row_diff(f32, want))
+    return f, z, out
+
+
+@pytest.mark.parametrize("N", _BF16_ROWS)
+@pytest.mark.parametrize("d", _BF16_DIMS)
+@pytest.mark.parametrize("H", _BF16_WIDTHS)
+def test_flow_bf16_every_width_and_ragged_rows(cuda, H, d, N):
+    """K7-bf16 (wgmma, one instantiation per H / 16) at every hidden width
+    and row counts around its 64-row tile: push and pull finite, no row
+    further than BF16_MAX_TOL from the plain bf16 flow, pull(push(z))
+    giving z back as the plain flow's round trip does, and at 8,209 rows
+    the float32 flow missing BF16_ROW_TOL tenfold as often as BF16_SHARE
+    allows (the kernel is a bf16 flow).  The share of rows beyond
+    BF16_ROW_TOL is a rate: it is held over the rows of every shape at
+    once (``test_flow_bf16_share_over_every_shape``)."""
+    from glabc_tpu_torch.ops.kernels import FlowPull, FlowPush
+
+    f, z, out = _bf16_against_plain(cuda, H, d, N)
+    for cls, (_, diff, diff32) in out.items():
+        assert diff.max() <= BF16_MAX_TOL, (cls.__name__, diff.max())
+        if N > 8192:
+            sep = (diff32 > BF16_ROW_TOL).float().mean()
+            assert sep >= 10 * BF16_SHARE, (cls.__name__, sep)
+    x, s = out[FlowPush][0]
+    back, s_b = FlowPull("bfloat16").run(f, x)
+    assert torch.allclose(back, z, rtol=2e-3, atol=2e-3)
+    assert torch.allclose(s_b, s, rtol=2e-3, atol=2e-3)
+
+
+def test_flow_bf16_share_over_every_shape(cuda):
+    """Over the rows of every (H, d, N) of the test above, push and pull
+    (537,728 rows), at most BF16_SHARE differ from the plain bf16 flow by
+    more than BF16_ROW_TOL, and the float32 flow on at least ten times as
+    many: the limits as chip_smoke.py holds its many-row checks to."""
+    rows = bad = bad32 = 0
+    for H in _BF16_WIDTHS:
+        for d in _BF16_DIMS:
+            for N in _BF16_ROWS:
+                for _, diff, diff32 in _bf16_against_plain(cuda, H, d,
+                                                           N)[2].values():
+                    rows += diff.numel()
+                    bad += int((diff > BF16_ROW_TOL).sum())
+                    bad32 += int((diff32 > BF16_ROW_TOL).sum())
+    assert bad <= BF16_SHARE * rows, (bad, rows)
+    assert bad32 >= 10 * BF16_SHARE * rows, (bad32, rows)
+
+
 @pytest.mark.parametrize("H", [24, 8, 144])
 def test_flow_bf16_refuses_other_widths(cuda, H):
     from glabc_tpu_torch.ops.kernels import FlowPush
@@ -550,6 +619,31 @@ def test_generic_glmcmc_matches_plain(cuda, name, algorithm):
                             C) <= 1e-3
     assert torch.equal(got[3][0], want[3][0])
     assert 0 < got[4].accepted.sum().item() < C * T
+
+
+@pytest.mark.parametrize("B", [1, 5, 64])
+@pytest.mark.parametrize("gf", [0.0, 0.5, 0.9, 1.0])
+@pytest.mark.parametrize("algorithm", ["glmcmc", "global"])
+@pytest.mark.parametrize("name", ["mixture", "ma2"])
+def test_generic_glmcmc_bitwise_at_every_coin_share(cuda, name, algorithm,
+                                                    gf, B):
+    """K8's one loop of candidate rounds (a global lane's B candidates and
+    a local lane's proposal in round 0 of the same loop) on all-local,
+    mixed and all-global warps: chains, history and counters bit for bit
+    equal to the plain version's, on 1,000 chains (a ragged last warp)."""
+    from glabc_tpu_torch.ops.kernels import GenericFusedGLMCMC
+
+    T, C = (4 if B == 64 else 8), 1000
+    prob, prog, th, y, logk, _ = _program_state(name, cuda, C, B + 3)
+    kern = GenericFusedGLMCMC(prog, global_frequency=gf, batch_size=B,
+                              steps_per_call=T, algorithm=algorithm)
+    got = kern.run(13, th, y, logk, step0=40)
+    want = kern.plain(13, th, y, logk, step0=40)
+    torch.cuda.synchronize()
+    for a, b in zip([*got[:4], *got[4]], [*want[:4], *want[4]]):
+        assert torch.equal(a, b)
+    share = got[4].global_attempts.sum().item() / (C * T)
+    assert share == gf if gf in (0.0, 1.0) else abs(share - gf) < 0.05
 
 
 @pytest.mark.parametrize("name", ["mixture", "ma2"])
