@@ -15,7 +15,8 @@ Phases, each reported on its own lines:
    Philox known-answer vectors, then T=64 steps of 65,536 chains for packed
    d=2 (GLMCMC and GlobalMCMC), unpacked d=2, d=3 and d=5 (the runtime-d
    build); then the AGLMCMC kernels at small shapes: pool-iSIR (K3) at
-   d in {2, 3, 8}, B in {5, 7} with -inf pool weights, bitwise; the batched
+   d in {2, 3, 8}, B in {5, 7} with -inf pool weights, and at a ragged
+   chain count with blocks of 32 and 1,024 threads, bitwise; the batched
    KDE density (K4) at d in {2, 3, 8}, P in {1000, 250}, to
    1e-4 max(1, |log q|); the mixed kernel (K5) at d in {2, 3},
    S in {1024, 100}, gf in {0.5, 0.9}, bitwise;
@@ -42,7 +43,9 @@ Phases, each reported on its own lines:
    coins at 32,768 x 513, beside the plain path at 1,024 x 2,049, held to
    the posterior and move-fraction bands and to the plain path's global
    acceptance; the local acceptance of each, side by side (phase 3 also
-   checks K6 at d in {2, 8}, both coin modes, K7 push and pull at d in
+   checks K6 at d in {2, 8}, both coin modes, its outputs bitwise across
+   W in {32, 16, 8, 4} chains a warp and blocks of 64 and 256 threads, and
+   its first history step, K7 push and pull at d in
    {2, 3, 8}, ragged row counts and 1,048,576 rows, with the TF32 HMMA
    instructions of its split products in its SASS, K7-bf16 (the bf16
    tensor-core flow) likewise and at hidden widths 16 and 32, with the
@@ -69,9 +72,12 @@ Phases, each reported on its own lines:
    plain shared-adaptation path at 2,048; each run's wall time split into
    kernel, initial gradient or epochs, history copies and the rest;
 10. each kernel against its plain version at its main-path shape, times,
-   bytes, operations and bounds (K1, K2 and K9 counting the move each
-   chain-step's coin picked, K9 a +-fd pair as one set of draws, the
-   older counts printed beside them), its launches on every path of
+   bytes, operations and bounds (K1, K2, K6 and K9 counting the move each
+   chain-step's coin picked, K9 a +-fd pair as one set of draws, K3 the
+   winner's theta only on a chain-step that moves, the older counts
+   printed beside them; K6 and K9 with the shared coin at the launch whose
+   coins gave the local-step count nearest (1 - gf) T, and with per-chain
+   coins), its launches on every path of
    phases 4-9, counted from 0 just before each path and read just after
    it, and for K1, K8 and K9 (per-chain coin) the same launch with every
    coin global and every coin local beside it (warp divergence); K5's
@@ -332,11 +338,46 @@ def bound_ms(bytes_moved, ops, sfu=0):
 
 
 def pool_isir_ops(d, B):
-    """32-bit operations of one K3 chain-step at the least: two Philox
-    blocks (80 each), B+1 uniforms (5 each) and Gumbels (2 logs, 2
-    negations), and per candidate an add, a compare and d+3 selects."""
+    """32-bit operations of one K3 chain-step at the least, ``(per
+    chain-step, per move)``: two Philox blocks (80 each), B+1 uniforms (5
+    each) and Gumbels (2 logs, 2 negations), per candidate the score's add,
+    the compare and the selects of the maximum, its index and its
+    log-weight (5), the move test with its selects of the log-weight, the
+    slot and the count (5); and on a chain-step that moves, the d floats of
+    the winner's theta."""
+    blocks = -(-(B + 1) // 4)
+    return 80 * blocks + 9 * (B + 1) + 5 * B + 5, d
+
+
+def pool_isir_ops_every_candidate(d, B):
+    """The older count, printed beside the recount: per candidate an add,
+    a compare and d+3 selects (the theta of every candidate)."""
     blocks = -(-(B + 1) // 4)
     return 80 * blocks + 9 * (B + 1) + B * (d + 5)
+
+
+def pool_isir_bound(a, outs):
+    """K3's bound for the launch ``PoolISIR.run(*a)`` with outputs ``outs``
+    ``(theta, logw, sel, moved, history or None)``: ``(bound, the bound
+    by the older count, bytes, operations, the older count's bytes and
+    operations)``.  The bytes the function needs: the B log-weights of every
+    chain-step, the winner's d floats on a chain-step that moves (the
+    ``moved`` counts), the history and the state in and out; the older
+    count read every candidate's theta."""
+    import torch
+
+    T, B, d, C = a[1].shape
+    n_moves = float(outs[3].sum(dtype=torch.float64))
+    outs = [x for x in outs if x is not None]
+    bytes_now = nbytes(a[2], *a[3:5], *outs) + 4.0 * d * n_moves
+    bytes_before = nbytes(*a[1:5], *outs)
+    per_step, per_move = pool_isir_ops(d, B)
+    ops = per_step * C * T + per_move * n_moves
+    ops_before = pool_isir_ops_every_candidate(d, B) * C * T
+    sfu = 2 * (B + 1) * C * T
+    return (bound_ms(bytes_now, ops, sfu), bound_ms(bytes_before, ops_before,
+                                                    sfu),
+            bytes_now, ops, bytes_before, ops_before)
 
 
 def kde_ops(d):
@@ -1127,6 +1168,24 @@ def phase_agl_kernels_vs_plain():
                 f"{float(got[3].mean()) / T:.3f}")
             check(same, f"pool_isir d={d} B={B} differs from its plain "
                   f"version (max abs {max_abs:.3g})")
+    # a ragged chain count at blocks of 32 and 1024 threads, and NaN and
+    # -inf carried weights
+    Cr = C - 13
+    ptheta, plogw, g = _random_pools(T, 5, 2, Cr, 77)
+    theta = torch.randn((2, Cr), generator=g, device=DEVICE)
+    logw = torch.randn((Cr,), generator=g, device=DEVICE) - 4.0
+    logw[::97], logw[5::101] = -math.inf, math.nan
+    want = PoolISIR(2, steps_per_call=T).plain(5, ptheta, plogw, theta,
+                                               logw, step0=1000)
+    for blk in (32, 1024):
+        got = PoolISIR(2, steps_per_call=T, block_chains=blk).run(
+            5, ptheta, plogw, theta, logw, step0=1000)
+        torch.cuda.synchronize()
+        same, _ = _bitwise(got, want)
+        log(f"[K3-vs-plain] d=2 B=5: {Cr:,} chains x {T} steps, {blk} "
+            f"threads a block, NaN and -inf carried weights: bitwise {same}")
+        check(same, f"pool_isir at {Cr} chains, {blk} threads a block, "
+              "differs from its plain version")
     for d in (2, 3, 8):
         for P in (1000, 250):
             g = torch.Generator(device=DEVICE).manual_seed(d * P)
@@ -1579,6 +1638,25 @@ def glmala_ops(d, B, n_grad, local):
     return ops, 4 * bm + 2 * d * n_grad + 2 * d + 2
 
 
+def glmala_bound(kern, a, outs):
+    """K6's bound for the launch ``kern.run(*a)`` with outputs ``outs``
+    (flattened, counters last), counting the move each chain-step's coin
+    picked (the ``gatt`` counter): ``(bound, bytes, operations,
+    special-function operations, local chain-steps)``."""
+    import torch
+
+    C, T = a[1].shape[1], kern.T
+    n_g = float(outs[-3].sum(dtype=torch.float64))
+    n_local = C * T - n_g
+    ops_l, sfu_l = glmala_ops(kern.d, kern.B, kern.cfg.n_grad, True)
+    ops_g, sfu_g = glmala_ops(kern.d, kern.B, kern.cfg.n_grad, False)
+    ops = n_local * ops_l + n_g * ops_g
+    sfu = n_local * sfu_l + n_g * sfu_g
+    shared = kern.coin_mode == "shared"
+    moved = nbytes(*a[1:5], *((a[5],) if shared else ()), *outs)
+    return bound_ms(moved, ops, sfu), moved, ops, sfu, n_local
+
+
 def flow_fmas(d, L, H):
     """Multiply-adds of one row through the whole flow: the conditioner
     [d1, H, H, 2 d2] in each of L layers."""
@@ -1651,19 +1729,38 @@ def phase_mala_flow_kernels_vs_plain():
             grad = torch.randn((d, C), generator=g, device=DEVICE)
             coins = torch.from_numpy((np.random.default_rng(d).random(T)
                                       < 0.8).astype(np.int32))
-            got = kern.run(3, theta, y, logk, grad, coins, step0=640)
-            want = kern.plain(3, theta, y, logk, grad, coins, step0=640)
+            args = (3, theta, y, logk, grad, coins)
+            got = kern.run(*args, step0=640)
+            want = kern.plain(*args, step0=640)
             torch.cuda.synchronize()
             outs = [*got[:5], *got[5]]
             refs = [*want[:5], *want[5]]
             max_abs, share = _chain_share(outs, refs, C)
             same, _ = _bitwise(outs, refs)
+            step1 = float((got[4][0] - want[4][0]).abs().max())
+            # no output may depend on the chains a warp or the block
+            shapes = [(w, blk) for w in (32, 16, 8, 4) for blk in (64, 256)]
+            across = True
+            for shape in shapes:
+                kern._geometry = lambda C, dev, shape=shape: shape[::-1]
+                o = kern.run(*args, step0=640)
+                across &= _bitwise([*o[:5], *o[5]], outs)[0]
+            del kern._geometry
+            l_acc = float(got[5][3].sum()) / max(
+                1.0, float(C * T - got[5][1].sum()))
             log(f"[K6-vs-plain] d={d} {mode}: {C:,} chains x {T} steps, "
-                f"bitwise {same}, max abs diff {max_abs:.3g}, share of "
-                f"chains differing by > {CHAIN_TOL:g}: {share:.3g}, local "
-                f"acceptance {float(got[5][3].sum()) / max(1.0, float(C * T - got[5][1].sum())):.4f}")
+                f"(threads a block, chains a warp) "
+                f"{kern._geometry(C, theta.device)}, bitwise {same}, max abs "
+                f"diff {max_abs:.3g}, share of chains differing by > "
+                f"{CHAIN_TOL:g}: {share:.3g}, step-1 history {step1:.3g}, "
+                f"bitwise across W in (32, 16, 8, 4) x (64, 256) threads "
+                f"{across}, local acceptance {l_acc:.4f}")
             check(share <= MAX_DIFF_SHARE, f"glmala d={d} {mode}: "
                   f"{share:.3%} of chains differ from the plain version")
+            check(step1 <= CHAIN_TOL, f"glmala d={d} {mode}: the first "
+                  f"step's history differs by {step1:.3g}")
+            check(across, f"glmala d={d} {mode}: the outputs depend on the "
+                  "chains a warp or the block size")
     for d, N in ((2, 4099), (3, 1000), (8, 777), (2, 1 << 20)):
         f, g = _test_flow(d, 32, 128, seed=d + N)
         z = torch.randn((d, N), generator=g, device=DEVICE)
@@ -1987,6 +2084,14 @@ def _post(ch, burn):
     return absm, var, mean, moved
 
 
+def typical_local(kern, a, k):
+    """The score of a shared-coin GLMALA launch (K6 or K9) for its kernel
+    row: the launch whose coins gave the number of local steps nearest
+    the expected (1 - gf) T, the more of them on ties."""
+    n_local = kern.T - int(a[5].sum())
+    return (-abs(n_local - (1.0 - kern.cfg.gf) * kern.T), n_local)
+
+
 def phase_glmala(tmp):
     """GLMALA through MCMCRunner.run_glmala: fused with the shared coin at
     the JAX package's chain count, beside the per-chain coin and the plain
@@ -1995,13 +2100,13 @@ def phase_glmala(tmp):
 
     paths, insts = {}, {}
 
-    path = lambda name, fn, want: instrumented(paths, insts, name, fn,
-                                               want)
+    path = lambda name, fn, want, prefer=None: instrumented(
+        paths, insts, name, fn, want, prefer)
 
     secs, (runner, ch), inst = path(
         "run_glmala_fused", lambda: mala_run(
             tmp, 0, "fused", MALA_CHAINS, MALA_ITERS, "glmala_results.csv"),
-        only(glmala=(MALA_ITERS - 1) // 32))
+        only(glmala=(MALA_ITERS - 1) // 32), {"glmala": typical_local})
     check(ch.shape == (MALA_CHAINS, MALA_ITERS, 2), f"GLMALA chains "
           f"{ch.shape}")
     check(bool(np.isfinite(ch).all()), "GLMALA chains are not finite")
@@ -2190,33 +2295,39 @@ def mala_flow_kernel_rows(insts, paths):
                     launches_by_path={k: v[key] for k, v in paths.items()},
                     **extra)
 
-    # K6
-    kern, a, k = insts["run_glmala_fused"].last["glmala"]
-    ms = median_ms(lambda: kern.run(*a, **k))
-    got = kern.run(*a, **k)
-    plain_ms, want = timed(lambda: kern.plain(*a, **k), 1)
-    outs, refs = [*got[:5], *got[5]], [*want[:5], *want[5]]
-    C = a[1].shape[1]
-    max_abs, share = _chain_share(outs, refs, C)
-    check(share <= MAX_DIFF_SHARE, f"glmala at the main shape: {share:.3%} "
-          "of chains differ")
-    n_local = int(kern.T - int(a[5].sum()))
-    ops_l, sfu_l = glmala_ops(kern.d, kern.B, kern.cfg.n_grad, True)
-    ops_g, sfu_g = glmala_ops(kern.d, kern.B, kern.cfg.n_grad, False)
-    ops = C * (n_local * ops_l + (kern.T - n_local) * ops_g)
-    sfu = C * (n_local * sfu_l + (kern.T - n_local) * sfu_g)
-    moved = nbytes(*a[1:6], *outs)
-    b = bound_ms(moved, ops, sfu)
-    log(f"[K6] glmala at the main shape, {C:,} chains x T={kern.T} "
-        f"({n_local} local steps), num_grad={kern.cfg.n_grad}: max abs "
-        f"diff {max_abs:.3g}, share of chains differing {share:.3g}; kernel"
-        f" {ms:.3f} ms, plain {plain_ms:.1f} ms; {moved / 1e9:.4f} GB, "
-        f"{ops:.4g} operations and {sfu:.4g} special-function operations "
-        f"-> bound {b[0]:.4f} ms ({b[1]})")
-    rows.append(row("glmala", "glabc_tpu_torch/csrc/glmala.cu",
-                    "glabc_tpu/ops/pallas/glmala_kernel.py:131", "glmala",
-                    "run_glmala_fused", max_abs, ms, plain_ms, b))
-    del got, want, outs, refs
+    # K6: the shared coin's typical launch, and the per-chain coin's last
+    for main, label in (("run_glmala_fused", "shared coin"),
+                        ("run_glmala_fused_per_chain", "per-chain coin")):
+        kern, a, k = insts[main].last["glmala"]
+        ms = median_ms(lambda: kern.run(*a, **k))
+        got = kern.run(*a, **k)
+        plain_ms, want = timed(lambda: kern.plain(*a, **k), 1)
+        outs, refs = [*got[:5], *got[5]], [*want[:5], *want[5]]
+        C = a[1].shape[1]
+        max_abs, share = _chain_share(outs, refs, C)
+        step1 = float((got[4][0] - want[4][0]).abs().max())
+        check(share <= MAX_DIFF_SHARE and step1 <= CHAIN_TOL,
+              f"glmala ({label}) at the main shape: {share:.3%} of chains "
+              f"differ, the first step's history by {step1:.3g}")
+        b, moved, ops, sfu, n_local = glmala_bound(kern, a, outs)
+        n_run = paths[main]["glmala"]
+        mean_ms = insts[main].kernel_ms("glmala") / n_run
+        log(f"[K6] glmala ({label}) at the main shape, {C:,} chains x "
+            f"T={kern.T}, (threads a block, chains a warp) "
+            f"{kern._geometry(C, a[1].device)}, {n_local / C:.2f} local "
+            f"steps a chain (expected {(1.0 - kern.cfg.gf) * kern.T:.1f}), "
+            f"num_grad={kern.cfg.n_grad}: max abs diff {max_abs:.3g}, share "
+            f"of chains differing {share:.3g}, step-1 history {step1:.3g}; "
+            f"kernel {ms:.3f} ms (the entry run's {n_run} launches: "
+            f"{mean_ms:.3f} ms each), plain {plain_ms:.1f} ms; "
+            f"{moved / 1e9:.4f} GB, {ops:.4g} operations and {sfu:.4g} "
+            f"special-function operations -> bound {b[0]:.4f} ms ({b[1]})")
+        rows.append(row("glmala" + ("" if label == "shared coin"
+                                    else " (per-chain coin)"),
+                        "glabc_tpu_torch/csrc/glmala.cu",
+                        "glabc_tpu/ops/pallas/glmala_kernel.py:131",
+                        "glmala", main, max_abs, ms, plain_ms, b))
+        del got, want, outs, refs
 
     # K7 push: the gf=1 run's last pool draw; the plain version over
     # chunks of 2^20 rows (per-layer matmuls at once would need ~60 GB)
@@ -2304,12 +2415,15 @@ def agl_kernel_rows(insts, paths):
     same, max_abs = _bitwise(got, want)
     check(same, "pool_isir at the main shape differs from its plain version")
     T, B, d, C = a[1].shape
-    moved = nbytes(*a[1:5], *(x for x in got if x is not None))
-    b = bound_ms(moved, pool_isir_ops(d, B) * C * T, 2 * (B + 1) * C * T)
+    b, b_old, moved, ops, moved_old, ops_old = pool_isir_bound(a, got)
     log(f"[K3] pool_isir at the main shape, {C:,} chains x T={T}, B={B}, "
-        f"d={d}: bitwise {same}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms;"
-        f" {moved / 1e9:.4f} GB, {pool_isir_ops(d, B) * C * T:.4g} "
-        f"operations -> bound {b[0]:.4f} ms ({b[1]})")
+        f"d={d}, {kern._threads(C, a[2].device)} threads a block, "
+        f"{float(got[3].sum()) / (C * T):.5f} of chain-steps move: bitwise "
+        f"{same}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
+        f"{moved / 1e9:.4f} GB, {ops:.4g} operations -> bound {b[0]:.4f} ms "
+        f"({b[1]}); by the older count (every candidate's theta): "
+        f"{moved_old / 1e9:.4f} GB, {ops_old:.4g} operations -> "
+        f"{b_old[0]:.4f} ms ({b_old[1]})")
     rows.append(_agl_row(
         "pool_isir", "glabc_tpu_torch/csrc/pool_isir.cu",
         "glabc_tpu/ops/pallas/pool_isir_kernel.py:103", "pool_isir", paths,
@@ -2836,15 +2950,11 @@ def phase_generic(tmp):
     # launch whose shared coins gave the number of local steps nearest the
     # expected (1 - gf) T (the more of them on ties)
     n_mala = (MALA_PROG_ITERS - 1) // 16
-
-    def typical(kern, a, k):
-        n_local = kern.T - int(a[5].sum())
-        return (-abs(n_local - (1.0 - kern.cfg.gf) * kern.T), n_local)
     secs, (runner, ch), inst = path(
         "run_glmala_prog", lambda: mala_prog_run(
             tmp, 0, "fused", MALA_PROG_CHAINS, MALA_PROG_ITERS,
             "glmala_prog.csv"),
-        only(generic_glmala=n_mala), {"generic_glmala": typical})
+        only(generic_glmala=n_mala), {"generic_glmala": typical_local})
     _csv(runner, "glmala_prog.csv", ch)
     check(bool(np.isfinite(ch).all()) and _inside(ch[:, 1:]),
           "MA(2) GLMALA: a state outside the triangle")

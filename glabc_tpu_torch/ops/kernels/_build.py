@@ -67,7 +67,7 @@ SOURCES = {
     },
     "glmala": {
         "glabc_glmala": [_P] * 15 + [_I] * 7 + [_F] * 18 + [_U] * 3
-        + [_I, _P],
+        + [_I, _I, _P],
     },
     "coupling_flow": {
         "glabc_coupling_flow": [_P] * 4 + [_I] * 8 + [_P],

@@ -54,8 +54,8 @@ from .mixture_kernel import MixtureConfig, _gauss_lp, _kern_lp, _sum_dims
 from .philox import gumbel, normal_pair, philox4x32, seed_key, uniform_from_bits
 
 __all__ = ["FusedMixtureGLMALA", "MalaConfig", "MalaNoise", "draw_mala_noise",
-           "mala_noise_from_uniforms", "kernel_sl_grad", "mala_transition",
-           "run_plain"]
+           "mala_noise_from_uniforms", "kernel_sl_sums", "sl_grad_from_sums",
+           "kernel_sl_grad", "mala_transition", "run_plain", "glmala_launch"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -101,6 +101,10 @@ class MalaConfig(NamedTuple):
                    half_tau2=_f32(tau * tau / 2.0), fd=_f32(fd_step),
                    two_fd=_f32(2.0 * fd_step), eps2=_f32(epsilon * epsilon),
                    ps2=_f32(prior_scale ** 2), c_norm=_f32(-0.5 * _LOG_2PI))
+
+    @property
+    def gf(self) -> float:
+        return self.mix.gf
 
     @property
     def scalar_blocks(self) -> int:
@@ -172,12 +176,13 @@ def draw_mala_noise(seed: int, num_chains: int, step: int, cfg: MalaConfig,
                                               cfg.grad_pairs), cfg)
 
 
-def kernel_sl_grad(theta: torch.Tensor, zg: torch.Tensor,
-                   cfg: MalaConfig) -> torch.Tensor:
-    """The kernel's gradient estimate at ``theta (C, d)`` from the standard
-    normals ``zg (C, n_grad, d)``: replicate ``r``'s simulator noise
-    ``sigma zg[:, r]`` serves both signs and every coordinate; sums over
-    the replicates in order, as the kernel runs them."""
+def kernel_sl_sums(theta: torch.Tensor, zg: torch.Tensor, cfg: MalaConfig):
+    """The running sums of the kernel's gradient at ``theta (C, d)`` from
+    the standard normals ``zg (C, n_grad, d)``: replicate ``r``'s simulator
+    noise ``sigma zg[:, r]`` serves both signs and every coordinate; per
+    sign and coordinate the discrepancies and their squares are summed
+    over the replicates in order, as the kernel adds them.  Returns
+    ``(s1p, s2p, s1m, s2m)``, each ``(C, d)``."""
     m = cfg.mix
     C, d = theta.shape
     y_obs = torch.tensor(m.y_obs, dtype=torch.float32, device=theta.device)
@@ -195,6 +200,15 @@ def kernel_sl_grad(theta: torch.Tensor, zg: torch.Tensor,
         diff = (a_m + zr) - y_obs
         dis = torch.sqrt(_sum_dims(diff * diff))
         s1m, s2m = s1m + dis, s2m + dis * dis
+    return s1p, s2p, s1m, s2m
+
+
+def sl_grad_from_sums(theta: torch.Tensor, s1p, s2p, s1m, s2m,
+                      cfg: MalaConfig) -> torch.Tensor:
+    """The gradient at ``theta (C, d)`` from the running sums of
+    :func:`kernel_sl_sums`: the synthetic likelihood of each sign and
+    coordinate, their central difference and the prior's gradient."""
+    m = cfg.mix
 
     def sl_lp(s1, s2):
         mu = _div(s1, float(cfg.n_grad))
@@ -204,6 +218,13 @@ def kernel_sl_grad(theta: torch.Tensor, zg: torch.Tensor,
 
     return (_div(sl_lp(s1p, s2p) - sl_lp(s1m, s2m), cfg.two_fd)
             + _div(-(theta - m.prior_loc), cfg.ps2))
+
+
+def kernel_sl_grad(theta: torch.Tensor, zg: torch.Tensor,
+                   cfg: MalaConfig) -> torch.Tensor:
+    """The kernel's gradient estimate at ``theta (C, d)`` from the standard
+    normals ``zg (C, n_grad, d)``."""
+    return sl_grad_from_sums(theta, *kernel_sl_sums(theta, zg, cfg), cfg)
 
 
 def _std_normal_lp(z, cfg):
@@ -294,14 +315,44 @@ def run_plain(cfg: MalaConfig, noise, theta, y, logk, grad, *, steps: int,
             gr.T.contiguous(), hist, counters)
 
 
+def glmala_launch(num_chains: int, num_sms: int, coin_mode: str = "shared"):
+    """``(threads per block, chains per warp W)`` of a K6 launch of
+    ``num_chains`` chains on a card of ``num_sms`` SMs.  The lanes of a
+    warp past its W chains help with their candidates and gradients.
+
+    * ``per_chain``: W is the largest of 16, 8 and 4 that still gives 8
+      warps an SM (2 a scheduler), else 4: a step's few local chains deal
+      their gradient items over the whole warp.
+    * ``shared``: W is the largest of 32, 16, 8 and 4 that still gives 4
+      warps an SM, else 4.  W = 32 runs a kernel of one thread a chain,
+      with no helper lanes: a shared coin's steps are bound by the
+      instructions they issue, not by the warps in flight (PERF.md), so
+      more warps do not pay for the helpers' shuffles and staging there.
+
+    The block is the largest of 256, 128 and 64 threads that still makes a
+    block for every SM, else 32.  32,768 chains on 132 SMs: shared W = 32
+    in blocks of 128 threads, per-chain W = 16 in blocks of 256."""
+    cands, per_sm = (((32, 16, 8), 4) if coin_mode == "shared"
+                     else ((16, 8), 8))
+    lanes = next((w for w in cands
+                  if -(-num_chains // w) >= per_sm * num_sms), 4)
+    warps = -(-num_chains // lanes)
+    for threads in (256, 128, 64):
+        if -(-warps * 32 // threads) >= num_sms:
+            return threads, lanes
+    return 32, lanes
+
+
 class FusedMixtureGLMALA:
     """Fused GLMALA for Mixture-family problems (``y = |theta| + sigma z``,
     Gaussian prior and importance proposal, Euclidean discrepancy, Gaussian
     epsilon-kernel), ``d`` in {1, 2, 4, 8}.
 
     ``launches`` counts launches of the CUDA kernel (class-wide) and rises
-    for nothing else.  ``block_chains`` (threads per CUDA block) does not
-    change the results."""
+    for nothing else.  ``block_chains`` (threads per CUDA block, a multiple
+    of 32 up to 1024) does not change the results; None takes
+    :func:`glmala_launch`'s for the launch's chain count, which also gives
+    the chains a warp."""
 
     launches = 0
 
@@ -310,8 +361,8 @@ class FusedMixtureGLMALA:
                  batch_size: int = 5, tau: float = 0.3, num_grad: int = 100,
                  fd_step: float = 0.1, prior_loc=0.0, prior_scale=1.0,
                  ip_loc=0.0, ip_scale=1.0, steps_per_call: int = 32,
-                 block_chains: int = 256, collect_history: bool = True,
-                 coin_mode: str = "shared"):
+                 block_chains: int | None = None,
+                 collect_history: bool = True, coin_mode: str = "shared"):
         self.d = int(theta_dim)
         if self.d not in (1, 2, 4, 8):
             raise ValueError(f"the fused GLMALA kernel takes theta_dim in "
@@ -330,10 +381,11 @@ class FusedMixtureGLMALA:
             ip_scale=ip_scale)
         self.B = self.cfg.mix.B
         self.T = int(steps_per_call)
-        self.C_blk = int(block_chains)
-        if self.C_blk % 32 or not 32 <= self.C_blk <= 1024:
-            raise ValueError("block_chains must be a multiple of 32 in "
-                             f"[32, 1024], got {block_chains}")
+        self.C_blk = None if block_chains is None else int(block_chains)
+        if self.C_blk is not None and (self.C_blk % 32
+                                       or not 32 <= self.C_blk <= 1024):
+            raise ValueError("block_chains must be None or a multiple of 32 "
+                             f"in [32, 1024], got {block_chains}")
         self.collect_history = bool(collect_history)
         self._y_obs_on = {}   # device -> y_obs tensor the kernel reads
 
@@ -395,6 +447,13 @@ class FusedMixtureGLMALA:
                          steps=self.T, coins=host_coins,
                          collect_history=self.collect_history)
 
+    def _geometry(self, C: int, dev):
+        """``(threads per block, chains per warp)`` of a launch on ``dev``."""
+        threads, lanes = glmala_launch(
+            C, torch.cuda.get_device_properties(dev).multi_processor_count,
+            self.coin_mode)
+        return threads if self.C_blk is None else self.C_blk, lanes
+
     def _launch(self, seed, theta, y, logk, grad, coins, step0):
         from ._build import load_library
 
@@ -427,7 +486,7 @@ class FusedMixtureGLMALA:
                 m.ip_loc, m.ip_scale, m.inv_ip_scale, m.c_ip, m.sigma,
                 m.c_kern, m.a_kern, m.gf, cfg.tau, cfg.half_tau2, cfg.fd,
                 cfg.two_fd, cfg.eps2, cfg.c_norm,
-                k0, k1, int(step0), self.C_blk, stream)
+                k0, k1, int(step0), *self._geometry(C, dev), stream)
         if rc != 0:
             raise RuntimeError(f"glmala launch failed: CUDA error {rc}")
         type(self).launches += 1

@@ -26,7 +26,7 @@ import torch
 from .philox import gumbel, philox4x32, seed_key, uniform_from_bits
 
 __all__ = ["PoolISIR", "pack_pool_theta", "pack_pool_logw", "draw_gumbels",
-           "run_plain"]
+           "run_plain", "pool_isir_launch"]
 
 
 def pack_pool_theta(theta: torch.Tensor, T: int, B: int) -> torch.Tensor:
@@ -92,17 +92,30 @@ def run_plain(pool_theta, pool_logw, theta, logw,
     return th, lw_cur, sel, moved, hist
 
 
+def pool_isir_launch(num_chains: int, num_sms: int) -> int:
+    """Threads per block of a K3 launch of ``num_chains`` chains on a card of
+    ``num_sms`` SMs.  A block owns 32 chains; its warps share the parallel
+    phases of its chunks.  The fewest of 8, 16 and 32 warps that give the
+    launch 48 warps an SM (three quarters of an SM's 64), else 32.  32,768
+    chains on 132 SMs: 1,024 blocks of 256 threads."""
+    blocks = -(-num_chains // 32)
+    warps = next((w for w in (8, 16) if blocks * w >= 48 * num_sms), 32)
+    return 32 * warps
+
+
 class PoolISIR:
     """Fused iSIR-over-pool transitions, problem-agnostic.
 
     ``launches`` counts launches of the CUDA kernel (class-wide) and rises
     for nothing else.  ``block_chains`` is the number of threads per CUDA
-    block; it does not change the results."""
+    block (a multiple of 32 up to 1024; None: :func:`pool_isir_launch`'s
+    for the launch's chain count); a block owns 32 chains whatever its
+    size, and the size does not change the results."""
 
     launches = 0
 
     def __init__(self, theta_dim: int, *, batch_size: int = 5,
-                 steps_per_call: int = 200, block_chains: int = 256,
+                 steps_per_call: int = 200, block_chains: int | None = None,
                  collect_history: bool = True):
         self.d = int(theta_dim)
         self.B = int(batch_size)
@@ -111,10 +124,11 @@ class PoolISIR:
         if self.d < 1:
             raise ValueError(f"theta_dim must be >= 1, got {theta_dim}")
         self.T = int(steps_per_call)
-        self.C_blk = int(block_chains)
-        if self.C_blk % 32 or not 32 <= self.C_blk <= 1024:
-            raise ValueError("block_chains must be a multiple of 32 in "
-                             f"[32, 1024], got {block_chains}")
+        self.C_blk = None if block_chains is None else int(block_chains)
+        if self.C_blk is not None and (self.C_blk % 32
+                                       or not 32 <= self.C_blk <= 1024):
+            raise ValueError("block_chains must be None or a multiple of 32 "
+                             f"in [32, 1024], got {block_chains}")
         self.collect_history = bool(collect_history)
 
     def _check(self, pool_theta, pool_logw, theta, logw) -> int:
@@ -166,6 +180,13 @@ class PoolISIR:
         return run_plain(pool_theta, pool_logw, theta, logw, gumbels,
                          self.collect_history)
 
+    def _threads(self, C: int, dev) -> int:
+        """Threads per block of a launch on ``dev``."""
+        if self.C_blk is not None:
+            return self.C_blk
+        return pool_isir_launch(
+            C, torch.cuda.get_device_properties(dev).multi_processor_count)
+
     def _launch(self, seed, pool_theta, pool_logw, theta, logw, step0):
         from ._build import load_library
 
@@ -187,7 +208,7 @@ class PoolISIR:
                 ptr(pool_theta), ptr(pool_logw), ptr(theta), ptr(logw),
                 ptr(th_o), ptr(lw_o), ptr(sel), ptr(moved), ptr(hist),
                 self.d, C, self.T, self.B, int(self.collect_history), k0, k1,
-                int(step0), self.C_blk, stream)
+                int(step0), self._threads(C, dev), stream)
         if rc != 0:
             raise RuntimeError(f"pool_isir launch failed: CUDA error {rc}")
         type(self).launches += 1

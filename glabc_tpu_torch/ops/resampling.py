@@ -16,6 +16,7 @@ the JAX functions' (same indices, same rows).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -35,11 +36,17 @@ def sanitize_log_weights(log_w: torch.Tensor) -> torch.Tensor:
 
 
 def categorical_from_log_weights(log_w: torch.Tensor, generator=None,
-                                 dim: int = -1) -> torch.Tensor:
-    """One index per row proportional to ``exp(log_w)`` (Gumbel-max).
+                                 dim: Optional[int] = None, *,
+                                 axis: Optional[int] = None) -> torch.Tensor:
+    """One index per row proportional to ``exp(log_w)`` (Gumbel-max) along
+    ``dim`` (default -1; ``axis=`` is the JAX package's name for it).
     Unnormalized weights are fine; NaNs are zero mass.  If every weight is
     zero the draw is index 0, the iSIR samplers' "stay" slot
     (``GLMCMC.py:84``)."""
+    if dim is not None and axis is not None:
+        raise ValueError("categorical_from_log_weights: give dim= or axis=, "
+                         "not both")
+    dim = axis if axis is not None else (-1 if dim is None else dim)
     log_w = sanitize_log_weights(log_w)
     u = torch.rand(log_w.shape, generator=generator, dtype=torch.float32,
                    device=log_w.device).clamp_min(_TINY)

@@ -94,11 +94,16 @@ def rhat(chains) -> torch.Tensor:
 
 
 def weighted_std(x, weights, unbiased: bool = True,
-                 dim: int = 0) -> torch.Tensor:
+                 dim: Optional[int] = None, *,
+                 axis: Optional[int] = None) -> torch.Tensor:
     """Weighted standard deviation with the reliability-weight correction
     ``1 / clamp(1 - sum(w^2), min=1e-10)`` (``kernel_density.py:39-68``).
     Leading axes of ``weights`` are batch axes (one chain each): the weights
-    are normalized over their last axis, which ``dim`` of ``x`` indexes."""
+    are normalized over their last axis, which ``dim`` of ``x`` indexes
+    (default 0; ``axis=`` is the JAX package's name for it)."""
+    if dim is not None and axis is not None:
+        raise ValueError("weighted_std: give dim= or axis=, not both")
+    dim = axis if axis is not None else (0 if dim is None else dim)
     x, weights = _t(x), _t(weights)
     w = weights / torch.sum(weights, dim=-1, keepdim=True)
     w_ex = w.unsqueeze(-1) if x.dim() > w.dim() else w

@@ -49,7 +49,8 @@ def run_glmala_fused(problem, generator, num_ite, theta0, *, y0=None,
                      prior_scale=1.0, global_frequency=0.8, batch_size=5,
                      tau=0.3, num_grad=100, fd_step=0.1,
                      num_chains: int = 2048, steps_per_call: int = 32,
-                     block_chains: int = 256, collect_history: bool = True,
+                     block_chains: int | None = None,
+                     collect_history: bool = True,
                      coin_mode: str = "shared", on_segment=None,
                      seed: int | None = None, mesh=None,
                      checkpoint_path: str | None = None,

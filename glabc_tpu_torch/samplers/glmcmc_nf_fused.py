@@ -304,7 +304,7 @@ def run_glmcmc_nf_fused(problem, generator, num_ite, theta0,
                         local_proposal=None, base=None, batch_size=5,
                         step_size=200, train_steps=50, y0=None,
                         num_chains: int = 4096, n_layers: int = 32,
-                        hidden: int = 128, block_chains: int = 256,
+                        hidden: int = 128, block_chains: int | None = None,
                         collect_history: bool = True, on_segment=None,
                         flow=None, seed: int | None = None,
                         max_train: int = 65536, learning_rate: float = 5e-4,

@@ -909,3 +909,108 @@ def test_kde_logprob_one_chain_many_points(cuda):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert ((got - want).abs() / want.abs().clamp_min(1.0)).max() <= 1e-4
+
+
+# ------------------------- K3 and K6 redesigned: phases, W and block sizes
+@pytest.mark.parametrize("C", [1000, 4113, 32768])
+@pytest.mark.parametrize("d,B,T", [(2, 5, 45), (1, 1, 16), (3, 7, 33),
+                                   (8, 5, 17), (17, 4, 9)])
+def test_pool_isir_bitwise_at_every_block_size(cuda, C, d, B, T):
+    """K3's two phases equal its plain version to the bit (sel, counts and
+    history included) at blocks of 32, 64, 256 and 1024 threads and the
+    default from the chain count, on chain counts that are not multiples
+    of 32, -inf pool weights and a -inf and a NaN carried weight, with the
+    history kept and not."""
+    ptheta, plogw, g = _pool_inputs(cuda, T, B, d, C, seed=C + d)
+    theta = torch.randn((d, C), generator=g, device=cuda)
+    logw = torch.randn((C,), generator=g, device=cuda) - 4.0
+    logw[::97] = -float("inf")
+    logw[5::101] = float("nan")
+    for collect in (True, False):
+        make = lambda blk: PoolISIR(d, batch_size=B, steps_per_call=T,
+                                    block_chains=blk,
+                                    collect_history=collect)
+        want = make(None).plain(3, ptheta, plogw, theta, logw, step0=200)
+        for blk in (None, 32, 64, 256, 1024):
+            before = PoolISIR.launches
+            got = make(blk).run(3, ptheta, plogw, theta, logw, step0=200)
+            assert PoolISIR.launches == before + 1
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                if b is None:
+                    assert a is None
+                    continue
+                assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)), blk
+                assert torch.equal(a.isnan(), b.isnan()), blk
+    moves = float(want[3].sum()) / (C * T)
+    assert 0.05 < moves < 0.95
+
+
+def _glmala_case(cuda, d, mode, gf, C, T=6, seed=0):
+    from glabc_tpu_torch.ops.kernels import FusedMixtureGLMALA
+
+    prob = _problem(d) if d > 1 else HighDimMixtureProblem(1)
+    g = torch.Generator(device=cuda).manual_seed(seed + d)
+    theta = (torch.randn((d, C), generator=g, device=cuda) * 1.3).contiguous()
+    y = (theta.abs() + 0.2 * torch.randn((d, C), generator=g,
+                                         device=cuda)).contiguous()
+    logk = prob.log_kernel_of_y(y.T.contiguous()).contiguous()
+    grad = torch.randn((d, C), generator=g, device=cuda)
+    coins = torch.from_numpy((np.random.default_rng(seed).random(T) < gf)
+                             .astype(np.int32))
+    def make(blk, w):
+        """The kernel at ``blk`` threads a block and, where ``w`` is given,
+        ``w`` chains a warp in place of the launch rule's."""
+        kern = FusedMixtureGLMALA(
+            d, prob.y_obs.numpy(), epsilon=prob.epsilon,
+            sigma=prob._noise_std, global_frequency=gf, num_grad=20,
+            steps_per_call=T, block_chains=blk, coin_mode=mode)
+        if w is not None:
+            kern._geometry = lambda C, dev: (blk, w)
+        return kern
+    return make, (theta, y, logk, grad, coins)
+
+
+@pytest.mark.parametrize("gf", [0.0, 0.5, 0.8, 1.0])
+@pytest.mark.parametrize("coin_mode", ["shared", "per_chain"])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_glmala_bitwise_across_warp_shapes(cuda, d, coin_mode, gf):
+    """K6 with W in {32, 16, 8, 4} chains a warp and blocks of 32, 128,
+    256 and 1024 threads (and the defaults): every output equal to the
+    bit across them, and within the limits against the plain version (at
+    most 0.1 % of chains over 1e-5, the first step's history within 1e-5),
+    on 1,000 chains (a ragged last warp)."""
+    C, T = 1000, 6
+    make, args = _glmala_case(cuda, d, coin_mode, gf, C, T, seed=int(10 * gf))
+    want = make(None, None).plain(5, *args, step0=96)
+    ref = make(None, None).run(5, *args, step0=96)
+    torch.cuda.synchronize()
+    outs, refs = [*ref[:5], *ref[5]], [*want[:5], *want[5]]
+    assert _share_differing(outs, refs, C) <= 1e-3
+    assert torch.allclose(ref[4][0], want[4][0], rtol=0, atol=1e-5)
+    for w in (32, 16, 8, 4):
+        for blk in (32, 128, 256, 1024):
+            got = make(blk, w).run(5, *args, step0=96)
+            torch.cuda.synchronize()
+            for a, b in zip([*got[:5], *got[5]], outs):
+                assert torch.equal(a, b), (w, blk)
+    if coin_mode == "per_chain":
+        assert abs(ref[5][1].sum().item() / (C * T) - gf) < 0.05
+    if gf < 1.0:
+        assert ref[5][3].sum().item() > 0     # local MALA moves are accepted
+    if gf > 0.0:
+        assert ref[5][2].sum().item() > 0     # and global ones
+
+
+def test_glmala_default_launch_at_the_main_shape(cuda):
+    """32,768 chains, both coin modes: the default geometry (W and the
+    block from the chain count and the coin mode: 32 shared, 16 per-chain)
+    equals W = 8 at 256 threads to the bit."""
+    C, T = 32768, 4
+    for mode in ("shared", "per_chain"):
+        make, args = _glmala_case(cuda, 2, mode, 0.5, C, T, seed=3)
+        a = make(None, None).run(9, *args, step0=0)
+        b = make(256, 8).run(9, *args, step0=0)
+        torch.cuda.synchronize()
+        for x, y in zip([*a[:5], *a[5]], [*b[:5], *b[5]]):
+            assert torch.equal(x, y)
