@@ -87,7 +87,18 @@ Phases, each reported on its own lines:
    gf=0.5 run's shared-epoch density (32,768,000 points, 1,024
    components) beside ``KernelDensity.log_prob`` as the epoch calls it.
    Phase 2 prints K1's and K4's static SASS split by instruction class,
-   and K8's and K7-bf16's registers as ptxas reports them.
+   and K8's and K7-bf16's registers as ptxas reports them;
+11. sharded (``mesh=``, run after phase 9 and before phase 10): every
+   kernel that draws randomness (K1 packed, K2, K3, K5 with both local
+   moves, K6 and K9 with both coins, K8) launched over 4,096 and 3,000
+   chains x 32 steps and over the two halves of the range, each half
+   with its first global chain as ``chain0`` and packed on its own, must
+   join to the whole launch's bits; then ``run_glmcmc_fused`` at 65,536
+   chains x 1,025 with ``mesh=make_mesh()`` over a one-rank NCCL group
+   must equal the ``mesh=None`` run bit for bit (its launches counted as
+   a path, its wall printed beside the unsharded one), and two ranks on
+   the one card (gloo over CUDA tensors, two processes) must each return
+   the one-rank run of 16,384 chains x 129.
 
 ``python3 chip_smoke.py --seed-spread N [agl] [glmala] [nf] [ma2]
 [glmala_prog] [agl_prog]`` runs only phase 1 and the compared paths of
@@ -3210,6 +3221,261 @@ def generic_kernel_rows(insts, paths):
     return rows
 
 
+# ------------------------------------- the chain offset and the mesh (M12)
+SPLIT_CHAINS, SPLIT_T = 4096, 32   # the split-launch check's shape
+SPLIT_RAGGED = 3000                # halves of 1,500: no multiple of a warp
+
+
+def split_cases(device, C, T, seed=0):
+    """Every kernel that draws randomness, at ``C`` chains x ``T`` steps, as
+    ``(name, run)``: ``run(lo, hi, c0)`` launches it (its plain version for
+    CPU tensors) on chains ``lo .. hi - 1`` of one set of inputs, with
+    ``chain0 = c0`` and the range packed on its own, and returns every
+    output with chains on the last axis.  A chain's streams are keyed by
+    its global index, so the whole range and its two halves must join to
+    the same bits (K1 packed, K2, K3, K5 with both local moves, K6 and K9
+    with both coins, K8).  ``C`` must be a multiple of 8."""
+    import numpy as np
+    import torch
+    from glabc_tpu_torch import (HighDimMixtureProblem, MA2Problem,
+                                 MixtureProblem, mixture_tile_program)
+    from glabc_tpu_torch.ops.kernels import (FusedMixtureGLMALA,
+                                             FusedMixtureGLMCMC,
+                                             GenericFusedGLMALA,
+                                             GenericFusedGLMCMC,
+                                             PackedMixtureGLMCMC, PoolISIR,
+                                             PoolISIRMixed,
+                                             resident_from_gaussian)
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    f = dict(generator=g, device=device)
+    cut = lambda xs, lo, hi: [x[..., lo:hi].contiguous() for x in xs]
+
+    def mixture_state(prob, d, scale=1.3):
+        th = (torch.randn((d, C), **f) * scale).contiguous()
+        y = prob.simulate(th.T.contiguous(), g).T.contiguous()
+        return th, y, prob.log_kernel_of_y(y.T).contiguous()
+
+    def flat(out):
+        return [x for o in out for x in (o if isinstance(o, (list, tuple))
+                                          else (o,)) if x is not None]
+
+    cases = []
+    p2, p3, ma2 = MixtureProblem(0.05), HighDimMixtureProblem(3), MA2Problem()
+    s2, s3 = mixture_state(p2, 2), mixture_state(p3, 3)
+    grad = torch.randn((2, C), **f)
+    mix = dict(epsilon=p2.epsilon, sigma=p2._noise_std)
+
+    def mixture_case(kern, prob, state):
+        groups = getattr(kern, "pack", 1)
+
+        def run(lo, hi, c0):
+            th, y, lk = cut(state, lo, hi)
+            to = lambda x: kern.from_chains(x.T.contiguous(), groups)
+            out = kern.run(3, to(th), to(y),
+                           kern.from_chains(lk, groups, "logk"), step0=T,
+                           chain0=c0)
+            back = lambda x: kern.to_chains(x, groups).T
+            aux = lambda x: kern.to_chains(x, groups, aux=True)
+            return [back(out[0]), back(out[1]), aux(out[2]),
+                    torch.stack([back(h) for h in out[3]]),
+                    *(aux(s) for s in out[4])]
+        return run
+
+    cases.append(("K1 mixture_glmcmc (packed)", mixture_case(
+        PackedMixtureGLMCMC(2, p2.y_obs.numpy(), steps_per_call=T, **mix),
+        p2, s2)))
+    cases.append(("K2 mixture_glmcmc (unpacked, d=3)", mixture_case(
+        FusedMixtureGLMCMC(3, p3.y_obs.numpy(), epsilon=p3.epsilon,
+                           sigma=p3._noise_std, steps_per_call=T), p3, s3)))
+
+    B = 5
+    ptheta = torch.randn((T, B, 2, C), **f)
+    plogw = torch.randn((T, B, C), **f) * 3.0 - 4.0
+    plogw = torch.where(torch.rand((T, B, C), **f) < 0.2,
+                        torch.full_like(plogw, -math.inf), plogw)
+    k3 = PoolISIR(2, batch_size=B, steps_per_call=T)
+    logw = torch.randn((C,), **f) - 4.0
+    cases.append(("K3 pool_isir", lambda lo, hi, c0: list(k3.run(
+        5, *cut((ptheta, plogw, s2[0], logw), lo, hi), step0=2 * T,
+        chain0=c0))))
+
+    res = resident_from_gaussian(np.zeros(2), np.full(2, 1.3), device=device)
+    px = (ptheta.abs() + 0.2 * torch.randn(ptheta.shape, **f)).contiguous()
+    plogk = torch.randn((T, B, C), **f) - 1.0
+    k5 = PoolISIRMixed(2, p2.y_obs.numpy(), global_frequency=0.5,
+                       batch_size=B, steps_per_call=T, **mix)
+    cases.append(("K5 pool_isir_mixed (Mixture move)",
+                  lambda lo, hi, c0: list(k5.run(
+                      7, res, *cut((ptheta, px, plogw, plogk, *s2), lo, hi),
+                      step0=3 * T, chain0=c0))))
+
+    m_th = ((torch.rand((2, C), **f) - 0.5) * 0.3).contiguous()
+    m_y = ma2.simulate(m_th.T.contiguous(), g).T.contiguous()
+    m_lk = ma2.log_kernel_of_y(m_y.T).contiguous()
+    m_pth = ((torch.rand((T, B, 2, C), **f) - 0.5) * 0.6).contiguous()
+    m_px = ma2.simulate(m_pth.permute(0, 1, 3, 2).contiguous(),
+                        g).permute(0, 1, 3, 2).contiguous()
+    m_plk = ma2.log_kernel_of_y(m_px.permute(0, 1, 3, 2)).contiguous()
+    m_plw = (m_plk + torch.randn(m_plk.shape, **f)).contiguous()
+    m_res = resident_from_gaussian(np.zeros(2), np.full(2, 0.3),
+                                   device=device)
+    k5p = PoolISIRMixed(2, program=ma2.tile_program(), global_frequency=0.5,
+                        batch_size=B, steps_per_call=T)
+    cases.append(("K5 pool_isir_mixed (MA(2) program move)",
+                  lambda lo, hi, c0: list(k5p.run(
+                      7, m_res, *cut((m_pth, m_px, m_plw, m_plk, m_th, m_y,
+                                      m_lk), lo, hi), step0=3 * T,
+                      chain0=c0))))
+
+    coins = torch.from_numpy((np.arange(T) % 3 == 0).astype(np.int32))
+    for mode in ("shared", "per_chain"):
+        k6 = FusedMixtureGLMALA(2, p2.y_obs.numpy(), global_frequency=0.5,
+                                num_grad=10, steps_per_call=T,
+                                coin_mode=mode, **mix)
+        cases.append((f"K6 glmala ({mode} coin)",
+                      lambda lo, hi, c0, k=k6: flat(k.run(
+                          9, *cut((*s2, grad), lo, hi), coins, step0=T,
+                          chain0=c0))))
+
+    prog = mixture_tile_program(p2)
+    k8 = GenericFusedGLMCMC(prog, global_frequency=0.8, batch_size=B,
+                            steps_per_call=T)
+    cases.append(("K8 generic_glmcmc (Mixture program)",
+                  lambda lo, hi, c0: flat(k8.run(
+                      11, *cut(s2, lo, hi), step0=T, chain0=c0))))
+    for mode in ("shared", "per_chain"):
+        k9 = GenericFusedGLMALA(prog, epsilon=p2.epsilon,
+                                global_frequency=0.5, tau=0.1, num_grad=10,
+                                steps_per_call=T, coin_mode=mode)
+        cases.append((f"K9 generic_glmala ({mode} coin)",
+                      lambda lo, hi, c0, k=k9: flat(k.run(
+                          13, *cut((*s2, grad), lo, hi), coins, step0=T,
+                          chain0=c0))))
+    return cases
+
+
+def split_matches(run, C, offset=True):
+    """``(same, max_abs)``: the launch over all ``C`` chains against its two
+    halves (chain0 0 and C/2; ``offset=False``: 0 and 0, the control that
+    must differ) joined on the chain axis."""
+    import torch
+
+    h = C // 2
+    whole = run(0, C, 0)
+    halves = [run(0, h, 0), run(h, C, h if offset else 0)]
+    joined = [torch.cat(pair, dim=-1) for pair in zip(*halves)]
+    if len(joined) != len(whole):
+        return False, math.inf
+    return _bitwise(whole, joined)
+
+
+def phase_sharded(card):
+    """The chain offset on the card, and ``mesh=`` at world size 1.
+
+    Every sampling kernel launched over a chain range and over its two
+    halves (each with its first global chain as ``chain0``, packed on its
+    own) must give the same bits, at SPLIT_CHAINS and at SPLIT_RAGGED
+    chains.  Then ``run_glmcmc_fused`` at the GLMCMC entry-run shape with
+    ``mesh=make_mesh()`` over a one-rank NCCL group (a ``FileStore`` in a
+    temporary directory) must equal the ``mesh=None`` run bit for bit:
+    history and counts.  Last, two ranks share the card
+    (:func:`two_ranks_one_card`).  No scaling number: the machine has one
+    card."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from glabc_tpu_torch import MixtureProblem, run_glmcmc_fused
+    from glabc_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    for C in (SPLIT_CHAINS, SPLIT_RAGGED):
+        for name, run in split_cases(DEVICE, C, SPLIT_T, seed=C):
+            same, max_abs = split_matches(run, C)
+            torch.cuda.synchronize()
+            log(f"[sharded] {name}: {C:,} chains x {SPLIT_T}, the whole "
+                f"launch against its halves (chain0 0 and {C // 2:,}): "
+                f"{'bitwise' if same else 'DIFFER'} (max abs {max_abs:.3g})")
+            check(same, f"{name}: the halves with chain0 do not join to "
+                  f"the whole launch at {C:,} chains")
+
+    prob = MixtureProblem(0.05)
+
+    def run(mesh):
+        g = torch.Generator(device=DEVICE).manual_seed(4)
+        return run_glmcmc_fused(prob, g, ITERS, np.zeros(2),
+                                num_chains=CHAINS, mesh=mesh)
+
+    secs_ref, ref = wall(lambda: run(None))
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        initialize_distributed("nccl", store=store, rank=0, world_size=1)
+        try:
+            mesh = make_mesh()
+            (secs, got), counts = counted(lambda: wall(lambda: run(mesh)))
+        finally:
+            dist.destroy_process_group()
+    check(counts == only(packed=(ITERS - 1) // 256),
+          f"run_glmcmc_fused(mesh=): launches {counts}")
+    same = (np.array_equal(got.thetas, ref.thetas)
+            and all(np.array_equal(a, b)
+                    for a, b in zip(got.counts, ref.counts)))
+    log(f"[sharded] run_glmcmc_fused, {CHAINS:,} chains x {ITERS:,}: "
+        f"mesh=make_mesh() on one NCCL rank wall {secs:.2f} s, mesh=None "
+        f"wall {secs_ref:.2f} s; history and counts "
+        f"{'bitwise equal' if same else 'DIFFER'}; {card}")
+    check(same, "run_glmcmc_fused with a one-rank mesh differs from "
+          "mesh=None")
+    two_ranks_one_card()
+    return {"run_glmcmc_mesh": counts}
+
+
+def _two_rank_worker(rank, store_path, out_dir):
+    """One of two ranks on the one card: gloo over CUDA tensors (NCCL
+    refuses two ranks on one device)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from glabc_tpu_torch import MixtureProblem, run_glmcmc_fused
+    from glabc_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    initialize_distributed("gloo", store=dist.FileStore(store_path, 2),
+                           rank=rank, world_size=2)
+    try:
+        mesh = make_mesh(2)
+        run = lambda m: run_glmcmc_fused(
+            MixtureProblem(0.05), torch.Generator(
+                device=DEVICE).manual_seed(6), 129, np.zeros(2),
+            num_chains=16384, mesh=m, device=DEVICE)
+        out = {"mesh": run(mesh).thetas}
+        if rank == 0:
+            out["ref"] = run(None).thetas
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def two_ranks_one_card():
+    """``mesh=`` on two ranks sharing the one card, gloo over CUDA
+    tensors: each rank's ``run_glmcmc_fused`` at 16,384 chains x 129 must
+    equal the one-rank run bit for bit."""
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        mp.start_processes(_two_rank_worker,
+                           args=(os.path.join(tmp, "store"), tmp), nprocs=2,
+                           join=True, start_method="spawn")
+        secs = time.perf_counter() - t
+        r = [np.load(os.path.join(tmp, f"rank{i}.npz")) for i in range(2)]
+        same = all(np.array_equal(x["mesh"], r[0]["ref"]) for x in r)
+    log(f"[sharded] two ranks on one card (gloo, CUDA tensors): "
+        f"run_glmcmc_fused 16,384 chains x 129 on each rank "
+        f"{'bitwise equal to' if same else 'DIFFERS from'} one rank; "
+        f"{secs:.1f} s with both processes' start")
+    check(same, "two ranks on one card differ from one rank")
+
+
 def main():
     t0 = time.perf_counter()
     try:
@@ -3249,8 +3515,10 @@ def main():
         nf_paths, nf_insts = phase_glmcmc_nf(tmp)
         bf16_counts, bf16_rows = phase_flow_bf16(nf_insts)
         gen_paths, gen_insts = phase_generic(tmp)
+    mesh_paths = phase_sharded(card)
     paths = {"bench": bench["launches"], **paths, **agl_paths, **mala_paths,
-             **nf_paths, "flow_api_bf16": bf16_counts, **gen_paths}
+             **nf_paths, "flow_api_bf16": bf16_counts, **gen_paths,
+             **mesh_paths}
 
     rows = phase_kernels_line(bench, carry3, prob3, paths)
     rows += agl_kernel_rows(insts, paths)

@@ -10,7 +10,9 @@ twin): ``run_fused_program``, ``run_glmala_program`` and the mixed AGLMCMC
 kernel's ``tile_program=``.
 
 Entry points run on the current CUDA device unless they are given
-``device='cpu'``; without a GPU and without a device they raise.  The CUDA
+``device='cpu'``; without a GPU and without a device they raise.  With
+``mesh=`` (a 1-D ``DeviceMesh``, one process per GPU;
+:mod:`glabc_tpu_torch.parallel`) they shard their chains over the ranks.  The CUDA
 sources in ``csrc/`` build with ``nvcc`` at their first launch, into
 ``glabc_tpu_torch/_build/``.
 """

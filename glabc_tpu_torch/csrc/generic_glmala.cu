@@ -49,7 +49,7 @@
 // Layouts: theta, grad (D, C); y (Y, C); logk and the four counters (C,);
 // history (T, D, C) when collected; coins (T,) int32 in shared mode.
 //
-// Random numbers per step, counter (chain, step0 + t, block, 0):
+// Random numbers per step, counter (chain0 + chain, step0 + t, block, 0):
 //   blocks [0, S), S = ceil((B+3)/4): scalar slot s is lane s%4 of block s/4:
 //       Gumbel 0 (current state), 1..B (candidates), B+1 the local accept
 //       uniform, B+2 the per-chain coin;
@@ -92,6 +92,7 @@ struct ProgMalaArgs {
   int C, T, B, n_grad, collect, shared, gb, sb, paired;
   float gf, tau, half_tau2, fd, two_fd, eps2, c_norm;
   uint32_t key0, key1, step0;
+  uint32_t chain0;  // the global index of chain 0 (a shard's offset)
 };
 
 using Prog = Program;
@@ -160,7 +161,7 @@ struct WarpStage {
 // replicate order, as one thread looping over its replicates would.  Every
 // lane of the warp must call it.
 __device__ void sl_grad(const ProgMalaArgs& a, WarpStage& ws,
-                             unsigned loc, bool mine, uint32_t chain0,
+                             unsigned loc, bool mine, uint32_t warp_first,
                              uint32_t step, uint32_t first,
                              const float (&th)[D], float (&g)[D]) {
   const float* p = a.params;
@@ -194,7 +195,7 @@ __device__ void sl_grad(const ProgMalaArgs& a, WarpStage& ws,
           first + (static_cast<uint32_t>(r) * D + static_cast<uint32_t>(k)) *
                       sb;
       float yp[Y], ym[Y];
-      Draws dr(chain0 + static_cast<uint32_t>(ws.lane[q]), step, a.key0,
+      Draws dr(warp_first + static_cast<uint32_t>(ws.lane[q]), step, a.key0,
                a.key1, blk);
       Prog::simulate_pair(p, tp, tm, dr, yp, ym);
       ws.dis[lane] =
@@ -225,7 +226,9 @@ __global__ void generic_glmala_kernel(ProgMalaArgs a) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   // no early return: every lane of a warp takes part in its gradients
   const bool valid = c < a.C;
-  const uint32_t chain0 = static_cast<uint32_t>(c) - (threadIdx.x & 31u);
+  // the global index of the warp's first chain
+  const uint32_t warp_first =
+      a.chain0 + static_cast<uint32_t>(c) - (threadIdx.x & 31u);
   const size_t C = static_cast<size_t>(a.C);
   const float* p = a.params;
   float th[D], yv[Y], gr[D];
@@ -238,7 +241,7 @@ __global__ void generic_glmala_kernel(ProgMalaArgs a) {
   for (int j = 0; j < Y; ++j) yv[j] = valid ? a.y_in[j * C + c] : 0.0f;
   float logk = valid ? a.logk_in[c] : 0.0f;
   float n_acc = 0.0f, n_gatt = 0.0f, n_gacc = 0.0f, n_lacc = 0.0f;
-  const uint32_t chain = static_cast<uint32_t>(c);
+  const uint32_t chain = a.chain0 + static_cast<uint32_t>(c);
   const bool paired = a.paired != 0;
   const uint32_t S = static_cast<uint32_t>((a.B + 3 + 3) / 4);
   const uint32_t g_sim = paired ? 0u : static_cast<uint32_t>(a.gb);
@@ -275,7 +278,7 @@ __global__ void generic_glmala_kernel(ProgMalaArgs a) {
         for (int j = 0; j < D; ++j)
           thp[j] = (th[j] + a.tau * z[j]) + gr[j] * a.half_tau2;
       }
-      sl_grad(a, ws, loc, local, chain0, step, grad_block, thp, gp);
+      sl_grad(a, ws, loc, local, warp_first, step, grad_block, thp, gp);
       if (local) {
         float yp[Y], zr[D];
         const float log_fwd = std_normal_lp(z, a.c_norm);
@@ -334,8 +337,8 @@ extern "C" int glabc_generic_glmala(
     int y_rows, int C, int T, int B, int n_grad, int collect, int shared,
     int global_blocks, int sim_blocks, int sim_paired, float gf, float tau,
     float half_tau2, float fd, float two_fd, float eps2, float c_norm,
-    unsigned int key0, unsigned int key1, unsigned int step0, int threads,
-    void* stream) {
+    unsigned int key0, unsigned int key1, unsigned int step0,
+    unsigned int chain0, int threads, void* stream) {
   using namespace glabc;
   if (d != D || y_rows != Y || B < 1 || B > 64 || n_grad < 2 ||
       (shared && coins == nullptr))
@@ -346,7 +349,7 @@ extern "C" int glabc_generic_glmala(
                  C,         T,        B,        n_grad,   collect,
                  shared,    global_blocks, sim_blocks, sim_paired, gf,
                  tau,       half_tau2, fd,      two_fd,   eps2,
-                 c_norm,    key0,     key1,     step0};
+                 c_norm,    key0,     key1,     step0,    chain0};
   const dim3 grid((C + threads - 1) / threads);
   const size_t smem = static_cast<size_t>(threads / 32) * sizeof(WarpStage);
   if (smem > 48 * 1024) {

@@ -42,7 +42,7 @@
 // Layouts: theta (D, C), y (Y, C), logk and the four counters (C,), history
 // (T, D, C) when collected; params the program's float vector.
 //
-// Random numbers per step, counter (chain, step0 + t, block, 0):
+// Random numbers per step, counter (chain0 + chain, step0 + t, block, 0):
 //   blocks [0, S): scalar slot s is lane s%4 of block s/4; glmcmc: Gumbel 0
 //       (current state), 1..B (candidates), B+1 the local accept uniform,
 //       B+2 the coin; global: 0 the local accept, 1 the coin, 2 the global
@@ -82,6 +82,7 @@ struct GenericArgs {
   int C, T, collect, glmcmc, B, gb, sb, lb, paired;
   float gf;
   uint32_t key0, key1, step0;
+  uint32_t chain0;  // the global index of chain 0 (a shard's offset)
 };
 
 using Prog = Program;
@@ -101,7 +102,7 @@ __global__ void generic_glmcmc_kernel(GenericArgs a) {
   for (int j = 0; j < Y; ++j) yv[j] = a.y_in[j * C + c];
   float logk = a.logk_in[c];
   float n_acc = 0.0f, n_gatt = 0.0f, n_gacc = 0.0f, n_lacc = 0.0f;
-  const uint32_t chain = static_cast<uint32_t>(c);
+  const uint32_t chain = a.chain0 + static_cast<uint32_t>(c);
   const bool paired = a.paired != 0;
   const int Bp = GLMCMC ? a.B : 1;
   const int n_scalar = GLMCMC ? a.B + 3 : 3;
@@ -192,14 +193,15 @@ extern "C" int glabc_generic_glmcmc(
     int y_rows, int C, int T, int collect, int glmcmc, int B,
     int global_blocks, int sim_blocks, int local_blocks, int sim_paired,
     float gf, unsigned int key0, unsigned int key1, unsigned int step0,
-    int threads, void* stream) {
+    unsigned int chain0, int threads, void* stream) {
   using namespace glabc;
   if (d != D || y_rows != Y || B < 1 || B > 64) return -1;
   GenericArgs a{theta_in, y_in,  logk_in, params,       theta_out,
                 y_out,    logk_out, hist, acc,          gatt,
                 gacc,     lacc,  C,       T,            collect,
                 glmcmc,   B,     global_blocks, sim_blocks, local_blocks,
-                sim_paired, gf,  key0,    key1,         step0};
+                sim_paired, gf,  key0,    key1,         step0,
+                chain0};
   const dim3 grid((C + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (glmcmc)

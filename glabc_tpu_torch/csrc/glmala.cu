@@ -68,7 +68,7 @@
 // Layouts: theta, y, grad (d, C); logk and the four counters (C,); history
 // (T, d, C) when collected; coins (T,) int32 in shared mode.
 //
-// Random numbers per step, counter (chain, step0 + t, block, 0):
+// Random numbers per step, counter (chain0 + chain, step0 + t, block, 0):
 //   blocks [0, S), S = ceil((B+3)/4): scalar slot s is lane s%4 of block s/4:
 //       Gumbel 0 (current state), 1..B (candidates), B+1 the local accept
 //       uniform, B+2 the per-chain coin;
@@ -110,6 +110,7 @@ struct MalaArgs {
   float sigma, c_kern, a_kern, gf;
   float tau, half_tau2, fd, two_fd, eps2, c_norm;
   uint32_t key0, key1, step0;
+  uint32_t chain0;  // the global index of chain 0 (a shard's offset)
   int lanes;  // chains a warp, W
 };
 
@@ -423,7 +424,7 @@ __device__ __forceinline__ void thread_chain(const MalaArgs& a) {
   }
   float logk = a.logk_in[c];
   float n_acc = 0.0f, n_gatt = 0.0f, n_gacc = 0.0f, n_lacc = 0.0f;
-  const uint32_t chain = static_cast<uint32_t>(c);
+  const uint32_t chain = a.chain0 + static_cast<uint32_t>(c);
   constexpr uint32_t P = (D + 1) / 2;
   const uint32_t S = static_cast<uint32_t>((a.B + 3 + 3) / 4);
   const uint32_t local_block = S + static_cast<uint32_t>(a.B) * P;
@@ -567,7 +568,7 @@ __global__ void __launch_bounds__(MaxThreads) glmala_kernel(MalaArgs a) {
   }
   float logk = own ? a.logk_in[c] : 0.0f;
   float n_acc = 0.0f, n_gatt = 0.0f, n_gacc = 0.0f, n_lacc = 0.0f;
-  const uint32_t chain = static_cast<uint32_t>(c);
+  const uint32_t chain = a.chain0 + static_cast<uint32_t>(c);
   constexpr uint32_t P = (D + 1) / 2;
   const uint32_t S = static_cast<uint32_t>((a.B + 3 + 3) / 4);
   const uint32_t local_block = S + static_cast<uint32_t>(a.B) * P;
@@ -754,7 +755,8 @@ extern "C" int glabc_glmala(
     float ip_scale, float inv_ip_scale, float c_ip, float sigma, float c_kern,
     float a_kern, float gf, float tau, float half_tau2, float fd, float two_fd,
     float eps2, float c_norm, unsigned int key0, unsigned int key1,
-    unsigned int step0, int threads, int lanes, void* stream) {
+    unsigned int step0, unsigned int chain0, int threads, int lanes,
+    void* stream) {
   using namespace glabc;
   if (B < 1 || B > 7 || n_grad < 2 || (shared && coins == nullptr) ||
       threads < 32 || threads > 1024 || threads % 32 ||
@@ -768,7 +770,7 @@ extern "C" int glabc_glmala(
              ps2,       ip_loc, ip_scale, inv_ip_scale, c_ip, sigma,
              c_kern,    a_kern, gf,     tau,      half_tau2, fd,
              two_fd,    eps2,  c_norm,  key0,     key1,   step0,
-             lanes};
+             chain0,    lanes};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 1: return launch<1>(a, threads, s);

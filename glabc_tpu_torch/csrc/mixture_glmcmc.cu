@@ -51,7 +51,8 @@
 // with the state's layout, or one plane holding the final state when history
 // is off.
 //
-// Random numbers per transition, counter (chain, step, block, 0):
+// Random numbers per transition, counter (chain, step, block, 0), chain the
+// global index chain0 + n:
 //   blocks [0, S)            scalars: glmcmc -> Gumbel 0..B, u_local, u_coin
 //                                      global -> u_local, u_coin, u_global
 //   blocks S + b*P + j/2     proposal b, dim j: lanes (2(j%2), 2(j%2)+1) form
@@ -74,7 +75,8 @@ struct Params {
   float lp_scale, sigma, c_kern, a_kern, gf;
   int d, groups, rows_per_group, aux_rows, ncols, nchains;
   int T, collect, B, n_scalar_blocks, pair_blocks;
-  uint32_t key0, key1, step0;
+  // chain0: the global index of this launch's chain 0 (a shard's offset)
+  uint32_t key0, key1, step0, chain0;
 };
 
 struct Buffers {
@@ -214,7 +216,7 @@ __global__ void mixture_glmcmc_kernel(Buffers b, Params q) {
   }
   float logk = b.logk_in[aux];
   float acc = 0.0f, gatt = 0.0f, gacc = 0.0f, lacc = 0.0f;
-  const uint32_t chain = static_cast<uint32_t>(n);
+  const uint32_t chain = q.chain0 + static_cast<uint32_t>(n);
   const int Bp = GLMCMC ? q.B : 1;
   const uint32_t S = static_cast<uint32_t>(q.n_scalar_blocks);
   const uint32_t P = static_cast<uint32_t>(q.pair_blocks);
@@ -348,7 +350,7 @@ extern "C" int glabc_mixture_glmcmc(
     float inv_prior_scale, float c_prior, float ip_loc, float ip_scale,
     float inv_ip_scale, float c_ip, float lp_scale, float sigma, float c_kern, float a_kern,
     float gf, unsigned int key0, unsigned int key1, unsigned int step0,
-    int threads, void* stream) {
+    unsigned int chain0, int threads, void* stream) {
   using namespace glabc;
   Params q;
   q.prior_loc = prior_loc;
@@ -378,6 +380,7 @@ extern "C" int glabc_mixture_glmcmc(
   q.key0 = key0;
   q.key1 = key1;
   q.step0 = step0;
+  q.chain0 = chain0;
   Buffers b{theta_in, y_in, logk_in, y_obs, theta_out, y_out, logk_out,
             hist, acc, gatt, gacc, lacc, scratch};
   const dim3 grid((q.nchains + threads - 1) / threads);

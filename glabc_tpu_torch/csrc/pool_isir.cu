@@ -46,7 +46,7 @@
 //
 // Layout: chains are the fastest axis of every array: pool theta
 // (T, B, d, C), pool log w (T, B, C), state (d, C), history (T, d, C).
-// Random numbers: counter (chain, step0 + t, block, 0), key (seed low,
+// Random numbers: counter (chain0 + chain, step0 + t, block, 0), key (seed low,
 // seed high); Gumbel slot s is lane s % 4 of block s / 4.
 
 #include <cuda_runtime.h>
@@ -70,7 +70,7 @@ struct PoolArgs {
   float* moved;
   float* hist;
   int d, C, T, B, collect;
-  uint32_t key0, key1, step0;
+  uint32_t key0, key1, step0, chain0;  // chain0: a shard's first global chain
 };
 
 constexpr int kMaxB = 7;  // candidates a step
@@ -100,7 +100,7 @@ __global__ void __launch_bounds__(MaxThreads) pool_isir_kernel(PoolArgs a) {
   const bool valid = c < a.C;
   const int d = a.d, B = a.B;
   const size_t C = static_cast<size_t>(a.C);
-  const uint32_t chain = static_cast<uint32_t>(c);
+  const uint32_t chain = a.chain0 + static_cast<uint32_t>(c);
   for (int f = warp; f < d; f += nw)
     s_carry[f][lane] = valid ? a.theta_in[f * C + c] : 0.0f;
   float logw = (warp == 0 && valid) ? a.logw_in[c] : 0.0f;
@@ -221,7 +221,8 @@ extern "C" int glabc_pool_isir(const float* pool_theta, const float* pool_logw,
                                float* moved, float* hist, int d, int C, int T,
                                int B, int collect, unsigned int key0,
                                unsigned int key1, unsigned int step0,
-                               int threads, void* stream) {
+                               unsigned int chain0, int threads,
+                               void* stream) {
   using namespace glabc;
   if (d < 1 || d > 32 || B < 1 || B > kMaxB || threads < 32 ||
       threads > 1024 || threads % 32)
@@ -229,7 +230,8 @@ extern "C" int glabc_pool_isir(const float* pool_theta, const float* pool_logw,
   if (C == 0) return 0;
   PoolArgs a{pool_theta, pool_logw, theta_in, logw_in, theta_out, logw_out,
              sel,        moved,     hist,     d,       C,         T,
-             B,          collect,   key0,     key1,    step0};
+             B,          collect,   key0,     key1,    step0,
+             chain0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 1) return launch<1>(a, threads, s);
   if (d <= 2) return launch<2>(a, threads, s);

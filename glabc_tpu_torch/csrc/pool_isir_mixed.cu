@@ -71,7 +71,7 @@
 // two-pass logsumexp at every step took 18.3 ms, and the MA(2) program's
 // (8,192 x 400) 9.8 ms where it took 26.1 ms (PERF.md).
 //
-// Random numbers: counter (chain, step0 + t, block, 0).  Scalar slots
+// Random numbers: counter (chain0 + chain, step0 + t, block, 0).  Scalar slots
 // (lane s % 4 of block s / 4): Gumbels 0..B, u_local B+1, u_coin B+2; then
 // blocks S_b + j/2 hold dim j's Box-Muller pair (lanes 2(j%2), 2(j%2)+1),
 // S_b = ceil((B + 3) / 4), as in mixture_glmcmc.cu.  A program's local move
@@ -111,6 +111,7 @@ struct MixedArgs {
   float prior_loc, inv_prior_scale, c_prior, lp_scale, sigma, c_kern, a_kern,
       gf;
   uint32_t key0, key1, step0;
+  uint32_t chain0;       // the global index of chain 0 (a shard's offset)
   int lanes;             // chains per warp (lanes past it are inert)
 };
 
@@ -333,7 +334,7 @@ pool_isir_mixed_kernel(MixedArgs a) {
   }
   float logk = a.logk_in[cl];
   float gatt = 0.0f, gacc = 0.0f, lacc = 0.0f;
-  const uint32_t chain = static_cast<uint32_t>(c);
+  const uint32_t chain = a.chain0 + static_cast<uint32_t>(c);
   const int n_scalar_blocks = (a.B + 3 + 3) / 4;
   const int B = a.B;
   bool dirty = live;       // log q and the prior of theta need computing
@@ -528,7 +529,7 @@ extern "C" int glabc_pool_isir_mixed(
     int B, int S, int collect, float prior_loc, float inv_prior_scale,
     float c_prior, float lp_scale, float sigma, float c_kern, float a_kern,
     float gf, unsigned int key0, unsigned int key1, unsigned int step0,
-    int threads, int lanes, void* stream) {
+    unsigned int chain0, int threads, int lanes, void* stream) {
   using namespace glabc;
   if (d < 1 || d > 32 || B < 1 || B > kMaxB || S < 1) return -1;
   MixedArgs a{mu,        pre,      inv2h,    y_obs,    nullptr,  ptheta,
@@ -537,7 +538,8 @@ extern "C" int glabc_pool_isir_mixed(
               hist,      d,        d,        C,        T,        B,
               S,         collect,  0,        0,        prior_loc,
               inv_prior_scale,     c_prior,  lp_scale, sigma,    c_kern,
-              a_kern,    gf,       key0,     key1,     step0,    lanes};
+              a_kern,    gf,       key0,     key1,     step0,    chain0,
+              lanes};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 1) return launch_builtin<1>(a, threads, s);
   if (d <= 2) return launch_builtin<2>(a, threads, s);
@@ -557,7 +559,7 @@ extern "C" int glabc_pool_isir_mixed_program(
     float* gatt, float* gacc, float* lacc, float* hist, int d, int y_rows,
     int C, int T, int B, int S, int collect, int local_blocks, int paired,
     float gf, unsigned int key0, unsigned int key1, unsigned int step0,
-    int threads, int lanes, void* stream) {
+    unsigned int chain0, int threads, int lanes, void* stream) {
   using namespace glabc;
   if (d != Program::D || y_rows != Program::Y || B < 1 || B > kMaxB ||
       S < 1)
@@ -568,7 +570,8 @@ extern "C" int glabc_pool_isir_mixed_program(
               hist,      d,        y_rows,   C,        T,        B,
               S,         collect,  local_blocks, paired, 0.0f,
               0.0f,      0.0f,     0.0f,     0.0f,     0.0f,
-              0.0f,      gf,       key0,     key1,     step0,    lanes};
+              0.0f,      gf,       key0,     key1,     step0,    chain0,
+              lanes};
   return launch_mixed<Program::D, Program::Y, ProgramLocal>(
       a, threads, static_cast<cudaStream_t>(stream));
 }

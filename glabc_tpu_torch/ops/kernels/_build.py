@@ -50,23 +50,23 @@ _P = ctypes.c_void_p
 # source stem -> C signatures of its extern "C" functions
 SOURCES = {
     "mixture_glmcmc": {
-        "glabc_mixture_glmcmc": [_P] * 13 + [_I] * 9 + [_F] * 12 + [_U] * 3
+        "glabc_mixture_glmcmc": [_P] * 13 + [_I] * 9 + [_F] * 12 + [_U] * 4
         + [_I, _P],
         "glabc_philox4x32": [_P, _P, _I, _P],
         "glabc_mixture_register_dims": [_I],
     },
     "pool_isir": {
-        "glabc_pool_isir": [_P] * 9 + [_I] * 5 + [_U] * 3 + [_I, _P],
+        "glabc_pool_isir": [_P] * 9 + [_I] * 5 + [_U] * 4 + [_I, _P],
     },
     "kde_logprob": {
         "glabc_kde_logprob": [_P] * 5 + [_I] * 4 + [_P],
     },
     "pool_isir_mixed": {
         "glabc_pool_isir_mixed": [_P] * 18 + [_I] * 6 + [_F] * 8
-        + [_U] * 3 + [_I, _I, _P],
+        + [_U] * 4 + [_I, _I, _P],
     },
     "glmala": {
-        "glabc_glmala": [_P] * 15 + [_I] * 7 + [_F] * 18 + [_U] * 3
+        "glabc_glmala": [_P] * 15 + [_I] * 7 + [_F] * 18 + [_U] * 4
         + [_I, _I, _P],
     },
     "coupling_flow": {
@@ -85,15 +85,15 @@ SOURCES = {
 PROGRAM_SOURCES = {
     "generic_glmcmc": {
         "glabc_generic_glmcmc": [_P] * 12 + [_I] * 11 + [_F]
-        + [_U] * 3 + [_I, _P],
+        + [_U] * 4 + [_I, _P],
     },
     "generic_glmala": {
         "glabc_generic_glmala": [_P] * 15 + [_I] * 11 + [_F] * 7
-        + [_U] * 3 + [_I, _P],
+        + [_U] * 4 + [_I, _P],
     },
     "pool_isir_mixed": {
         "glabc_pool_isir_mixed_program": [_P] * 18 + [_I] * 9 + [_F]
-        + [_U] * 3 + [_I, _I, _P],
+        + [_U] * 4 + [_I, _I, _P],
     },
 }
 

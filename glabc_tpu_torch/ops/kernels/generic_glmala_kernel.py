@@ -248,34 +248,36 @@ class GenericFusedGLMALA:
         return C
 
     def run(self, seed: int, theta, y, logk, grad, coins=None, *,
-            step0: int = 0):
-        """``steps_per_call`` transitions from absolute step ``step0``.
-        ``coins``: the shared coins ``(T,)`` int32 (1: global), on the host
-        or the state's device; ignored with ``per_chain``.  Returns
-        ``(theta, y, logk, grad, history or None, [acc, gatt, gacc,
-        lacc])``."""
+            step0: int = 0, chain0: int = 0):
+        """``steps_per_call`` transitions from absolute step ``step0``;
+        column ``c`` draws as global chain ``chain0 + c``.  ``coins``: the
+        shared coins ``(T,)`` int32 (1: global), on the host or the state's
+        device; ignored with ``per_chain``.  Returns ``(theta, y, logk,
+        grad, history or None, [acc, gatt, gacc, lacc])``."""
         self._check(theta, y, logk, grad, coins)
         if theta.device.type == "cuda":
-            return self._launch(seed, theta, y, logk, grad, coins, step0)
+            return self._launch(seed, theta, y, logk, grad, coins, step0,
+                                chain0)
         if theta.device.type == "cpu":
-            return self.plain(seed, theta, y, logk, grad, coins, step0=step0)
+            return self.plain(seed, theta, y, logk, grad, coins, step0=step0,
+                              chain0=chain0)
         raise ValueError(f"no kernel for device {theta.device}")
 
     def plain(self, seed: int, theta, y, logk, grad, coins=None, *,
-              step0: int = 0, draws=None):
+              step0: int = 0, draws=None, chain0: int = 0):
         """The plain torch version of :meth:`run`, on any device: the same
         random numbers (or the cursors ``draws(step, first, paired)``) and
         results."""
         C = self._check(theta, y, logk, grad, coins)
         if draws is None:
-            draws = philox_draws(seed, C, theta.device)
+            draws = philox_draws(seed, C, theta.device, chain0)
         host_coins = (None if self.coin_mode == "per_chain"
                       else coins.cpu().tolist())
         return run_plain(self.cfg, draws, theta, y, logk, grad,
                          steps=self.T, step0=step0, coins=host_coins,
                          collect_history=self.collect_history)
 
-    def _launch(self, seed, theta, y, logk, grad, coins, step0):
+    def _launch(self, seed, theta, y, logk, grad, coins, step0, chain0):
         from ._build import load_library
 
         lib = load_library("generic_glmala", self.p)
@@ -303,7 +305,7 @@ class GenericFusedGLMALA:
                 int(self.collect_history), int(shared), p.global_blocks,
                 p.sim_blocks, int(p.sim_paired), cfg.gf, cfg.tau,
                 cfg.half_tau2, cfg.fd, cfg.two_fd, cfg.eps2, cfg.c_norm,
-                k0, k1, int(step0), self.C_blk, stream)
+                k0, k1, int(step0), int(chain0), self.C_blk, stream)
         if rc != 0:
             raise RuntimeError(f"generic_glmala launch failed: CUDA error "
                                f"{rc}")

@@ -15,7 +15,8 @@ every use draws from its own Philox block range, so neither shifts the
 other.  Layouts (the card's): theta ``(d, C)``, y ``(y_rows, C)``, logk and
 the counters ``(C,)``, history ``(T, d, C)``.
 
-Random numbers per step, counter ``(chain, step, block, 0)``: scalar slot
+Random numbers per step, counter ``(chain, step, block, 0)`` (``chain`` the
+global index, ``chain0`` plus the column): scalar slot
 ``s`` is lane ``s % 4`` of block ``s // 4`` (glmcmc: Gumbels ``0..B``, the
 local accept ``B+1``, the coin ``B+2``; global: the local accept 0, the
 coin 1, the global accept 2); candidate ``b`` draws from block ``S + b G``
@@ -36,12 +37,13 @@ __all__ = ["GenericFusedGLMCMC", "GenericLayout", "run_plain",
            "philox_draws", "global_candidate", "isir_global"]
 
 
-def philox_draws(seed: int, num_chains: int, device):
+def philox_draws(seed: int, num_chains: int, device, chain0: int = 0):
     """``draws(step, first, paired=False)``: the kernels' Philox cursors for
-    chains ``0 .. num_chains - 1`` from block ``first``.  A tensor ``first
-    (R,)`` gives R cursors per chain at once, over ``R * num_chains``
-    columns, replicate-major."""
-    chains = torch.arange(num_chains, dtype=torch.int64, device=device)
+    global chains ``chain0 .. chain0 + num_chains - 1`` from block
+    ``first``.  A tensor ``first (R,)`` gives R cursors per chain at once,
+    over ``R * num_chains`` columns, replicate-major."""
+    chains = torch.arange(chain0, chain0 + num_chains, dtype=torch.int64,
+                          device=device)
 
     def draws(step, first, paired=False):
         if isinstance(first, torch.Tensor):
@@ -208,30 +210,33 @@ class GenericFusedGLMCMC:
                                  f"{tuple(x.shape)}")
         return C
 
-    def run(self, seed: int, theta, y, logk, *, step0: int = 0):
-        """``steps_per_call`` transitions from absolute step ``step0``.
-        Returns ``(theta, y, logk, history or None, FusedStats)``."""
+    def run(self, seed: int, theta, y, logk, *, step0: int = 0,
+            chain0: int = 0):
+        """``steps_per_call`` transitions from absolute step ``step0``;
+        column ``c`` draws as global chain ``chain0 + c``.  Returns
+        ``(theta, y, logk, history or None, FusedStats)``."""
         self._check(theta, y, logk)
         if theta.device.type == "cuda":
-            return self._launch(seed, theta, y, logk, step0)
+            return self._launch(seed, theta, y, logk, step0, chain0)
         if theta.device.type == "cpu":
-            return self.plain(seed, theta, y, logk, step0=step0)
+            return self.plain(seed, theta, y, logk, step0=step0,
+                              chain0=chain0)
         raise ValueError(f"no kernel for device {theta.device}")
 
     def plain(self, seed: int, theta, y, logk, *, step0: int = 0,
-              draws=None):
+              draws=None, chain0: int = 0):
         """The plain torch version of :meth:`run`, on any device: the same
         random numbers (or the cursors ``draws(step, first, paired)``) and
         results."""
         C = self._check(theta, y, logk)
         if draws is None:
-            draws = philox_draws(seed, C, theta.device)
+            draws = philox_draws(seed, C, theta.device, chain0)
         th, yy, lk, hist, counters = run_plain(
             self.p, self.B, self.glmcmc, self.gf, draws, theta, y, logk,
             steps=self.T, step0=step0, collect_history=self.collect_history)
         return th, yy, lk, hist, FusedStats(*counters)
 
-    def _launch(self, seed, theta, y, logk, step0):
+    def _launch(self, seed, theta, y, logk, step0, chain0):
         from ._build import load_library
 
         lib = load_library("generic_glmcmc", self.p)
@@ -253,7 +258,7 @@ class GenericFusedGLMCMC:
                 self.d, self.y_rows, C, self.T, int(self.collect_history),
                 int(self.glmcmc), self.B, p.global_blocks, p.sim_blocks,
                 p.local_blocks, int(p.sim_paired), self.gf, k0, k1,
-                int(step0), self.C_blk, stream)
+                int(step0), int(chain0), self.C_blk, stream)
         if rc != 0:
             raise RuntimeError(f"generic_glmcmc launch failed: CUDA error "
                                f"{rc}")

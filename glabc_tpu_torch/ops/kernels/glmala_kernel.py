@@ -25,7 +25,8 @@ step skips the gradient batch); ``per_chain`` draws each chain's coin.
 Layout (the card's): state ``(d, C)``, ``logk`` and counters ``(C,)``,
 history ``(T, d, C)``, for ``d`` in {1, 2, 4, 8} as in the JAX kernel.
 
-Random numbers per step, counter ``(chain, step, block, 0)``:
+Random numbers per step, counter ``(chain, step, block, 0)``, ``chain`` the
+global index (``chain0`` plus the column):
 
 * blocks ``[0, S)``, ``S = ceil((B + 3) / 4)``: scalar slot ``s`` is lane
   ``s % 4`` of block ``s // 4``: Gumbels ``0`` (current state) and
@@ -152,12 +153,14 @@ def mala_noise_from_uniforms(scalars, pairs, grad_pairs, cfg: MalaConfig):
 
 
 def draw_mala_noise(seed: int, num_chains: int, step: int, cfg: MalaConfig,
-                    device=None) -> MalaNoise:
-    """The kernel's random numbers at absolute step ``step``."""
+                    device=None, chain0: int = 0) -> MalaNoise:
+    """The kernel's random numbers at absolute step ``step`` for global
+    chains ``chain0 .. chain0 + C - 1``."""
     k0, k1 = seed_key(seed)
     i64 = dict(dtype=torch.int64, device=device)
     nblk = cfg.blocks_per_step
-    words = philox4x32(torch.arange(num_chains, **i64)[:, None],
+    words = philox4x32(torch.arange(chain0, chain0 + num_chains,
+                                    **i64)[:, None],
                        torch.full((1, 1), int(step), **i64),
                        torch.arange(nblk, **i64)[None, :],
                        torch.zeros((1, 1), **i64), k0, k1)
@@ -420,27 +423,29 @@ class FusedMixtureGLMALA:
         return C
 
     def run(self, seed: int, theta, y, logk, grad, coins=None, *,
-            step0: int = 0):
-        """``steps_per_call`` transitions from absolute step ``step0``.
-        ``coins``: the shared coins ``(T,)`` int32 (1: global), on the
-        host or the state's device; ignored with ``per_chain``.  Returns
-        ``(theta, y, logk, grad, history or None, [acc, gatt, gacc,
-        lacc])``."""
+            step0: int = 0, chain0: int = 0):
+        """``steps_per_call`` transitions from absolute step ``step0``;
+        column ``c`` draws as global chain ``chain0 + c``.  ``coins``: the
+        shared coins ``(T,)`` int32 (1: global), on the host or the state's
+        device; ignored with ``per_chain``.  Returns ``(theta, y, logk,
+        grad, history or None, [acc, gatt, gacc, lacc])``."""
         self._check(theta, y, logk, grad, coins)
         if theta.device.type == "cuda":
-            return self._launch(seed, theta, y, logk, grad, coins, step0)
+            return self._launch(seed, theta, y, logk, grad, coins, step0,
+                                chain0)
         if theta.device.type == "cpu":
-            return self.plain(seed, theta, y, logk, grad, coins, step0=step0)
+            return self.plain(seed, theta, y, logk, grad, coins, step0=step0,
+                              chain0=chain0)
         raise ValueError(f"no kernel for device {theta.device}")
 
     def plain(self, seed: int, theta, y, logk, grad, coins=None, *,
-              step0: int = 0, noise=None):
+              step0: int = 0, noise=None, chain0: int = 0):
         """The plain torch version of :meth:`run`, on any device: the same
         random numbers (or ``noise(t) -> MalaNoise``) and results."""
         C = self._check(theta, y, logk, grad, coins)
         if noise is None:
             noise = lambda t: draw_mala_noise(seed, C, step0 + t, self.cfg,
-                                              theta.device)
+                                              theta.device, chain0)
         host_coins = (None if self.coin_mode == "per_chain"
                       else coins.cpu().tolist())
         return run_plain(self.cfg, noise, theta, y, logk, grad,
@@ -454,7 +459,7 @@ class FusedMixtureGLMALA:
             self.coin_mode)
         return threads if self.C_blk is None else self.C_blk, lanes
 
-    def _launch(self, seed, theta, y, logk, grad, coins, step0):
+    def _launch(self, seed, theta, y, logk, grad, coins, step0, chain0):
         from ._build import load_library
 
         lib = load_library("glmala")
@@ -486,7 +491,8 @@ class FusedMixtureGLMALA:
                 m.ip_loc, m.ip_scale, m.inv_ip_scale, m.c_ip, m.sigma,
                 m.c_kern, m.a_kern, m.gf, cfg.tau, cfg.half_tau2, cfg.fd,
                 cfg.two_fd, cfg.eps2, cfg.c_norm,
-                k0, k1, int(step0), *self._geometry(C, dev), stream)
+                k0, k1, int(step0), int(chain0), *self._geometry(C, dev),
+                stream)
         if rc != 0:
             raise RuntimeError(f"glmala launch failed: CUDA error {rc}")
         type(self).launches += 1

@@ -244,12 +244,14 @@ def transition(state, noise: Noise, cfg: MixtureConfig):
 
 
 def run_plain(cfg: MixtureConfig, seed: int, theta, y, logk, *, steps: int,
-              step0: int = 0, collect_history: bool = True):
+              step0: int = 0, collect_history: bool = True, chain0: int = 0):
     """``steps`` transitions of every chain in the per-chain layout
-    ``theta/y (N, d)``, ``logk (N,)``.  Returns ``(theta, y, logk,
-    history (steps, N, d) or None, [acc, gatt, gacc, lacc])``."""
+    ``theta/y (N, d)``, ``logk (N,)``; row ``n`` is global chain ``chain0 +
+    n``.  Returns ``(theta, y, logk, history (steps, N, d) or None, [acc,
+    gatt, gacc, lacc])``."""
     N = theta.shape[0]
-    chain_idx = torch.arange(N, dtype=torch.int64, device=theta.device)
+    chain_idx = torch.arange(chain0, chain0 + N, dtype=torch.int64,
+                             device=theta.device)
     counters = [torch.zeros(N, dtype=torch.float32, device=theta.device)
                 for _ in range(4)]
     hist = (torch.empty((steps, N, cfg.d), dtype=torch.float32,
@@ -358,18 +360,23 @@ class _MixtureKernelBase:
         return out.reshape(groups * ar, ncols)
 
     # ------------------------------------------------------------- run
-    def run(self, seed: int, theta, y, logk, *, step0: int = 0):
+    def run(self, seed: int, theta, y, logk, *, step0: int = 0,
+            chain0: int = 0):
         """Run ``steps_per_call`` transitions starting at absolute step
-        ``step0``.  Returns ``(theta, y, logk, history or None, stats)`` in
-        the input layout; history is ``(T, rows, cols)``."""
+        ``step0``; the layout's chain ``n`` draws as global chain ``chain0 +
+        n`` (a shard's offset).  Returns ``(theta, y, logk, history or
+        None, stats)`` in the input layout; history is ``(T, rows,
+        cols)``."""
         groups = self._check(theta, y, logk)
         if theta.device.type == "cuda":
-            return self._launch(seed, theta, y, logk, groups, step0)
+            return self._launch(seed, theta, y, logk, groups, step0, chain0)
         if theta.device.type == "cpu":
-            return self.plain(seed, theta, y, logk, step0=step0)
+            return self.plain(seed, theta, y, logk, step0=step0,
+                              chain0=chain0)
         raise ValueError(f"no kernel for device {theta.device}")
 
-    def plain(self, seed: int, theta, y, logk, *, step0: int = 0):
+    def plain(self, seed: int, theta, y, logk, *, step0: int = 0,
+              chain0: int = 0):
         """The plain torch version of :meth:`run`, on any device: the same
         arguments, random numbers and results.  :meth:`run` takes it for
         CPU tensors; on the card it is what the kernel is held against."""
@@ -378,7 +385,7 @@ class _MixtureKernelBase:
             self.cfg, seed, self.to_chains(theta, groups),
             self.to_chains(y, groups), self.to_chains(logk, groups, aux=True),
             steps=self.T, step0=step0,
-            collect_history=self.collect_history)
+            collect_history=self.collect_history, chain0=chain0)
         if hist is not None:
             hist = torch.stack([self.from_chains(h, groups) for h in hist])
         stats = self._stats_type(*(self.from_chains(c, groups, "counter")
@@ -386,7 +393,7 @@ class _MixtureKernelBase:
         return (self.from_chains(th, groups), self.from_chains(yy, groups),
                 self.from_chains(lk, groups, "logk"), hist, stats)
 
-    def _launch(self, seed, theta, y, logk, groups, step0):
+    def _launch(self, seed, theta, y, logk, groups, step0, chain0):
         from ._build import load_library
 
         lib = load_library()
@@ -420,7 +427,7 @@ class _MixtureKernelBase:
                 cfg.prior_loc, cfg.inv_prior_scale, cfg.c_prior,
                 cfg.ip_loc, cfg.ip_scale, cfg.inv_ip_scale, cfg.c_ip,
                 cfg.lp_scale, cfg.sigma, cfg.c_kern, cfg.a_kern, cfg.gf,
-                k0, k1, int(step0), self.C_blk, stream)
+                k0, k1, int(step0), int(chain0), self.C_blk, stream)
         if rc != 0:
             raise RuntimeError(f"mixture_glmcmc launch failed: CUDA error "
                                f"{rc}")
@@ -445,16 +452,17 @@ class FusedMixtureGLMCMC(_MixtureKernelBase):
 
 def fused_state_init(problem, generator: torch.Generator, theta0,
                      num_chains: int, d_pad: int = _SUB, y0=None,
-                     device=None):
+                     device=None, shard=None):
     """``(d_pad, C)`` padded initial state for the unpacked kernel.
 
     ``y0``: ``(d,)``/``(1, d)`` broadcasts to every chain, ``(C, d)`` gives
-    each its own; ``None`` simulates each chain's from ``theta0``."""
+    each its own; ``None`` simulates each chain's from ``theta0``.
+    ``shard``: see :func:`_initial_chains`."""
     from ..._device import resolve_device
 
     dev = resolve_device(device)
     th_all, y_all, logk = _initial_chains(problem, generator, theta0,
-                                          num_chains, y0, dev)
+                                          num_chains, y0, dev, shard)
     d = problem.theta_dim
     theta = torch.zeros((d_pad, num_chains), dtype=torch.float32, device=dev)
     y = torch.zeros_like(theta)
@@ -463,22 +471,31 @@ def fused_state_init(problem, generator: torch.Generator, theta0,
     return theta, y, logk[None, :].contiguous()
 
 
-def _initial_chains(problem, generator, theta0, num_chains, y0, dev):
-    """Per-chain ``theta (C, d)``, ``y (C, d)``, ``logk (C,)``."""
+def _initial_chains(problem, generator, theta0, num_chains, y0, dev,
+                    shard=None):
+    """Per-chain ``theta (C, d)``, ``y (C, d)``, ``logk (C,)``.
+    ``shard=(chain0, total)``: the chains are ``chain0 .. chain0 + C - 1``
+    of ``total``, all of which are drawn (so the generator moves as in a
+    run of ``total`` chains) and ``y0 (total, d)`` may give."""
     d = problem.theta_dim
+    chain0, total = (0, num_chains) if shard is None else shard
     theta0 = torch.as_tensor(np.asarray(theta0, np.float32).reshape(-1),
                              device=dev)
-    th_all = theta0.expand(num_chains, d).contiguous()
+    th_all = theta0.expand(total, d).contiguous()
     if y0 is None:
         y_all = problem.simulate(th_all, generator)
     else:
         y_all = torch.as_tensor(np.asarray(y0, np.float32),
                                 device=dev).reshape(-1, problem.y_dim)
         if y_all.shape[0] == 1:
-            y_all = y_all.expand(num_chains, problem.y_dim)
-        if y_all.shape[0] != num_chains:
+            y_all = y_all.expand(total, problem.y_dim)
+        if y_all.shape[0] != total:
             raise ValueError(f"y0 has {y_all.shape[0]} rows for "
-                             f"{num_chains} chains")
+                             f"{total} chains")
         y_all = y_all.contiguous()
     logk = problem.kernel_log_prob(problem.discrepancy(y_all))
-    return th_all, y_all, logk
+    if shard is None:
+        return th_all, y_all, logk
+    keep = slice(chain0, chain0 + num_chains)
+    return (th_all[keep].contiguous(), y_all[keep].contiguous(),
+            logk[keep].contiguous())

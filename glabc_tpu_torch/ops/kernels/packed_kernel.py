@@ -54,11 +54,14 @@ class PackedMixtureGLMCMC(_MixtureKernelBase):
 
 
 def packed_state_init(problem, generator: torch.Generator, theta0,
-                      num_cols: int, pack: int, y0=None, device=None):
+                      num_cols: int, pack: int, y0=None, device=None,
+                      shard=None):
     """Packed ``(8, num_cols)`` initial state for ``pack * num_cols`` chains.
 
     ``y0``: ``(d,)``/``(1, d)`` broadcasts to every chain, ``(C, d)`` gives
-    each its own; ``None`` simulates each chain's from ``theta0``."""
+    each its own; ``None`` simulates each chain's from ``theta0``.
+    ``shard=(chain0, total)``: these are chains ``chain0 ..`` of ``total``,
+    packed on their own (see ``mixture_kernel._initial_chains``)."""
     from ..._device import resolve_device
 
     dev = resolve_device(device)
@@ -66,7 +69,7 @@ def packed_state_init(problem, generator: torch.Generator, theta0,
     if pack * d != _SUB:
         raise ValueError(f"pack * d must be {_SUB}, got {pack} * {d}")
     th_all, y_all, logk = _initial_chains(problem, generator, theta0,
-                                          pack * num_cols, y0, dev)
+                                          pack * num_cols, y0, dev, shard)
 
     def to_packed(x_cd):  # (pack*C, d) -> (8, C)
         return (x_cd.reshape(pack, num_cols, d).permute(0, 2, 1)

@@ -46,12 +46,13 @@ def pack_pool_logw(log_w: torch.Tensor, T: int, B: int) -> torch.Tensor:
 
 
 def draw_gumbels(seed: int, num_chains: int, step: int, B: int,
-                 device=None) -> torch.Tensor:
-    """The kernel's ``(C, B+1)`` Gumbels at absolute step ``step``."""
+                 device=None, chain0: int = 0) -> torch.Tensor:
+    """The kernel's ``(C, B+1)`` Gumbels at absolute step ``step`` for
+    global chains ``chain0 .. chain0 + C - 1``."""
     k0, k1 = seed_key(seed)
     nblk = -(-(B + 1) // 4)
     i64 = dict(dtype=torch.int64, device=device)
-    chain = torch.arange(num_chains, **i64)
+    chain = torch.arange(chain0, chain0 + num_chains, **i64)
     blocks = torch.arange(nblk, **i64)
     words = philox4x32(chain[:, None], torch.full((1, 1), int(step), **i64),
                        blocks[None, :], torch.zeros((1, 1), **i64), k0, k1)
@@ -157,26 +158,28 @@ class PoolISIR:
         return C
 
     def run(self, seed: int, pool_theta, pool_logw, theta, logw, *,
-            step0: int = 0):
-        """``steps_per_call`` transitions from absolute step ``step0``.
-        Returns ``(theta, logw, sel, moved, history or None)``."""
+            step0: int = 0, chain0: int = 0):
+        """``steps_per_call`` transitions from absolute step ``step0``;
+        column ``c`` draws as global chain ``chain0 + c``.  Returns
+        ``(theta, logw, sel, moved, history or None)``."""
         self._check(pool_theta, pool_logw, theta, logw)
         if theta.device.type == "cuda":
             return self._launch(seed, pool_theta, pool_logw, theta, logw,
-                                step0)
+                                step0, chain0)
         if theta.device.type == "cpu":
             return self.plain(seed, pool_theta, pool_logw, theta, logw,
-                              step0=step0)
+                              step0=step0, chain0=chain0)
         raise ValueError(f"no kernel for device {theta.device}")
 
     def plain(self, seed: int, pool_theta, pool_logw, theta, logw, *,
-              step0: int = 0, gumbels: Optional[Callable] = None):
+              step0: int = 0, gumbels: Optional[Callable] = None,
+              chain0: int = 0):
         """The plain torch version of :meth:`run`, on any device: the same
         random numbers (or ``gumbels(t) -> (C, B+1)``) and results."""
         C = self._check(pool_theta, pool_logw, theta, logw)
         if gumbels is None:
             gumbels = lambda t: draw_gumbels(seed, C, step0 + t, self.B,
-                                             theta.device)
+                                             theta.device, chain0)
         return run_plain(pool_theta, pool_logw, theta, logw, gumbels,
                          self.collect_history)
 
@@ -187,7 +190,8 @@ class PoolISIR:
         return pool_isir_launch(
             C, torch.cuda.get_device_properties(dev).multi_processor_count)
 
-    def _launch(self, seed, pool_theta, pool_logw, theta, logw, step0):
+    def _launch(self, seed, pool_theta, pool_logw, theta, logw, step0,
+                chain0):
         from ._build import load_library
 
         if self.d > 32:
@@ -208,7 +212,7 @@ class PoolISIR:
                 ptr(pool_theta), ptr(pool_logw), ptr(theta), ptr(logw),
                 ptr(th_o), ptr(lw_o), ptr(sel), ptr(moved), ptr(hist),
                 self.d, C, self.T, self.B, int(self.collect_history), k0, k1,
-                int(step0), self._threads(C, dev), stream)
+                int(step0), int(chain0), self._threads(C, dev), stream)
         if rc != 0:
             raise RuntimeError(f"pool_isir launch failed: CUDA error {rc}")
         type(self).launches += 1

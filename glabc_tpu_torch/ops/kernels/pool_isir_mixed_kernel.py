@@ -143,14 +143,15 @@ def mixed_noise_from_uniforms(scalars, pairs, B: int) -> MixedNoise:
 
 
 def draw_mixed_noise(seed: int, num_chains: int, step: int, B: int, d: int,
-                     device=None) -> MixedNoise:
-    """The kernel's random numbers at absolute step ``step``: scalar blocks
-    ``[0, S_b)``, then dim ``j``'s pair in block ``S_b + j // 2``."""
+                     device=None, chain0: int = 0) -> MixedNoise:
+    """The kernel's random numbers at absolute step ``step`` for global
+    chains ``chain0 .. chain0 + C - 1``: scalar blocks ``[0, S_b)``, then
+    dim ``j``'s pair in block ``S_b + j // 2``."""
     k0, k1 = seed_key(seed)
     sb = -(-(B + 3) // 4)
     nblk = sb + -(-d // 2)
     i64 = dict(dtype=torch.int64, device=device)
-    chain = torch.arange(num_chains, **i64)
+    chain = torch.arange(chain0, chain0 + num_chains, **i64)
     blocks = torch.arange(nblk, **i64)
     words = philox4x32(chain[:, None], torch.full((1, 1), int(step), **i64),
                        blocks[None, :], torch.zeros((1, 1), **i64), k0, k1)
@@ -373,20 +374,21 @@ class PoolISIRMixed:
         return C
 
     def run(self, seed: int, res: ResidentProposal, ptheta, px, plogw, plogk,
-            theta, y, logk, *, step0: int = 0):
-        """``steps_per_call`` transitions from absolute step ``step0``.
-        Returns ``(theta, y, logk, gatt, gacc, lacc, history or None)``."""
+            theta, y, logk, *, step0: int = 0, chain0: int = 0):
+        """``steps_per_call`` transitions from absolute step ``step0``;
+        column ``c`` draws as global chain ``chain0 + c``.  Returns
+        ``(theta, y, logk, gatt, gacc, lacc, history or None)``."""
         args = (res, ptheta, px, plogw, plogk, theta, y, logk)
         self._check(*args)
         if theta.device.type == "cuda":
-            return self._launch(seed, *args, step0)
+            return self._launch(seed, *args, step0, chain0)
         if theta.device.type == "cpu":
-            return self.plain(seed, *args, step0=step0)
+            return self.plain(seed, *args, step0=step0, chain0=chain0)
         raise ValueError(f"no kernel for device {theta.device}")
 
     def plain(self, seed: int, res: ResidentProposal, ptheta, px, plogw,
               plogk, theta, y, logk, *, step0: int = 0, noise=None,
-              draws=None):
+              draws=None, chain0: int = 0):
         """The plain torch version of :meth:`run`, on any device: the same
         random numbers and results (:func:`run_plain`).  Built-in move:
         ``noise(t) -> MixedNoise`` may replace them; program move: the
@@ -395,7 +397,7 @@ class PoolISIRMixed:
         if self.program is not None:
             if draws is None:
                 from .generic_kernel import philox_draws
-                draws = philox_draws(seed, C, theta.device)
+                draws = philox_draws(seed, C, theta.device, chain0)
             B = self.B
 
             def noise(t):
@@ -404,7 +406,7 @@ class PoolISIRMixed:
                         lambda first, paired: draws(step, first, paired))
         elif noise is None:
             noise = lambda t: draw_mixed_noise(seed, C, step0 + t, self.B,
-                                               self.d, theta.device)
+                                               self.d, theta.device, chain0)
         return run_plain(res, ptheta, px, plogw, plogk, theta, y, logk,
                          self.cfg, noise, self.collect_history, self.program)
 
@@ -415,7 +417,7 @@ class PoolISIRMixed:
         return (threads if self.C_blk is None else self.C_blk), lanes
 
     def _launch(self, seed, res, ptheta, px, plogw, plogk, theta, y, logk,
-                step0):
+                step0, chain0):
         from ._build import load_library
 
         if self.d > 32:
@@ -423,7 +425,7 @@ class PoolISIRMixed:
                              f"{self.d}")
         if self.program is not None:
             return self._launch_program(seed, res, ptheta, px, plogw, plogk,
-                                        theta, y, logk, step0)
+                                        theta, y, logk, step0, chain0)
         lib = load_library("pool_isir_mixed")
         cfg, dev = self.cfg, theta.device
         C, S = theta.shape[1], res.pre.shape[0]
@@ -446,7 +448,8 @@ class PoolISIRMixed:
                 self.d, C, self.T, self.B, S, int(self.collect_history),
                 cfg.prior_loc, cfg.inv_prior_scale, cfg.c_prior,
                 cfg.lp_scale, cfg.sigma, cfg.c_kern, cfg.a_kern, cfg.gf,
-                k0, k1, int(step0), *self._geometry(C, dev), stream)
+                k0, k1, int(step0), int(chain0), *self._geometry(C, dev),
+                stream)
         if rc != 0:
             raise RuntimeError(f"pool_isir_mixed launch failed: CUDA error "
                                f"{rc}")
@@ -454,7 +457,7 @@ class PoolISIRMixed:
         return (th_o, y_o, *outs, hist)
 
     def _launch_program(self, seed, res, ptheta, px, plogw, plogk, theta, y,
-                        logk, step0):
+                        logk, step0, chain0):
         from ._build import load_library
 
         p, dev = self.program, theta.device
@@ -478,7 +481,7 @@ class PoolISIRMixed:
                 self.d, self.y_rows, C, self.T, self.B, S,
                 int(self.collect_history), p.local_blocks,
                 int(p.sim_paired), self.cfg.gf, k0, k1, int(step0),
-                *self._geometry(C, dev), stream)
+                int(chain0), *self._geometry(C, dev), stream)
         if rc != 0:
             raise RuntimeError(f"pool_isir_mixed (program) launch failed: "
                                f"CUDA error {rc}")

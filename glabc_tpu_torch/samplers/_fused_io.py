@@ -48,6 +48,8 @@ def _check_meta(arrays, expect_meta):
     mismatches = {}
     for k, v in (expect_meta or {}).items():
         saved = arrays.get(f"meta.{k}")
+        if saved is None and k == "world_size":
+            saved = np.asarray(1)   # saved before runs were sharded
         if saved is None or saved.item() != v:
             mismatches[k] = (None if saved is None else saved.item(), v)
     if mismatches:

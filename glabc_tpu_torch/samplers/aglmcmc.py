@@ -44,6 +44,7 @@ from ..ops.resampling import (categorical_from_log_weights,
                               stable_partition_take, systematic_resample)
 from ..utils.io import carry_path
 from ._fused_io import restore_epoch_ckpt, save_epoch_ckpt
+from ._shard import ChainShard
 from .base import MoveCounts, SamplerResult, _select, local_rw_move
 from .chain import init_chain_carry
 
@@ -389,11 +390,19 @@ def run_aglmcmc(problem, generator, num_ite, theta0, local_proposal,
     ``hat_eps`` history, carry, generator state) is saved at every aligned
     segment boundary, before the epoch that follows it; ``resume=True``
     replays that epoch and continues bitwise, returning only the history
-    after the resume point."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
-            "Queue 1, M12)")
+    after the resume point.
+
+    ``mesh``: a 1-D ``DeviceMesh``; every rank calls with the same
+    arguments and generator seed.  The initial states are drawn for every
+    chain (the rank keeps its own), so the first row is the one-device
+    run's; after it a rank draws from its own generator
+    (``ChainShard.local_generator``), so the chains match a one-device run
+    in distribution.  Per-chain adaptation runs on each rank alone; shared
+    adaptation is the sharded epoch (``parallel.make_sharded_shared_epoch``),
+    which fits the same KDE on every rank.  Every rank returns the whole
+    history, counts and ``hat_eps``; ``kde`` and ``final_carry`` hold its
+    own chains."""
+    shard = ChainShard(num_chains, mesh)
     dev = resolve_device(device)
     check_generator(generator, dev)
     if pool_slack is None:
@@ -401,31 +410,41 @@ def run_aglmcmc(problem, generator, num_ite, theta0, local_proposal,
     cfg = AGLMCMCConfig(global_frequency, batch_size, step_size, alpha,
                         hat_eps_T, oversample, support_retries, pool_slack)
     P = batch_size * cfg.pool_slices
-    C = num_chains
+    C = shard.local
     local_proposal = local_proposal.to(dev)
     initial_isir_proposal = initial_isir_proposal.to(dev)
     if shared_adaptation:
-        epoch_fn = make_shared_epoch_fn(
-            problem, cfg, shared_support,
-            redraw_chunk if redraw_chunk and redraw_chunk < C else 0)
+        chunk = redraw_chunk if redraw_chunk and redraw_chunk < C else 0
+        if mesh is None:
+            epoch_fn = make_shared_epoch_fn(problem, cfg, shared_support,
+                                            chunk)
+        else:
+            from ..parallel.sharded import make_sharded_shared_epoch
+            epoch_fn = make_sharded_shared_epoch(problem, cfg, shared_support,
+                                                 mesh, chunk)
     else:
         epoch_fn = make_epoch_fn(problem, cfg, C, epoch_chunk)
     step = _build_step(problem, local_proposal, initial_isir_proposal, cfg)
     seg_len = (max(1, int(round(step_size / global_frequency)))
                if global_frequency > 0 else (num_ite - 1))
-    ckpt_meta = {"sampler": "aglmcmc", "num_chains": C,
+    ckpt_meta = {"sampler": "aglmcmc", "num_chains": shard.total,
                  "theta_dim": problem.theta_dim, "seg_len": seg_len,
-                 "pool_rows": P, "shared": int(shared_adaptation)}
+                 "pool_rows": P, "shared": int(shared_adaptation),
+                 **shard.meta}
+    checkpoint_path = shard.path(checkpoint_path, resume)
     restored = (restore_epoch_ckpt(checkpoint_path, ckpt_meta)
                 if resume and checkpoint_path is not None
                 and os.path.exists(carry_path(checkpoint_path)) else None)
     if restored is None:
-        cc = init_chain_carry(problem, generator, theta0, y0, C, dev)
-        carry = AGLCarry(cc.theta, cc.y, cc.log_kernel,
+        cc = init_chain_carry(problem, generator, theta0, y0, shard.total,
+                              dev)
+        theta_init = cc.theta.cpu().numpy()[:, None, :]
+        gen = shard.local_generator(generator)
+        carry = AGLCarry(shard.keep(cc.theta), shard.keep(cc.y),
+                         shard.keep(cc.log_kernel),
                          torch.zeros(C, dtype=torch.int32, device=dev),
-                         generator, cc.counts)
-        theta_init = carry.theta.cpu().numpy()[:, None, :]
-        pools = _init_pools(problem, generator, initial_isir_proposal, C, P)
+                         gen, MoveCounts.zeros(C, dev))
+        pools = _init_pools(problem, gen, initial_isir_proposal, C, P)
         kdes = None
         hat_eps = (torch.tensor(1.0e6) if shared_adaptation
                    else torch.full((C,), 1.0e6)).to(dev)
@@ -435,9 +454,8 @@ def run_aglmcmc(problem, generator, num_ite, theta0, local_proposal,
     else:
         arrays, done = restored
         t = lambda k: torch.as_tensor(arrays[k], device=dev)
-        generator.set_state(torch.as_tensor(arrays["rng_state"]))
-        carry = AGLCarry(t("theta"), t("y"), t("log_kernel"), t("kk"),
-                         generator,
+        gen = shard.restore_rngs(arrays, generator)
+        carry = AGLCarry(t("theta"), t("y"), t("log_kernel"), t("kk"), gen,
                          MoveCounts(*(t(f"counts.{k}")
                                       for k in MoveCounts._fields)))
         pools, kdes = _pool_from(arrays, dev), _kde_from(arrays, dev)
@@ -447,11 +465,16 @@ def run_aglmcmc(problem, generator, num_ite, theta0, local_proposal,
         theta_init = None
         pending_epoch = True
 
+    # per-chain values of every rank, on the host
+    host = lambda a: shard.gather_host(a, dev)
     blocks = []
     total = num_ite - 1
     while done < total:
         if pending_epoch:
-            pools, kdes, hat_eps = epoch_fn(generator, pools, hat_eps)
+            # the shared epoch draws from the run's generator, the same on
+            # every rank; a per-chain epoch from the rank's own
+            pools, kdes, hat_eps = epoch_fn(
+                generator if shared_adaptation else gen, pools, hat_eps)
             hat_eps_hist.append(hat_eps.cpu().numpy())
             n_epochs += 1
             # fresh pool: the cursor goes back to slice 0 (AGLMCMC.py:249)
@@ -462,7 +485,7 @@ def run_aglmcmc(problem, generator, num_ite, theta0, local_proposal,
         for _ in range(take):
             carry = step(pools, kdes, carry)
             seg.append(carry.theta)
-        blocks.append(torch.stack(seg, dim=1).cpu().numpy())
+        blocks.append(host(torch.stack(seg, dim=1).cpu().numpy()))
         if on_segment is not None:
             on_segment(blocks[-1], done)
         done += take
@@ -472,7 +495,7 @@ def run_aglmcmc(problem, generator, num_ite, theta0, local_proposal,
             if checkpoint_path is not None:
                 state = {"theta": carry.theta, "y": carry.y,
                          "log_kernel": carry.log_kernel, "kk": carry.kk,
-                         "rng_state": generator.get_state(),
+                         **shard.rng_arrays(generator, gen),
                          "hat_eps": hat_eps, "n_epochs": n_epochs,
                          "hat_eps_hist": np.asarray(hat_eps_hist,
                                                     np.float32)}
@@ -485,8 +508,12 @@ def run_aglmcmc(problem, generator, num_ite, theta0, local_proposal,
 
     head = [theta_init] if theta_init is not None else []
     thetas = (np.concatenate(head + blocks, axis=1) if head or blocks
-              else np.zeros((C, 0, problem.theta_dim), np.float32))
+              else np.zeros((shard.total, 0, problem.theta_dim), np.float32))
+    per_chain = (lambda a: a) if shared_adaptation else host
+    hist = (per_chain(np.asarray(hat_eps_hist).T).T if hat_eps_hist
+            else None)
     return AGLResult(
-        thetas=thetas, counts=carry.counts.numpy(), final_carry=carry,
-        kde=kdes, hat_eps=hat_eps.cpu().numpy(),
-        hat_eps_hist=np.asarray(hat_eps_hist) if hat_eps_hist else None)
+        thetas=thetas,
+        counts=MoveCounts(*(host(c.cpu().numpy()) for c in carry.counts)),
+        final_carry=carry, kde=kdes,
+        hat_eps=per_chain(hat_eps.cpu().numpy()), hat_eps_hist=hist)

@@ -22,6 +22,16 @@ depend on ``pack_chunk``, ``block_chains`` or how the run is segmented (the
 JAX package reseeds per launch).  History goes to the host by non-blocking
 copies into pinned memory, collected at the end; ``thin`` and
 ``history_dtype='bfloat16'`` shrink the copy on the card first.
+
+``mesh=`` (a 1-D ``DeviceMesh``): every rank draws the initial states of
+all chains and keeps its contiguous range (the first row is the one-device
+run's), then draws its pools, per-chain epochs and local redraws from its
+own generator (``ChainShard.local_generator``): a run matches the
+one-device run in distribution.  The kernels take the rank's first global
+chain as ``chain0``; the shared epoch of the mixed kernel is
+``parallel.make_sharded_shared_epoch``.  Every rank returns the whole
+history, counts and ``hat_eps``; ``kde``, ``final_carry`` and
+``fused_state`` hold its own chains.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from ..ops.kernels.pool_isir_mixed_kernel import (PoolISIRMixed,
 from ..utils.io import carry_path
 from . import aglmcmc as _agl
 from ._fused_io import restore_epoch_ckpt, save_epoch_ckpt
+from ._shard import ChainShard
 from .aglmcmc import AGLCarry, AGLMCMCConfig, AGLResult, Pool
 from .base import MoveCounts
 from .chain import init_chain_carry
@@ -57,11 +68,14 @@ class _AsyncBlocks:
     ``(C, rows, d)`` and converts it (``dtype``) on the card, then starts a
     non-blocking copy into pinned host memory, so the card runs the next
     launch while this one's history streams out.  :meth:`blocks` waits for
-    the copies and returns float32 numpy blocks."""
+    the copies and returns float32 numpy blocks.  ``gather`` (a
+    ``ChainShard``'s) joins every rank's chains on the card before the
+    copy."""
 
-    def __init__(self, thin: int = 1, dtype=None):
+    def __init__(self, thin: int = 1, dtype=None, gather=None):
         self._thin = max(1, int(thin))
         self._dtype = dtype
+        self._gather = gather
         self._host = []
         self._event = None
 
@@ -75,6 +89,8 @@ class _AsyncBlocks:
         if self._dtype is not None:
             dev = dev.to(self._dtype)
         dev = dev.contiguous()
+        if self._gather is not None:
+            dev = self._gather(dev)
         if dev.is_cuda:
             host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
             host.copy_(dev, non_blocking=True)
@@ -111,9 +127,13 @@ def _history_opts(thin: int, history_dtype, on_segment):
     return thin, dt
 
 
-def _history(hist, take, done, on_segment, async_blocks, blocks):
+def _history(hist, take, done, on_segment, async_blocks, blocks,
+             gather=None):
     if on_segment is not None:
-        block = hist[:take].permute(2, 0, 1).cpu().numpy()
+        block = hist[:take].permute(2, 0, 1)
+        if gather is not None:
+            block = gather(block.contiguous())
+        block = block.cpu().numpy()
         on_segment(block, done)
         blocks.append(block)
     else:
@@ -215,19 +235,16 @@ def run_aglmcmc_fused(problem, generator, num_ite, theta0,
             redraw_chunk=redraw_chunk, checkpoint_path=checkpoint_path,
             resume=resume, thin=thin, history_dtype=history_dtype,
             tile_program=tile_program, device=device)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
-            "Queue 1, M12)")
     if tile_program is not None:
         raise ValueError(
             "tile_program= gives the local move at global_frequency < 1; at "
             "global_frequency == 1 every move is pool iSIR, which serves any "
             "problem without one")
+    shard = ChainShard(num_chains, mesh)
     dev = resolve_device(device)
     check_generator(generator, dev)
     d = problem.theta_dim
-    T, B, C = int(step_size), int(batch_size), int(num_chains)
+    T, B, C = int(step_size), int(batch_size), shard.local
     P = T * B
     cfg = AGLMCMCConfig(1.0, B, T, alpha, hat_eps_T, oversample, 0, 0)
     sub_T = int(pack_chunk) if pack_chunk else T
@@ -242,19 +259,24 @@ def run_aglmcmc_fused(problem, generator, num_ite, theta0,
     thin, hist_dt = _history_opts(thin, history_dtype, on_segment)
     ip = initial_isir_proposal.to(dev)
 
-    ckpt_meta = {"sampler": "aglmcmc_fused", "num_chains": C,
-                 "theta_dim": d, "steps_per_call": T, "batch_size": B}
+    ckpt_meta = {"sampler": "aglmcmc_fused", "num_chains": shard.total,
+                 "theta_dim": d, "steps_per_call": T, "batch_size": B,
+                 **shard.meta}
+    checkpoint_path = shard.path(checkpoint_path, resume)
     restored = (restore_epoch_ckpt(checkpoint_path, ckpt_meta)
                 if resume and checkpoint_path is not None
                 and os.path.exists(carry_path(checkpoint_path)) else None)
     if restored is None:
-        cc = init_chain_carry(problem, generator, theta0, y0, C, dev)
-        pools = _agl._init_pools(problem, generator, ip, C, P)
-        theta_k = cc.theta.T.contiguous()
-        logw_k = (problem.prior_log_prob(cc.theta) + cc.log_kernel
-                  - ip.log_prob(cc.theta)).contiguous()
-        y_cur, logk = cc.y, cc.log_kernel
+        cc = init_chain_carry(problem, generator, theta0, y0, shard.total,
+                              dev)
         theta_init_row = cc.theta.cpu().numpy()[:, None, :]
+        gen = shard.local_generator(generator)
+        th_c, y_cur, logk = (shard.keep(x) for x in (cc.theta, cc.y,
+                                                      cc.log_kernel))
+        pools = _agl._init_pools(problem, gen, ip, C, P)
+        theta_k = th_c.T.contiguous()
+        logw_k = (problem.prior_log_prob(th_c) + logk
+                  - ip.log_prob(th_c)).contiguous()
         seed = _seed(seed, generator)
         kdes = None
         hat_eps = torch.full((C,), 1.0e6, device=dev)
@@ -265,7 +287,7 @@ def run_aglmcmc_fused(problem, generator, num_ite, theta0,
     else:
         arrays, done = restored
         t = lambda k: torch.as_tensor(arrays[k], device=dev)
-        generator.set_state(torch.as_tensor(arrays["rng_state"]))
+        gen = shard.restore_rngs(arrays, generator)
         pools, kdes = _agl._pool_from(arrays, dev), _agl._kde_from(arrays,
                                                                    dev)
         theta_k, logw_k, y_cur, logk = (t("theta_k"), t("logw_k"),
@@ -277,13 +299,14 @@ def run_aglmcmc_fused(problem, generator, num_ite, theta0,
         theta_init_row = None
         pending_epoch = True
 
-    async_blocks = _AsyncBlocks(thin, hist_dt)
+    gather = None if mesh is None else shard.gather
+    async_blocks = _AsyncBlocks(thin, hist_dt, gather)
     blocks = []
     total = num_ite - 1
     packed = None
     while done < total:
         if pending_epoch:
-            pools, kdes, hat_eps = epoch_fn(generator, pools, hat_eps)
+            pools, kdes, hat_eps = epoch_fn(gen, pools, hat_eps)
             hat_eps_hist.append(hat_eps.cpu().numpy())
             ep += 1
             packed = None
@@ -297,9 +320,10 @@ def run_aglmcmc_fused(problem, generator, num_ite, theta0,
                       pack_pool_logw(sp.log_w, sub_T, B))
         take = min(sub_T, total - done)
         theta_k, logw_k, sel, moved, hist = kern.run(
-            seed, *packed, theta_k, logw_k, step0=done)
+            seed, *packed, theta_k, logw_k, step0=done, chain0=shard.chain0)
         if collect_history:
-            _history(hist, take, done, on_segment, async_blocks, blocks)
+            _history(hist, take, done, on_segment, async_blocks, blocks,
+                     gather)
         y_cur, logk = _resolve(problem, sp, sel, y_cur, logk)
         g_acc += moved.to(torch.float64) * (take / sub_T)
         steps_run += take
@@ -312,7 +336,7 @@ def run_aglmcmc_fused(problem, generator, num_ite, theta0,
                          "y_cur": y_cur, "logk": logk, "g_acc": g_acc,
                          "hat_eps": hat_eps, "steps_run": steps_run,
                          "ep": ep, "seed": seed,
-                         "rng_state": generator.get_state(),
+                         **shard.rng_arrays(generator, gen),
                          "hat_eps_hist": np.asarray(hat_eps_hist,
                                                     np.float32)}
                 state.update(_agl._pool_arrays(pools))
@@ -320,20 +344,23 @@ def run_aglmcmc_fused(problem, generator, num_ite, theta0,
                 save_epoch_ckpt(checkpoint_path, state, done, sub_T, sub_T,
                                 meta=ckpt_meta)
 
+    Ct = shard.total
+    host = lambda a: shard.gather_host(a, dev)
     thetas = _finish_history(theta_init_row, blocks, async_blocks,
-                             on_segment, collect_history, C, d, hist_dt)
+                             on_segment, collect_history, Ct, d, hist_dt)
     counts = MoveCounts(
-        global_attempts=np.full((C,), steps_run, np.int32),
-        global_accepts=np.rint(g_acc.cpu().numpy()).astype(np.int32),
-        local_attempts=np.zeros((C,), np.int32),
-        local_accepts=np.zeros((C,), np.int32))
+        global_attempts=np.full((Ct,), steps_run, np.int32),
+        global_accepts=np.rint(host(g_acc.cpu().numpy())).astype(np.int32),
+        local_attempts=np.zeros((Ct,), np.int32),
+        local_accepts=np.zeros((Ct,), np.int32))
     carry = AGLCarry(theta_k.T.contiguous(), y_cur, logk,
                      torch.zeros(C, dtype=torch.int32, device=dev),
-                     generator, counts)
+                     gen, counts)
     return AGLResult(
         thetas=thetas, counts=counts, final_carry=carry, kde=kdes,
-        hat_eps=hat_eps.cpu().numpy(),
-        hat_eps_hist=np.asarray(hat_eps_hist) if hat_eps_hist else None,
+        hat_eps=host(hat_eps.cpu().numpy()),
+        hat_eps_hist=(host(np.asarray(hat_eps_hist).T).T if hat_eps_hist
+                      else None),
         fused_state=(theta_k, y_cur, logk, logw_k))
 
 
@@ -368,11 +395,9 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
     epoch.  Pools are consumed slice-per-step: segments are ``seg_len =
     round(step_size / gf)`` steps with ``seg_len * batch_size`` pool rows,
     and a slice whose step flips a local coin is skipped.
-    ``redraw_chunk`` is cut down to a divisor of ``num_chains``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
-            "Queue 1, M12)")
+    ``redraw_chunk`` is cut down to a divisor of ``num_chains`` (of a
+    rank's chains under ``mesh``)."""
+    shard = ChainShard(num_chains, mesh)
     dev = resolve_device(device)
     check_generator(generator, dev)
     d = problem.theta_dim
@@ -399,7 +424,7 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
             "initial_isir_proposal must be a DiagGaussian (loc/log_scale): "
             "its density is evaluated in the kernel for the first epoch")
     gf = float(global_frequency)
-    B, C = int(batch_size), int(num_chains)
+    B, C = int(batch_size), shard.local
     seg_len = max(1, int(round(step_size / gf)))
     P = seg_len * B
     # pool_slices == seg_len: the shared epoch redraws P = seg_len * B rows
@@ -415,8 +440,13 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
             redraw_chunk -= 1
     else:
         redraw_chunk = 0
-    epoch_fn = _agl.make_shared_epoch_fn(problem, cfg, shared_support,
-                                         redraw_chunk)
+    if mesh is None:
+        epoch_fn = _agl.make_shared_epoch_fn(problem, cfg, shared_support,
+                                             redraw_chunk)
+    else:
+        from ..parallel.sharded import make_sharded_shared_epoch
+        epoch_fn = make_sharded_shared_epoch(problem, cfg, shared_support,
+                                             mesh, redraw_chunk)
     thin, hist_dt = _history_opts(thin, history_dtype, on_segment)
     ip = initial_isir_proposal.to(dev)
 
@@ -427,21 +457,24 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
                 pack_pool_logw(problem.kernel_log_prob(pools_.dis), seg_len,
                                B))
 
-    ckpt_meta = {"sampler": "aglmcmc_fused_mixed", "num_chains": C,
-                 "theta_dim": d, "seg_len": seg_len, "batch_size": B,
+    ckpt_meta = {"sampler": "aglmcmc_fused_mixed",
+                 "num_chains": shard.total, "theta_dim": d,
+                 "seg_len": seg_len, "batch_size": B,
                  "shared_support": shared_support,
                  "program": ("" if tile_program is None
-                             else tile_program.name)}
+                             else tile_program.name), **shard.meta}
+    checkpoint_path = shard.path(checkpoint_path, resume)
     restored = (restore_epoch_ckpt(checkpoint_path, ckpt_meta)
                 if resume and checkpoint_path is not None
                 and os.path.exists(carry_path(checkpoint_path)) else None)
     if restored is None:
-        th_c, y_c, logk_k = _initial_chains(problem, generator, theta0, C,
-                                            y0, dev)
-        theta_k, y_k = th_c.T.contiguous(), y_c.T.contiguous()
-        logk_k = logk_k.contiguous()
+        th_c, y_c, logk_k = _initial_chains(problem, generator, theta0,
+                                            shard.total, y0, dev)
         theta_init_row = th_c.cpu().numpy()[:, None, :]
-        pools = _agl._init_pools(problem, generator, ip, C, P)
+        theta_k, y_k = (shard.keep(x.T, dim=1) for x in (th_c, y_c))
+        logk_k = shard.keep(logk_k)
+        gen = shard.local_generator(generator)
+        pools = _agl._init_pools(problem, gen, ip, C, P)
         seed = _seed(seed, generator)
         kde = None
         hat_eps = torch.tensor(1.0e6, device=dev)
@@ -453,7 +486,7 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
     else:
         arrays, done = restored
         t = lambda k: torch.as_tensor(arrays[k], device=dev)
-        generator.set_state(torch.as_tensor(arrays["rng_state"]))
+        gen = shard.restore_rngs(arrays, generator)
         pools, kde = _agl._pool_from(arrays, dev), _agl._kde_from(arrays,
                                                                   dev)
         theta_k, y_k, logk_k = t("theta_k"), t("y_k"), t("logk_k")
@@ -470,11 +503,14 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
                 if kde is None else resident_from_kde(kde))
     packed = pack(pools)
 
-    async_blocks = _AsyncBlocks(thin, hist_dt)
+    gather = None if mesh is None else shard.gather
+    async_blocks = _AsyncBlocks(thin, hist_dt, gather)
     blocks = []
     total = num_ite - 1
     while done < total:
         if pending_epoch:
+            # the run's generator, alike on every rank: the sharded epoch
+            # draws each rank's redraw generator from it
             pools, kde, hat_eps = epoch_fn(generator, pools, hat_eps)
             hat_eps_hist.append(hat_eps.cpu().numpy())
             ep += 1
@@ -483,9 +519,11 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
             pending_epoch = False
         take = min(seg_len, total - done)
         theta_k, y_k, logk_k, gatt, gacc, lacc, hist = kern.run(
-            seed, resident, *packed, theta_k, y_k, logk_k, step0=done)
+            seed, resident, *packed, theta_k, y_k, logk_k, step0=done,
+            chain0=shard.chain0)
         if collect_history:
-            _history(hist, take, done, on_segment, async_blocks, blocks)
+            _history(hist, take, done, on_segment, async_blocks, blocks,
+                     gather)
         frac = take / seg_len
         for acc, inc in zip(counters, (gatt, gacc, lacc)):
             acc += inc.to(torch.float64) * frac
@@ -499,7 +537,7 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
                          "g_att": counters[0], "g_acc": counters[1],
                          "l_acc": counters[2], "hat_eps": hat_eps,
                          "steps_run": steps_run, "ep": ep, "seed": seed,
-                         "rng_state": generator.get_state(),
+                         **shard.rng_arrays(generator, gen),
                          "hat_eps_hist": np.asarray(hat_eps_hist,
                                                     np.float32)}
                 state.update(_agl._pool_arrays(pools))
@@ -508,15 +546,16 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
                                 meta=ckpt_meta)
 
     thetas = _finish_history(theta_init_row, blocks, async_blocks,
-                             on_segment, collect_history, C, d, hist_dt)
-    g_att, g_acc, l_acc = (np.rint(c.cpu().numpy()).astype(np.int32)
-                           for c in counters)
+                             on_segment, collect_history, shard.total, d,
+                             hist_dt)
+    g_att, g_acc, l_acc = (np.rint(shard.gather(c).cpu().numpy())
+                           .astype(np.int32) for c in counters)
     counts = MoveCounts(global_attempts=g_att, global_accepts=g_acc,
                         local_attempts=(steps_run - g_att).astype(np.int32),
                         local_accepts=l_acc)
     carry = AGLCarry(theta_k.T.contiguous(), y_k.T.contiguous(), logk_k,
                      torch.zeros(C, dtype=torch.int32, device=dev),
-                     generator, counts)
+                     gen, counts)
     return AGLResult(
         thetas=thetas, counts=counts, final_carry=carry, kde=kde,
         hat_eps=hat_eps.cpu().numpy(),

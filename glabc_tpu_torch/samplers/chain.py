@@ -3,6 +3,12 @@
 Port of ``glabc_tpu/samplers/chain.py``.  The carry holds every chain as one
 batched tensor and the run's single ``torch.Generator``; a checkpoint stores
 the tensors and the generator's state as named arrays.
+
+Under ``mesh=`` the plain path stays exact: its one generator draws for
+every chain at once, so each rank runs the whole one-device run (no
+collective) and returns its result bit for bit, at the one-device cost on
+every rank: the plain path is the reference, the fused drivers are the
+sharded path.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import torch
 
 from .._device import check_generator, resolve_device
 from ..utils.io import carry_path, load_carry, save_carry
+from ._shard import ChainShard
 from .base import MoveCounts, SamplerResult, run_segmented
 
 __all__ = ["ChainCarry", "init_chain_carry", "sample_with_step"]
@@ -79,26 +86,54 @@ def sample_with_step(problem, step: Callable, generator, num_ite: int, theta0,
 
     With ``checkpoint_path`` the carry (tensors, counters, generator state)
     is saved after every segment; ``resume=True`` restores it and the result
-    holds only the remaining transitions."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
-            "Queue 1, M12)")
+    holds only the remaining transitions.
+
+    ``mesh``: a 1-D ``DeviceMesh``; every rank calls with the same
+    arguments and generator seed and returns the whole result (see the
+    module docstring); the chain count must divide by its size, and each
+    rank checkpoints to its own file."""
     dev = resolve_device(device)
+    return drive_plain(
+        step, generator, num_ite, ChainCarry,
+        lambda: init_chain_carry(problem, generator, theta0, y0, num_chains,
+                                 dev),
+        _num_chains(theta0, num_chains), segment_size, on_segment,
+        checkpoint_path, resume, mesh, dev)
+
+
+def _num_chains(theta0, num_chains: int) -> int:
+    th = np.asarray(theta0)
+    return th.shape[0] if th.ndim == 2 else int(num_chains)
+
+
+def drive_plain(step: Callable, generator, num_ite: int, carry_cls,
+                init: Callable, num_chains: int, segment_size: int,
+                on_segment, checkpoint_path, resume: bool, mesh,
+                dev) -> SamplerResult:
+    """The plain samplers' loop: ``init()`` the carry (or restore it),
+    ``num_ite - 1 - start`` steps in segments, checkpoints and the result.
+    Under ``mesh`` every rank runs the whole run and checkpoints the whole
+    carry to its own file, with the world size.  ``carry_cls`` has
+    ``to_arrays`` / ``from_arrays``."""
+    shard = ChainShard(num_chains, mesh)
+    path = shard.path(checkpoint_path, resume)
     start = 0
     carry = None
-    if resume and checkpoint_path is not None and os.path.exists(
-            carry_path(checkpoint_path)):
-        arrays, start = load_carry(checkpoint_path)
-        carry = ChainCarry.from_arrays(arrays, check_generator(generator, dev),
-                                       dev)
+    if resume and path is not None and os.path.exists(carry_path(path)):
+        arrays, start = load_carry(path)
+        saved = int(arrays.pop("meta.world_size", 1))
+        if saved != shard.world:
+            raise ValueError(f"checkpoint was saved on world size {saved}, "
+                             f"this run has {shard.world}")
+        carry = carry_cls.from_arrays(arrays, check_generator(generator, dev),
+                                      dev)
     if carry is None:
-        carry = init_chain_carry(problem, generator, theta0, y0, num_chains,
-                                 dev)
+        carry = init()
     theta_init = carry.theta.cpu().numpy()[:, None, :]
     save = None
-    if checkpoint_path is not None:
-        save = lambda c, done: save_carry(checkpoint_path, c.to_arrays(), done)
+    if path is not None:
+        save = lambda c, done: save_carry(
+            path, {**c.to_arrays(), "meta.world_size": shard.world}, done)
     carry, thetas = run_segmented(step, carry, (num_ite - 1) - start,
                                   segment_size, on_segment, save,
                                   step_offset=start)
@@ -106,5 +141,5 @@ def sample_with_step(problem, step: Callable, generator, num_ite: int, theta0,
         thetas = np.concatenate([theta_init, thetas], axis=1)
     elif not thetas.size:
         thetas = theta_init
-    return SamplerResult(thetas=thetas, counts=carry.counts.numpy(),
-                         final_carry=carry)
+    counts = MoveCounts(*(c.cpu().numpy() for c in carry.counts))
+    return SamplerResult(thetas=thetas, counts=counts, final_carry=carry)

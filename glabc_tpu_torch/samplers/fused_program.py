@@ -15,6 +15,11 @@ generator and each launch passes the absolute index of its first step, so a
 chain's stream depends neither on ``steps_per_call``, ``block_chains`` nor
 segmenting.  Every launch runs ``steps_per_call`` transitions: a ragged last
 launch's counts are pro rata and the final carry is ahead of the history.
+
+``mesh=`` (a 1-D ``DeviceMesh``, one process per GPU): every rank draws the
+initial state (and gradient) of all chains and keeps its contiguous range,
+runs it with its first global chain as the kernel's ``chain0`` and gathers
+the history and counts: the one-device run's result, bit for bit.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from ..ops.kernels.mixture_kernel import _initial_chains
 from ..ops.kernels.program import TileProgram
 from ..utils.io import carry_path
 from ._fused_io import restore_epoch_ckpt, save_epoch_ckpt
+from ._shard import ChainShard
 from .aglmcmc_fused import _AsyncBlocks, _finish_history, _history, _seed
 from .base import MoveCounts, SamplerResult
 from .glmala import synthetic_likelihood_grad
@@ -82,7 +88,8 @@ def program_grad_init(problem, generator, theta, num_grad: int,
 
 
 def _loop(kern, run, state, counters, steps_run, done, call_idx, total,
-          collect_history, on_segment, async_blocks, blocks, save):
+          collect_history, on_segment, async_blocks, blocks, save,
+          gather=None):
     """The launch loop shared by both drivers.  ``run(state, step0)`` ->
     ``(state, history, stats)``."""
     T = kern.T
@@ -91,7 +98,8 @@ def _loop(kern, run, state, counters, steps_run, done, call_idx, total,
         call_idx += 1
         take = min(T, total - done)
         if collect_history:
-            _history(hist, take, done, on_segment, async_blocks, blocks)
+            _history(hist, take, done, on_segment, async_blocks, blocks,
+                     gather)
         frac = take / T   # the kernel always runs T steps
         for acc, x in zip(counters, stats[1:]):
             acc += x.to(torch.float64) * frac
@@ -103,15 +111,26 @@ def _loop(kern, run, state, counters, steps_run, done, call_idx, total,
 
 
 def _result(theta_init_row, blocks, async_blocks, on_segment,
-            collect_history, C, d, counters, steps_run, carry):
+            collect_history, shard, d, counters, steps_run, carry):
     thetas = _finish_history(theta_init_row, blocks, async_blocks,
-                             on_segment, collect_history, C, d, None)
-    g_att, g_acc, l_acc = (np.rint(c.cpu().numpy()).astype(np.int32)
-                           for c in counters)
+                             on_segment, collect_history, shard.total, d,
+                             None)
+    g_att, g_acc, l_acc = (np.rint(shard.gather(c).cpu().numpy())
+                           .astype(np.int32) for c in counters)
     counts = MoveCounts(global_attempts=g_att, global_accepts=g_acc,
                         local_attempts=(steps_run - g_att).astype(np.int32),
                         local_accepts=l_acc)
     return SamplerResult(thetas=thetas, counts=counts, final_carry=carry)
+
+
+def _init_state(problem, generator, theta0, shard, y0, dev):
+    """Every chain's initial state (the generator moves as on one
+    device), the rank's own kept: ``(theta, y, logk)`` in the kernels'
+    layout and the history's first row of every chain."""
+    theta, y, logk = program_state_init(problem, generator, theta0,
+                                        shard.total, y0, dev)
+    row = theta.T.cpu().numpy()[:, None, :]
+    return (shard.keep(theta, 1), shard.keep(y, 1), shard.keep(logk)), row
 
 
 def _restore(checkpoint_path, resume, meta):
@@ -148,26 +167,27 @@ def run_fused_program(problem, program: TileProgram, generator, num_ite,
     (e.g. ``problem.tile_program()``).  Chains have length ``num_ite`` with
     the initial state at index 0.  ``checkpoint_path``/``resume``: the loop
     state is saved after every whole launch; a resume continues bitwise and
-    returns the history after the resume point."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
-            "Queue 1, M12)")
+    returns the history after the resume point.  ``mesh``: a 1-D
+    ``DeviceMesh``; every rank calls with the same arguments and generator
+    seed, ``num_chains`` divides by its size, every rank returns the whole
+    result and checkpoints its own chains."""
     _check_program(problem, program)
+    shard = ChainShard(num_chains, mesh)
     dev = resolve_device(device)
     check_generator(generator, dev)
-    d, C = program.theta_dim, int(num_chains)
+    d, C = program.theta_dim, shard.local
     kern = GenericFusedGLMCMC(
         program, global_frequency=global_frequency, batch_size=batch_size,
         steps_per_call=steps_per_call, block_chains=block_chains,
         collect_history=collect_history, algorithm=algorithm)
     meta = {"kernel": "generic_program", "program": program.name,
-            "algorithm": algorithm, "num_chains": C, "theta_dim": d,
-            "steps_per_call": kern.T}
+            "algorithm": algorithm, "num_chains": shard.total,
+            "theta_dim": d, "steps_per_call": kern.T, **shard.meta}
+    checkpoint_path = shard.path(checkpoint_path, resume)
     restored = _restore(checkpoint_path, resume, meta)
     if restored is None:
-        state = program_state_init(problem, generator, theta0, C, y0, dev)
-        theta_init_row = state[0].T.cpu().numpy()[:, None, :]
+        state, theta_init_row = _init_state(problem, generator, theta0,
+                                            shard, y0, dev)
         seed = _seed(seed, generator)
         counters = [torch.zeros(C, dtype=torch.float64, device=dev)
                     for _ in range(3)]
@@ -183,16 +203,19 @@ def run_fused_program(problem, program: TileProgram, generator, num_ite,
         theta_init_row = None
 
     def run(st, step0, _):
-        th, y, lk, hist, stats = kern.run(seed, *st, step0=step0)
+        th, y, lk, hist, stats = kern.run(seed, *st, step0=step0,
+                                          chain0=shard.chain0)
         return (th, y, lk), hist, stats
 
-    async_blocks, blocks = _AsyncBlocks(), []
+    gather = None if mesh is None else shard.gather
+    async_blocks, blocks = _AsyncBlocks(gather=gather), []
     state, steps_run = _loop(
         kern, run, state, counters, steps_run, done, call_idx, num_ite - 1,
         collect_history, on_segment, async_blocks, blocks,
-        _saver(checkpoint_path, ("theta", "y", "logk"), seed, kern.T, meta))
+        _saver(checkpoint_path, ("theta", "y", "logk"), seed, kern.T, meta),
+        gather)
     return _result(theta_init_row, blocks, async_blocks, on_segment,
-                   collect_history, C, d, counters, steps_run, state)
+                   collect_history, shard, d, counters, steps_run, state)
 
 
 def run_glmala_program(problem, program: TileProgram, generator, num_ite,
@@ -213,15 +236,13 @@ def run_glmala_program(problem, program: TileProgram, generator, num_ite,
     (``'shared'`` skips the gradient batch on global steps; its coins come
     from a host numpy stream seeded with the kernel seed, ``steps_per_call``
     per launch, replayed on resume).  The initial gradient is the plain
-    estimator (:func:`program_grad_init`)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
-            "Queue 1, M12)")
+    estimator (:func:`program_grad_init`), at every chain under ``mesh``
+    (the rank keeps its own)."""
     _check_program(problem, program)
+    shard = ChainShard(num_chains, mesh)
     dev = resolve_device(device)
     check_generator(generator, dev)
-    d, C = program.theta_dim, int(num_chains)
+    d, C = program.theta_dim, shard.local
     kern = GenericFusedGLMALA(
         program, epsilon=float(problem.epsilon),
         global_frequency=global_frequency, batch_size=batch_size, tau=tau,
@@ -230,16 +251,18 @@ def run_glmala_program(problem, program: TileProgram, generator, num_ite,
         coin_mode=coin_mode)
     T = kern.T
     meta = {"kernel": "generic_glmala", "program": program.name,
-            "num_chains": C, "theta_dim": d, "steps_per_call": T,
-            "num_grad": int(num_grad), "coin_mode": coin_mode}
+            "num_chains": shard.total, "theta_dim": d, "steps_per_call": T,
+            "num_grad": int(num_grad), "coin_mode": coin_mode, **shard.meta}
+    checkpoint_path = shard.path(checkpoint_path, resume)
     restored = _restore(checkpoint_path, resume, meta)
     if restored is None:
-        theta, y, logk = program_state_init(problem, generator, theta0, C, y0,
-                                            dev)
+        theta, y, logk = program_state_init(problem, generator, theta0,
+                                            shard.total, y0, dev)
         grad = program_grad_init(problem, generator, theta, num_grad,
                                  fd_step)
-        state = (theta, y, logk, grad)
         theta_init_row = theta.T.cpu().numpy()[:, None, :]
+        state = (shard.keep(theta, 1), shard.keep(y, 1), shard.keep(logk),
+                 shard.keep(grad, 1))
         seed = _seed(seed, generator)
         counters = [torch.zeros(C, dtype=torch.float64, device=dev)
                     for _ in range(3)]
@@ -260,14 +283,16 @@ def run_glmala_program(problem, program: TileProgram, generator, num_ite,
     def run(st, step0, _):
         coins = torch.from_numpy(
             (coin_rng.random(T) < global_frequency).astype(np.int32))
-        th, y, lk, gr, hist, inc = kern.run(seed, *st, coins, step0=step0)
+        th, y, lk, gr, hist, inc = kern.run(seed, *st, coins, step0=step0,
+                                            chain0=shard.chain0)
         return (th, y, lk, gr), hist, inc
 
-    async_blocks, blocks = _AsyncBlocks(), []
+    gather = None if mesh is None else shard.gather
+    async_blocks, blocks = _AsyncBlocks(gather=gather), []
     state, steps_run = _loop(
         kern, run, state, counters, steps_run, done, call_idx, num_ite - 1,
         collect_history, on_segment, async_blocks, blocks,
         _saver(checkpoint_path, ("theta", "y", "logk", "grad"), seed, T,
-               meta))
+               meta), gather)
     return _result(theta_init_row, blocks, async_blocks, on_segment,
-                   collect_history, C, d, counters, steps_run, state)
+                   collect_history, shard, d, counters, steps_run, state)

@@ -28,16 +28,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from .._device import check_generator, resolve_device
-from ..utils.io import carry_path, load_carry, save_carry
-from .base import MoveCounts, SamplerResult, StepOut, _select, isir_move, \
-    run_segmented
+from .base import MoveCounts, SamplerResult, StepOut, _select, isir_move
 
 __all__ = ["GLMALAConfig", "GLMALACarry", "synthetic_likelihood_grad",
            "build_glmala_step", "init_glmala_carry", "run_glmala"]
@@ -198,36 +194,22 @@ def run_glmala(problem, generator, num_ite, theta0, importance_proposal,
     ``checkpoint_path``/``resume``: the carry (theta, y, kernel value,
     gradient, generator state, counts) is saved after every segment;
     ``resume=True`` continues where the run stopped, returning only the
-    history after the resume point."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
-            "Queue 1, M12)")
+    history after the resume point.
+
+    ``mesh``: as in :func:`~glabc_tpu_torch.samplers.chain.
+    sample_with_step`: every rank runs the whole one-device run and
+    returns its result, bit for bit."""
+    from .chain import _num_chains, drive_plain
+
     dev = resolve_device(device)
     check_generator(generator, dev)
     cfg = GLMALAConfig(global_frequency, batch_size, tau, num_grad,
                        grad_mode=grad_mode,
                        refresh_grad_after_global=refresh_grad_after_global)
     step = build_glmala_step(problem, importance_proposal.to(dev), cfg)
-    start = 0
-    carry = None
-    if resume and checkpoint_path is not None and os.path.exists(
-            carry_path(checkpoint_path)):
-        arrays, start = load_carry(checkpoint_path)
-        carry = GLMALACarry.from_arrays(arrays, generator, dev)
-    if carry is None:
-        carry = init_glmala_carry(problem, generator, theta0, cfg, y0,
-                                  num_chains, dev)
-    theta_init = carry.theta.cpu().numpy()[:, None, :]
-    save = None
-    if checkpoint_path is not None:
-        save = lambda c, done: save_carry(checkpoint_path, c.to_arrays(), done)
-    carry, thetas = run_segmented(step, carry, (num_ite - 1) - start,
-                                  segment_size, on_segment, save,
-                                  step_offset=start)
-    if thetas.size and start == 0:
-        thetas = np.concatenate([theta_init, thetas], axis=1)
-    elif not thetas.size:
-        thetas = theta_init
-    return SamplerResult(thetas=thetas, counts=carry.counts.numpy(),
-                         final_carry=carry)
+    return drive_plain(
+        step, generator, num_ite, GLMALACarry,
+        lambda: init_glmala_carry(problem, generator, theta0, cfg, y0,
+                                  num_chains, dev),
+        _num_chains(theta0, num_chains), segment_size, on_segment,
+        checkpoint_path, resume, mesh, dev)

@@ -13,6 +13,11 @@ absolute index of its first step, so a chain's stream does not depend on
 ``steps_per_call``, ``block_chains`` or segmenting.  Shared coins come from
 a host ``numpy`` stream seeded with the kernel seed, ``steps_per_call`` per
 launch (the JAX driver's), replayed on resume.
+
+``mesh=``: every rank draws the initial state and gradient of all chains
+and keeps its contiguous range, draws the same shared coins, runs its range
+with its first global chain as the kernel's ``chain0`` and gathers the
+history and counts: the one-device run's result, bit for bit.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from ..ops.kernels.glmala_kernel import FusedMixtureGLMALA
 from ..ops.kernels.mixture_kernel import _initial_chains
 from ..utils.io import carry_path
 from ._fused_io import restore_epoch_ckpt, save_epoch_ckpt
+from ._shard import ChainShard
 from .aglmcmc_fused import _AsyncBlocks, _finish_history, _history, _seed
 from .base import MoveCounts, SamplerResult
 from .glmala import synthetic_likelihood_grad
@@ -67,11 +73,12 @@ def run_glmala_fused(problem, generator, num_ite, theta0, *, y0=None,
     the final carry is ahead of it, and the last launch's counts are pro
     rata.  ``checkpoint_path``/``resume``: the loop state is saved after
     every whole launch; a resume continues bitwise and returns the history
-    after the resume point."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
-            "Queue 1, M12)")
+    after the resume point.
+
+    ``mesh``: a 1-D ``DeviceMesh``; every rank calls with the same
+    arguments and generator seed, ``num_chains`` divides by its size, every
+    rank returns the whole result and checkpoints its own chains."""
+    shard = ChainShard(num_chains, mesh)
     dev = resolve_device(device)
     check_generator(generator, dev)
     d = problem.theta_dim
@@ -90,22 +97,26 @@ def run_glmala_fused(problem, generator, num_ite, theta0, *, y0=None,
         prior_scale=prior_scale, ip_loc=ip_loc, ip_scale=ip_scale,
         steps_per_call=steps_per_call, block_chains=block_chains,
         collect_history=collect_history, coin_mode=coin_mode)
-    C, T = int(num_chains), kern.T
-    ckpt_meta = {"kernel": "glmala", "num_chains": C, "theta_dim": d,
-                 "steps_per_call": T, "num_grad": num_grad,
-                 "coin_mode": coin_mode}
+    C, T = shard.local, kern.T
+    ckpt_meta = {"kernel": "glmala", "num_chains": shard.total,
+                 "theta_dim": d, "steps_per_call": T, "num_grad": num_grad,
+                 "coin_mode": coin_mode, **shard.meta}
+    checkpoint_path = shard.path(checkpoint_path, resume)
     # restore before the state init, so a resume skips the initial
     # simulations and the gradient batch
     restored = (restore_epoch_ckpt(checkpoint_path, ckpt_meta)
                 if resume and checkpoint_path is not None
                 and os.path.exists(carry_path(checkpoint_path)) else None)
     if restored is None:
-        th_c, y_c, logk = _initial_chains(problem, generator, theta0, C, y0,
-                                          dev)
-        grad = grad_init(problem, generator, th_c, num_grad, fd_step)
-        theta, y, logk = th_c.T.contiguous(), y_c.T.contiguous(), \
-            logk.contiguous()
+        # every chain's state and gradient: the generator moves as on one
+        # device; the rank keeps its own
+        th_c, y_c, logk = _initial_chains(problem, generator, theta0,
+                                          shard.total, y0, dev)
+        grad = shard.keep(grad_init(problem, generator, th_c, num_grad,
+                                    fd_step), dim=1)
         theta_init_row = th_c.cpu().numpy()[:, None, :]
+        theta, y = (shard.keep(x.T, dim=1) for x in (th_c, y_c))
+        logk = shard.keep(logk)
         seed = _seed(seed, generator)
         counters = [torch.zeros(C, dtype=torch.float64, device=dev)
                     for _ in range(3)]
@@ -123,18 +134,21 @@ def run_glmala_fused(problem, generator, num_ite, theta0, *, y0=None,
     for _ in range(call_idx):        # replay the host coin stream on resume
         coin_rng.random(T)
 
-    async_blocks = _AsyncBlocks()
+    gather = None if mesh is None else shard.gather
+    async_blocks = _AsyncBlocks(gather=gather)
     blocks = []
     total = num_ite - 1
     while done < total:
         coins = torch.from_numpy(
             (coin_rng.random(T) < global_frequency).astype(np.int32))
         theta, y, logk, grad, hist, inc = kern.run(
-            seed, theta, y, logk, grad, coins, step0=call_idx * T)
+            seed, theta, y, logk, grad, coins, step0=call_idx * T,
+            chain0=shard.chain0)
         call_idx += 1
         take = min(T, total - done)
         if collect_history:
-            _history(hist, take, done, on_segment, async_blocks, blocks)
+            _history(hist, take, done, on_segment, async_blocks, blocks,
+                     gather)
         frac = take / T   # the kernel always runs T steps
         for acc, x in zip(counters, inc[1:]):
             acc += x.to(torch.float64) * frac
@@ -149,9 +163,10 @@ def run_glmala_fused(problem, generator, num_ite, theta0, *, y0=None,
                             meta=ckpt_meta)
 
     thetas = _finish_history(theta_init_row, blocks, async_blocks,
-                             on_segment, collect_history, C, d, None)
-    g_att, g_acc, l_acc = (np.rint(c.cpu().numpy()).astype(np.int32)
-                           for c in counters)
+                             on_segment, collect_history, shard.total, d,
+                             None)
+    g_att, g_acc, l_acc = (np.rint(shard.gather(c).cpu().numpy())
+                           .astype(np.int32) for c in counters)
     counts = MoveCounts(global_attempts=g_att, global_accepts=g_acc,
                         local_attempts=(steps_run - g_att).astype(np.int32),
                         local_accepts=l_acc)

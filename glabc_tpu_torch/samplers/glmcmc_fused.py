@@ -11,6 +11,12 @@ Mixture-family problems (Gaussian prior and proposals,
 The kernel seed is drawn once from the generator (as the JAX driver draws it
 from the key); each launch passes the absolute index of its first step, so a
 chain's stream does not depend on ``steps_per_call`` or ``block_chains``.
+
+``mesh=`` (a 1-D ``DeviceMesh``, one process per GPU): every rank draws
+the initial state of all chains and keeps its contiguous range, packs and
+runs it on its own card with its first global chain as the kernel's
+``chain0``, and gathers the history and counts over the group: the result
+equals the one-device run's bit for bit.
 """
 
 from __future__ import annotations
@@ -20,9 +26,9 @@ import torch
 
 from .._device import check_generator, resolve_device
 from ..ops.kernels.mixture_kernel import FusedMixtureGLMCMC, fused_state_init
-from ..ops.kernels.packed_kernel import (PackedMixtureGLMCMC,
-                                         packed_state_init, unpack_history)
+from ..ops.kernels.packed_kernel import PackedMixtureGLMCMC, packed_state_init
 from ._fused_io import restore_fused_ckpt, save_fused_ckpt
+from ._shard import ChainShard
 from .base import MoveCounts, SamplerResult
 
 __all__ = ["run_glmcmc_fused", "run_global_mcmc_fused"]
@@ -48,6 +54,13 @@ def run_glmcmc_fused(problem, generator, num_ite, theta0, *, y0=None,
     ``theta_dim | 8`` and ``num_chains`` is a multiple of
     ``(8/d) * block_chains``, as in the JAX driver).
 
+    ``mesh``: a 1-D ``DeviceMesh``; every rank calls with the same
+    arguments and generator seed.  ``num_chains`` must divide by its size
+    ``w``; the ``C/w`` chains of a rank take the place of ``num_chains`` in
+    the packing rules above (``'auto'`` packs when ``C/w`` is a multiple of
+    ``(8/d) * block_chains``, else runs unpacked).  Every rank returns the
+    whole result; a checkpoint is one file a rank.
+
     ``algorithm``: ``'glmcmc'`` (iSIR global move) or ``'global'``
     (independence MH; see :func:`run_global_mcmc_fused`).
 
@@ -59,10 +72,8 @@ def run_glmcmc_fused(problem, generator, num_ite, theta0, *, y0=None,
     not a multiple of it, the history is still exactly ``num_ite`` long, the
     final carry is ahead of the last recorded state, and the ragged launch's
     counters are scaled pro rata."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
-            "Queue 1, M12)")
+    shard = ChainShard(num_chains, mesh)
+    C_all, num_chains = num_chains, shard.local
     dev = resolve_device(device)
     check_generator(generator, dev)
     d = problem.theta_dim
@@ -80,9 +91,10 @@ def run_glmcmc_fused(problem, generator, num_ite, theta0, *, y0=None,
                          f"got {kernel!r}")
 
     ckpt_meta = {"kernel": kernel, "algorithm": algorithm,
-                 "num_chains": num_chains, "theta_dim": d,
+                 "num_chains": C_all, "theta_dim": d,
                  "steps_per_call": steps_per_call,
-                 "block_chains": block_chains}
+                 "block_chains": block_chains, **shard.meta}
+    checkpoint_path = shard.path(checkpoint_path, resume)
     restored = (restore_fused_ckpt(checkpoint_path, ckpt_meta, dev)
                 if resume and checkpoint_path is not None else None)
     kwargs = dict(epsilon=problem.epsilon, sigma=sigma,
@@ -102,47 +114,54 @@ def run_glmcmc_fused(problem, generator, num_ite, theta0, *, y0=None,
         kern = PackedMixtureGLMCMC(d, y_obs, **kwargs)
         if restored is None:
             state = packed_state_init(problem, generator, theta0, num_cols,
-                                      pack, y0=y0, device=dev)
+                                      pack, y0=y0, device=dev,
+                                      shard=shard.spec)
 
         def stats_row(x):   # (8, C) leader-row counters -> (pack*C,)
             return (x.reshape(pack, d, num_cols)[:, 0, :].reshape(num_chains)
-                    .cpu().numpy().astype(np.float64))
+                    .to(torch.float64))
 
-        def hist_block(hist):
-            return unpack_history(hist, d)
+        def hist_block(hist):   # (take, 8, C) -> (pack*C, take, d)
+            return (hist.reshape(-1, pack, d, num_cols).permute(1, 3, 0, 2)
+                    .reshape(num_chains, -1, d))
     else:
         kern = FusedMixtureGLMCMC(d, y_obs, **kwargs)
         if restored is None:
             state = fused_state_init(problem, generator, theta0, num_chains,
-                                     kern.d_pad, y0=y0, device=dev)
+                                     kern.d_pad, y0=y0, device=dev,
+                                     shard=shard.spec)
 
         def stats_row(x):
-            return x[0].cpu().numpy().astype(np.float64)
+            return x[0].to(torch.float64)
 
         def hist_block(hist):   # (take, d_pad, C) -> (C, take, d)
-            return hist[:, :d, :].permute(2, 0, 1).cpu().numpy()
+            return hist[:, :d, :].permute(2, 0, 1)
+
+    def host_block(hist):   # every rank's chains, on the host
+        return shard.gather(hist_block(hist).contiguous()).cpu().numpy()
 
     if restored is not None:
-        (state, (g_att, g_acc, l_acc), steps_run, call_idx, seed,
-         done) = restored
+        (state, counters, steps_run, call_idx, seed, done) = restored
+        g_att, g_acc, l_acc = (torch.as_tensor(c, device=dev)
+                               for c in counters)
     else:
         if seed is None:
             seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
                                      device=generator.device))
-        g_att = np.zeros(num_chains, np.float64)
-        g_acc = np.zeros(num_chains, np.float64)
-        l_acc = np.zeros(num_chains, np.float64)
+        g_att, g_acc, l_acc = (torch.zeros(num_chains, dtype=torch.float64,
+                                           device=dev) for _ in range(3))
         steps_run = done = call_idx = 0
     theta, y, logk = state
     total = num_ite - 1
-    blocks = [hist_block(theta[None])] if (collect_history and done == 0) else []
+    blocks = [host_block(theta[None])] if (collect_history and done == 0) else []
     while done < total:
         theta, y, logk, hist, stats = kern.run(seed, theta, y, logk,
-                                               step0=call_idx * kern.T)
+                                               step0=call_idx * kern.T,
+                                               chain0=shard.chain0)
         call_idx += 1
         take = min(kern.T, total - done)
         if collect_history:
-            block = hist_block(hist[:take])
+            block = host_block(hist[:take])
             if on_segment is not None:
                 on_segment(block, done)
             blocks.append(block)
@@ -158,7 +177,9 @@ def run_glmcmc_fused(problem, generator, num_ite, theta0, *, y0=None,
                             done, take, kern.T, meta=ckpt_meta)
 
     thetas = (np.concatenate(blocks, axis=1) if blocks
-              else hist_block(theta[None]))
+              else host_block(theta[None]))
+    g_att, g_acc, l_acc = (shard.gather(c).cpu().numpy()
+                           for c in (g_att, g_acc, l_acc))
     g_att_i = np.rint(g_att).astype(np.int32)
     counts = MoveCounts(
         global_attempts=g_att_i,

@@ -39,8 +39,10 @@ from ..models.distributions import DiagGaussian
 from ..models.flows import CouplingFlow
 from ..ops.resampling import systematic_resample
 from ._fused_io import restore_epoch_ckpt, save_epoch_ckpt
-from .base import SamplerResult, StepOut, _select, isir_move, local_rw_move
-from .chain import ChainCarry, init_chain_carry
+from ._shard import ChainShard
+from .base import (MoveCounts, SamplerResult, StepOut, _select, isir_move,
+                   local_rw_move)
+from .chain import ChainCarry, _num_chains, init_chain_carry
 
 __all__ = ["GLMCMCNFConfig", "make_optimizer", "adam_step",
            "make_flow_trainer", "build_nf_step",
@@ -198,11 +200,18 @@ def run_glmcmc_nf(problem, generator, num_ite, theta0, local_proposal,
     ``checkpoint_path``/``resume``: the flow, Adam's state, the chain carry
     and the generator are saved after every whole segment, before the epoch
     that follows it; ``resume=True`` replays that epoch and continues
-    bitwise, returning only the history after the resume point."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
-            "Queue 1, M12)")
+    bitwise, returning only the history after the resume point.
+
+    ``mesh``: a 1-D ``DeviceMesh``; every rank calls with the same
+    arguments and generator seed.  The flow and the initial states come
+    from the run's generator as on one device (each rank keeps its own
+    chains); after them a rank's chains draw from its own generator, and
+    each refit is data-parallel (``parallel.make_sharded_flow_trainer`` /
+    ``make_sharded_chain_state_trainer``: gradients averaged over the
+    group), so the flow stays the same on every rank and the chains match
+    a one-device run in distribution.  Every rank returns the whole
+    history, counts and loss history."""
+    shard = ChainShard(_num_chains(theta0, num_chains), mesh)
     if train_on not in ("flow_is", "chain_states"):
         raise ValueError(f"train_on must be 'flow_is' or 'chain_states', got "
                          f"{train_on!r}")
@@ -217,26 +226,39 @@ def run_glmcmc_nf(problem, generator, num_ite, theta0, local_proposal,
     ckpt_meta = {"sampler": "glmcmc_nf", "num_chains": num_chains,
                  "theta_dim": problem.theta_dim, "seg_len": seg_len,
                  "n_layers": n_layers, "hidden": hidden,
-                 "train_on": train_on}
+                 "train_on": train_on, **shard.meta}
+    checkpoint_path = shard.path(checkpoint_path, resume)
     restored = (restore_epoch_ckpt(checkpoint_path, ckpt_meta)
                 if resume and checkpoint_path is not None else None)
     if restored is None:
         flow = new_flow(problem, generator, base, n_layers, hidden, flow, dev)
         opt = make_optimizer(flow, cfg)
-        carry = init_chain_carry(problem, generator, theta0, y0, num_chains,
-                                 dev)
-        theta_init = carry.theta.cpu().numpy()[:, None, :]
+        cc = init_chain_carry(problem, generator, theta0, y0, num_chains,
+                              dev)
+        theta_init = cc.theta.cpu().numpy()[:, None, :]
+        carry = ChainCarry(shard.keep(cc.theta), shard.keep(cc.y),
+                           shard.keep(cc.log_kernel),
+                           shard.local_generator(generator),
+                           MoveCounts.zeros(shard.local, dev))
         losses, num_train, done = [], 0, 0
         pending_epoch = False
     else:
         arrays, done = restored
         flow, opt = flow_state_from_arrays(arrays, cfg, dev)
-        carry = ChainCarry.from_arrays(arrays, generator, dev)
+        carry = ChainCarry.from_arrays(
+            arrays, shard.restore_rngs(arrays, generator), dev)
         losses = [float(x) for x in np.asarray(arrays["losses"]).ravel()]
         num_train = int(arrays["num_train"])
         theta_init = None
         pending_epoch = True
-    train = make_flow_trainer(problem, cfg)
+    if mesh is None:
+        train, train_states = make_flow_trainer(problem, cfg), adam_step
+    else:
+        from ..parallel.sharded import (make_sharded_chain_state_trainer,
+                                        make_sharded_flow_trainer)
+        train = make_sharded_flow_trainer(problem, cfg, mesh)
+        train_states = make_sharded_chain_state_trainer(mesh)
+    host = lambda a: shard.gather_host(a, dev)
 
     blocks = []
     total = num_ite - 1
@@ -245,7 +267,7 @@ def run_glmcmc_nf(problem, generator, num_ite, theta0, local_proposal,
             if num_train < train_steps:
                 for _ in range(cfg.train_iters_per_epoch):
                     if train_on == "chain_states":
-                        loss = adam_step(flow, opt, carry.theta)
+                        loss = train_states(flow, opt, carry.theta)
                     else:
                         loss = train(flow, opt, generator)
                     losses.append(float(loss))
@@ -256,7 +278,7 @@ def run_glmcmc_nf(problem, generator, num_ite, theta0, local_proposal,
         for _ in range(take):
             carry, out = step(flow, carry)
             seg.append(out.theta)
-        blocks.append(torch.stack(seg, dim=1).cpu().numpy())
+        blocks.append(host(torch.stack(seg, dim=1).cpu().numpy()))
         if on_segment is not None:
             on_segment(blocks[-1], done)
         done += take
@@ -265,6 +287,7 @@ def run_glmcmc_nf(problem, generator, num_ite, theta0, local_proposal,
                 pending_epoch = True
             if checkpoint_path is not None:
                 state = carry.to_arrays()
+                state.update(shard.rng_arrays(generator, carry.generator))
                 state.update(flow_state_arrays(flow, opt))
                 state.update(num_train=num_train,
                              losses=np.asarray(losses, np.float64))
@@ -274,6 +297,8 @@ def run_glmcmc_nf(problem, generator, num_ite, theta0, local_proposal,
     head = [theta_init] if theta_init is not None else []
     thetas = (np.concatenate(head + blocks, axis=1) if head or blocks
               else np.zeros((num_chains, 0, problem.theta_dim), np.float32))
-    return NFResult(thetas=thetas, counts=carry.counts.numpy(),
+    return NFResult(thetas=thetas,
+                    counts=MoveCounts(*(host(c.cpu().numpy())
+                                        for c in carry.counts)),
                     final_carry=carry, flow=flow,
                     loss_hist=np.asarray(losses, np.float64))

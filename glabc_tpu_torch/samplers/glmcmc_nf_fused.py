@@ -22,6 +22,17 @@ slice ``t`` and skips it on a local step, over a pool of ``round(step_size
 AGLMCMC kernel).  ``shared_coin=True`` draws one coin per step for all
 chains, so local steps skip the flow pull.
 
+``mesh=`` (a 1-D ``DeviceMesh``): the flow and the initial states come from
+the run's generator as on one device (each rank keeps its contiguous range
+of chains); a rank's pools and moves then draw from its own generator
+(``ChainShard.local_generator``; shared coins from the run's, so every
+chain still sees one coin a step), the pool-iSIR kernel takes the rank's
+first global chain as ``chain0``, and each refit resamples every rank's
+share of the training rows from its own pool and averages the gradients
+over the group, so the flow stays the same on every rank.  The chains match
+a one-device run in distribution; every rank returns the whole history,
+counts and loss history.
+
 At ``global_frequency == 1`` (:func:`run_glmcmc_nf_fused`) every step is a
 pool-iSIR move and the segment runs in the pool-iSIR kernel (K3); the
 carried state log-weight is a pool candidate's between epochs, and is
@@ -48,6 +59,7 @@ from ..ops.kernels.pool_isir_kernel import (PoolISIR, pack_pool_logw,
                                             pack_pool_theta)
 from ..ops.resampling import categorical_from_log_weights, systematic_resample
 from ._fused_io import restore_epoch_ckpt, save_epoch_ckpt
+from ._shard import ChainShard
 from .aglmcmc import (AGLCarry, Pool, _pool_arrays, _pool_from,
                       _pool_from_proposals, default_pool_slack)
 from .aglmcmc_fused import (_AsyncBlocks, _finish_history, _history,
@@ -78,13 +90,24 @@ def make_nf_pool_fn(problem, num_chains: int, pool_slices: int,
 
 
 def make_pool_trainer(cfg: GLMCMCNFConfig, num_chains: int,
-                      max_train: int = 65536):
+                      max_train: int = 65536, mesh=None):
     """One reference training epoch on the pool (``GLMCMC_NFs.py:114-124``):
     resample ``min(C * step_size * batch_size, max_train)`` rows of the
     first ``step_size`` slices by their MCMC weights, one Adam step of
-    forward KL.  Returns ``train(flow, opt, pools, generator) -> loss``."""
+    forward KL.  Returns ``train(flow, opt, pools, generator) -> loss``.
+
+    ``mesh``: ``num_chains`` counts every rank's chains; each rank
+    resamples its share of the rows from its own pool and the gradients
+    are averaged over the group (``parallel.sharded``'s data-parallel
+    step)."""
     P_train = cfg.step_size * cfg.batch_size
     n_train = min(num_chains * P_train, max_train)
+    step = adam_step
+    if mesh is not None:
+        from ..parallel.mesh import check_mesh
+        from ..parallel.sharded import make_sharded_chain_state_trainer
+        n_train = max(1, n_train // check_mesh(mesh)[1])
+        step = make_sharded_chain_state_trainer(mesh)
 
     def train(flow, opt, pools: Pool, generator):
         d = pools.theta.shape[-1]
@@ -92,7 +115,7 @@ def make_pool_trainer(cfg: GLMCMCNFConfig, num_chains: int,
         w = torch.exp(pools.log_w[:, :P_train].reshape(-1).to(torch.float64))
         w = torch.where(torch.isnan(w), torch.zeros_like(w), w)
         idx = systematic_resample(w / torch.sum(w), n_train, generator)
-        return adam_step(flow, opt, theta[idx])
+        return step(flow, opt, theta[idx])
 
     return train
 
@@ -132,16 +155,18 @@ def _global_move(problem, pools: Pool, logq_old, carry: AGLCarry, B: int,
 def _pooled_segment(problem, local_proposal, cfg: GLMCMCNFConfig, flow,
                     pools: Pool, carry: AGLCarry, length: int,
                     pool_slices: int, shared_coin: bool, cadence: str,
-                    hist: Optional[torch.Tensor]):
+                    hist: Optional[torch.Tensor], coin_generator=None):
     """``length`` steps of every chain over the pools; writes each step's
     states into ``hist (length, d, C)``.  Per-chain coins evaluate the flow
-    every step; a shared coin only on global steps."""
+    every step; a shared coin (from ``coin_generator``, default the
+    carry's) only on global steps."""
     gen = carry.generator
     C = carry.theta.shape[0]
     dev = carry.theta.device
     gf, B = cfg.global_frequency, cfg.batch_size
-    shared = (torch.rand(length, generator=gen, device=dev) < gf).tolist() \
-        if shared_coin else None
+    coin_gen = gen if coin_generator is None else coin_generator
+    shared = (torch.rand(length, generator=coin_gen, device=dev) < gf
+              ).tolist() if shared_coin else None
     for t in range(length):
         if shared is not None:
             is_global = torch.full((C,), shared[t], dtype=torch.bool,
@@ -166,10 +191,10 @@ def _pooled_segment(problem, local_proposal, cfg: GLMCMCNFConfig, flow,
     return carry
 
 
-def _nf_arrays(flow, opt, pools, num_train, losses, generator):
+def _nf_arrays(flow, opt, pools, num_train, losses):
     state = flow_state_arrays(flow, opt)
     state.update(_pool_arrays(pools))
-    state.update(num_train=num_train, rng_state=generator.get_state(),
+    state.update(num_train=num_train,
                  losses=np.asarray([float(x) for x in losses], np.float64))
     return state
 
@@ -198,11 +223,9 @@ def run_glmcmc_nf_pooled(problem, generator, num_ite, theta0, local_proposal,
     ``history_dtype`` compress the history copy (not with ``on_segment``).
     ``checkpoint_path``/``resume``: the flow, Adam's state, the pools, the
     carry and the generator are saved after every whole segment; a resume
-    replays the next epoch and continues bitwise."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
-            "Queue 1, M12)")
+    replays the next epoch and continues bitwise.  ``mesh``: see the module
+    docstring."""
+    shard = ChainShard(num_chains, mesh)
     if cadence not in ("cursor", "slice"):
         raise ValueError(f"cadence must be 'cursor' or 'slice', got "
                          f"{cadence!r}")
@@ -220,37 +243,42 @@ def run_glmcmc_nf_pooled(problem, generator, num_ite, theta0, local_proposal,
         if pool_slack is None:
             pool_slack = default_pool_slack(step_size, gf)
         pool_slices = step_size + pool_slack
-    C, d = num_chains, problem.theta_dim
+    C, d = shard.local, problem.theta_dim
     local_proposal = local_proposal.to(dev)
     thin, hist_dt = _history_opts(thin, history_dtype, on_segment)
     pool_fn = make_nf_pool_fn(problem, C, pool_slices, batch_size)
-    train = make_pool_trainer(cfg, C, max_train)
+    train = make_pool_trainer(cfg, shard.total, max_train, mesh)
 
-    ckpt_meta = {"sampler": "glmcmc_nf_pooled", "num_chains": C,
+    ckpt_meta = {"sampler": "glmcmc_nf_pooled", "num_chains": shard.total,
                  "theta_dim": d, "seg_len": seg_len,
                  "pool_slices": pool_slices, "batch_size": batch_size,
-                 "n_layers": n_layers, "hidden": hidden, "cadence": cadence}
+                 "n_layers": n_layers, "hidden": hidden, "cadence": cadence,
+                 **shard.meta}
+    checkpoint_path = shard.path(checkpoint_path, resume)
     restored = (restore_epoch_ckpt(checkpoint_path, ckpt_meta)
                 if resume and checkpoint_path is not None else None)
     if restored is None:
         flow = new_flow(problem, generator, base, n_layers, hidden, flow, dev)
         opt = make_optimizer(flow, cfg)
-        cc = init_chain_carry(problem, generator, theta0, y0, C, dev)
-        carry = AGLCarry(cc.theta, cc.y, cc.log_kernel,
-                         torch.zeros(C, dtype=torch.int32, device=dev),
-                         generator, cc.counts)
+        cc = init_chain_carry(problem, generator, theta0, y0, shard.total,
+                              dev)
         theta_init_row = cc.theta.cpu().numpy()[:, None, :]
-        pools = pool_fn(flow, generator)
+        gen = shard.local_generator(generator)
+        carry = AGLCarry(shard.keep(cc.theta), shard.keep(cc.y),
+                         shard.keep(cc.log_kernel),
+                         torch.zeros(C, dtype=torch.int32, device=dev),
+                         gen, MoveCounts.zeros(C, dev))
+        pools = pool_fn(flow, gen)
         losses, num_train, done = [], 0, 0
         pending_epoch = False
     else:
         arrays, done = restored
         t_ = lambda k: torch.as_tensor(arrays[k], device=dev)
         flow, opt = flow_state_from_arrays(arrays, cfg, dev)
-        generator.set_state(torch.as_tensor(arrays["rng_state"]))
+        gen = shard.restore_rngs(arrays, generator)
         pools = _pool_from(arrays, dev)
         carry = AGLCarry(t_("theta"), t_("y"), t_("log_kernel"), t_("kk"),
-                         generator,
+                         gen,
                          MoveCounts(*(t_(f"counts.{k}")
                                       for k in MoveCounts._fields)))
         losses = [float(x) for x in np.asarray(arrays["losses"]).ravel()]
@@ -258,7 +286,8 @@ def run_glmcmc_nf_pooled(problem, generator, num_ite, theta0, local_proposal,
         theta_init_row = None
         pending_epoch = True
 
-    async_blocks = _AsyncBlocks(thin, hist_dt)
+    gather = None if mesh is None else shard.gather
+    async_blocks = _AsyncBlocks(thin, hist_dt, gather)
     blocks = []
     total = num_ite - 1
     while done < total:
@@ -266,9 +295,9 @@ def run_glmcmc_nf_pooled(problem, generator, num_ite, theta0, local_proposal,
             # pool exhausted: train on it, then redraw from the updated flow
             # (GLMCMC_NFs.py:112-140; the redraw goes on after Train_step)
             if num_train < train_steps:
-                losses.append(train(flow, opt, pools, generator))
+                losses.append(train(flow, opt, pools, gen))
                 num_train += 1
-            pools = pool_fn(flow, generator)
+            pools = pool_fn(flow, gen)
             carry = carry._replace(kk=torch.zeros_like(carry.kk))
             pending_epoch = False
         take = min(seg_len, total - done)
@@ -276,16 +305,17 @@ def run_glmcmc_nf_pooled(problem, generator, num_ite, theta0, local_proposal,
                 if collect_history else None)
         carry = _pooled_segment(problem, local_proposal, cfg, flow, pools,
                                 carry, take, pool_slices, shared_coin,
-                                cadence, hist)
+                                cadence, hist, generator)
         if collect_history:
-            _history(hist, take, done, on_segment, async_blocks, blocks)
+            _history(hist, take, done, on_segment, async_blocks, blocks,
+                     gather)
         done += take
         if take == seg_len:
             if done < total:
                 pending_epoch = True
             if checkpoint_path is not None:
-                state = _nf_arrays(flow, opt, pools, num_train, losses,
-                                   generator)
+                state = _nf_arrays(flow, opt, pools, num_train, losses)
+                state.update(shard.rng_arrays(generator, gen))
                 state.update(theta=carry.theta, y=carry.y,
                              log_kernel=carry.log_kernel, kk=carry.kk)
                 state.update({f"counts.{k}": v
@@ -294,8 +324,11 @@ def run_glmcmc_nf_pooled(problem, generator, num_ite, theta0, local_proposal,
                                 meta=ckpt_meta)
 
     thetas = _finish_history(theta_init_row, blocks, async_blocks,
-                             on_segment, collect_history, C, d, hist_dt)
-    return NFResult(thetas=thetas, counts=carry.counts.numpy(),
+                             on_segment, collect_history, shard.total, d,
+                             hist_dt)
+    counts = MoveCounts(*(shard.gather_host(c.cpu().numpy(), dev)
+                          for c in carry.counts))
+    return NFResult(thetas=thetas, counts=counts,
                     final_carry=carry, flow=flow,
                     loss_hist=np.asarray([float(x) for x in losses]))
 
@@ -319,23 +352,21 @@ def run_glmcmc_nf_fused(problem, generator, num_ite, theta0,
     launches.  The driver contract of
     :func:`~glabc_tpu_torch.samplers.aglmcmc_fused.run_aglmcmc_fused`: a
     history of exactly ``num_ite`` rows, a final carry that may be ahead on
-    a ragged last segment, whose counts are pro rata."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-GPU chain sharding) is not ported yet (ROADMAP "
-            "Queue 1, M12)")
+    a ragged last segment, whose counts are pro rata.  ``mesh``: see the
+    module docstring."""
     del local_proposal  # gf=1: no local moves
+    shard = ChainShard(num_chains, mesh)
     dev = resolve_device(device)
     check_generator(generator, dev)
     d = problem.theta_dim
-    T, B, C = int(step_size), int(batch_size), int(num_chains)
+    T, B, C = int(step_size), int(batch_size), shard.local
     cfg = GLMCMCNFConfig(1.0, B, T, train_steps, n_layers, hidden,
                          learning_rate, weight_decay)
     kern = PoolISIR(d, batch_size=B, steps_per_call=T,
                     block_chains=block_chains,
                     collect_history=collect_history)
     pool_fn = make_nf_pool_fn(problem, C, T, B)
-    train = make_pool_trainer(cfg, C, max_train)
+    train = make_pool_trainer(cfg, shard.total, max_train, mesh)
     thin, hist_dt = _history_opts(thin, history_dtype, on_segment)
 
     def state_logw(flow_, theta_k, logk):
@@ -347,20 +378,23 @@ def run_glmcmc_nf_fused(problem, generator, num_ite, theta0,
         return (problem.prior_log_prob(th) + logk
                 - flow_.log_prob(th)).contiguous()
 
-    ckpt_meta = {"sampler": "glmcmc_nf_fused", "num_chains": C,
+    ckpt_meta = {"sampler": "glmcmc_nf_fused", "num_chains": shard.total,
                  "theta_dim": d, "steps_per_call": T, "batch_size": B,
-                 "n_layers": n_layers, "hidden": hidden}
+                 "n_layers": n_layers, "hidden": hidden, **shard.meta}
+    checkpoint_path = shard.path(checkpoint_path, resume)
     restored = (restore_epoch_ckpt(checkpoint_path, ckpt_meta)
                 if resume and checkpoint_path is not None else None)
     if restored is None:
         flow = new_flow(problem, generator, base, n_layers, hidden, flow, dev)
         opt = make_optimizer(flow, cfg)
-        cc = init_chain_carry(problem, generator, theta0, y0, C, dev)
-        pools = pool_fn(flow, generator)
-        theta_k = cc.theta.T.contiguous()
-        y_cur, logk = cc.y, cc.log_kernel
-        logw_k = state_logw(flow, theta_k, logk)
+        cc = init_chain_carry(problem, generator, theta0, y0, shard.total,
+                              dev)
         theta_init_row = cc.theta.cpu().numpy()[:, None, :]
+        gen = shard.local_generator(generator)
+        pools = pool_fn(flow, gen)
+        theta_k = shard.keep(cc.theta.T, dim=1)
+        y_cur, logk = shard.keep(cc.y), shard.keep(cc.log_kernel)
+        logw_k = state_logw(flow, theta_k, logk)
         seed = _seed(seed, generator)
         g_acc = torch.zeros(C, dtype=torch.float64, device=dev)
         losses, num_train = [], 0
@@ -370,7 +404,7 @@ def run_glmcmc_nf_fused(problem, generator, num_ite, theta0,
         arrays, done = restored
         t_ = lambda k: torch.as_tensor(arrays[k], device=dev)
         flow, opt = flow_state_from_arrays(arrays, cfg, dev)
-        generator.set_state(torch.as_tensor(arrays["rng_state"]))
+        gen = shard.restore_rngs(arrays, generator)
         pools = _pool_from(arrays, dev)
         theta_k, logw_k, y_cur, logk = (t_("theta_k"), t_("logw_k"),
                                         t_("y_cur"), t_("logk"))
@@ -381,16 +415,17 @@ def run_glmcmc_nf_fused(problem, generator, num_ite, theta0,
         theta_init_row = None
         pending_epoch = True
 
-    async_blocks = _AsyncBlocks(thin, hist_dt)
+    gather = None if mesh is None else shard.gather
+    async_blocks = _AsyncBlocks(thin, hist_dt, gather)
     blocks = []
     total = num_ite - 1
     packed = None
     while done < total:
         if pending_epoch:
             if num_train < train_steps:
-                losses.append(train(flow, opt, pools, generator))
+                losses.append(train(flow, opt, pools, gen))
                 num_train += 1
-            pools = pool_fn(flow, generator)
+            pools = pool_fn(flow, gen)
             packed = None
             logw_k = state_logw(flow, theta_k, logk)
             pending_epoch = False
@@ -399,9 +434,10 @@ def run_glmcmc_nf_fused(problem, generator, num_ite, theta0,
                       pack_pool_logw(pools.log_w, T, B))
         take = min(T, total - done)
         theta_k, logw_k, sel, moved, hist = kern.run(
-            seed, *packed, theta_k, logw_k, step0=done)
+            seed, *packed, theta_k, logw_k, step0=done, chain0=shard.chain0)
         if collect_history:
-            _history(hist, take, done, on_segment, async_blocks, blocks)
+            _history(hist, take, done, on_segment, async_blocks, blocks,
+                     gather)
         y_cur, logk = _resolve(problem, pools, sel, y_cur, logk)
         g_acc += moved.to(torch.float64) * (take / T)
         steps_run += take
@@ -410,24 +446,26 @@ def run_glmcmc_nf_fused(problem, generator, num_ite, theta0,
             if done < total:
                 pending_epoch = True
             if checkpoint_path is not None:
-                state = _nf_arrays(flow, opt, pools, num_train, losses,
-                                   generator)
+                state = _nf_arrays(flow, opt, pools, num_train, losses)
+                state.update(shard.rng_arrays(generator, gen))
                 state.update(theta_k=theta_k, logw_k=logw_k, y_cur=y_cur,
                              logk=logk, g_acc=g_acc, steps_run=steps_run,
                              seed=seed)
                 save_epoch_ckpt(checkpoint_path, state, done, take, T,
                                 meta=ckpt_meta)
 
+    Ct = shard.total
     thetas = _finish_history(theta_init_row, blocks, async_blocks,
-                             on_segment, collect_history, C, d, hist_dt)
+                             on_segment, collect_history, Ct, d, hist_dt)
+    g_acc = shard.gather(g_acc).cpu().numpy()
     counts = MoveCounts(
-        global_attempts=np.full((C,), steps_run, np.int32),
-        global_accepts=np.rint(g_acc.cpu().numpy()).astype(np.int32),
-        local_attempts=np.zeros((C,), np.int32),
-        local_accepts=np.zeros((C,), np.int32))
+        global_attempts=np.full((Ct,), steps_run, np.int32),
+        global_accepts=np.rint(g_acc).astype(np.int32),
+        local_attempts=np.zeros((Ct,), np.int32),
+        local_accepts=np.zeros((Ct,), np.int32))
     carry = AGLCarry(theta_k.T.contiguous(), y_cur, logk,
                      torch.zeros(C, dtype=torch.int32, device=dev),
-                     generator, counts)
+                     gen, counts)
     return NFResult(thetas=thetas, counts=counts, final_carry=carry,
                     flow=flow,
                     loss_hist=np.asarray([float(x) for x in losses]),

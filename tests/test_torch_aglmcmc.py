@@ -6,8 +6,8 @@
   weights and ``_pool_from_proposals`` given carried datasets (rtol 1e-6).
 * Fused samplers: ``pack_chunk``, ``block_chains`` and segmenting give
   bitwise-identical chains; resume is bitwise; ``thin`` and bfloat16
-  history; the runner's gf<1 keyword rules; ``mesh=``/``tile_program=``
-  raise.
+  history; the runner's gf<1 keyword rules; a ``mesh=`` that is not a
+  ``DeviceMesh`` and a foreign ``tile_program=`` raise.
 * The slice as a whole: ``run_aglmcmc(method='fused', device='cpu')`` at
   gf=1 and gf=0.5 against glabc_tpu's ``run_aglmcmc``, statistically: mean
   annealed threshold per epoch, E|theta| after burn-in and the global
@@ -312,10 +312,11 @@ def test_runner_gf_lt_1_keyword_rules(tmp_path, monkeypatch):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="M12"):
+    # mesh= is ported: a mesh that is not a 1-D DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         run_aglmcmc(PROB, gen(0), 5, np.zeros(2), LP, IP, mesh=object(),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         run_aglmcmc_fused(PROB, gen(0), 5, np.zeros(2), IP, mesh=object(),
                           device="cpu")
     # tile_program= is ported: a program that is not the port's is refused

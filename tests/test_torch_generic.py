@@ -512,7 +512,7 @@ def test_runner_tile_program_routes(tmp_path):
     with pytest.raises(ValueError, match="global_frequency"):
         runner.run_aglmcmc(5, np.zeros(2), None, 1.0, None, ip, 5, 4, 0.8,
                            0.2, method="fused", tile_program=prog)
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         run_glmala_program(prob, prog, gen(0), 5, np.zeros(2), mesh=object(),
                            device="cpu")
     if not torch.cuda.is_available():   # no silent fallback to the CPU

@@ -388,10 +388,10 @@ def test_runner_routes_glmala(tmp_path):
         runner.run_glmala(9, np.zeros(2), None, 0.8,
                           DiagGaussian.create(2, [0.0, 1.0], 0.0), 5, 0.3, 8,
                           method="fused")
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         run_glmala_fused(PROB, gen(0), 5, np.zeros(2), mesh=object(),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         run_glmala(PROB, gen(0), 5, np.zeros(2), IP, mesh=object(),
                    device="cpu")
     if not torch.cuda.is_available():   # no silent fallback to the CPU

@@ -1014,3 +1014,58 @@ def test_glmala_default_launch_at_the_main_shape(cuda):
         torch.cuda.synchronize()
         for x, y in zip([*a[:5], *a[5]], [*b[:5], *b[5]]):
             assert torch.equal(x, y)
+
+
+# --------------------------------- the chain offset and mesh= (M12) on the card
+SPLIT_CASES = 10   # chip_smoke.split_cases: K1, K2, K3, K5 x2, K6 x2, K8, K9 x2
+
+
+def _split_cases(device, C, T):
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    cases = chip_smoke.split_cases(device, C, T, seed=C)
+    assert len(cases) == SPLIT_CASES
+    return chip_smoke, cases
+
+
+@pytest.mark.parametrize("C", [4096, 3000])
+@pytest.mark.parametrize("index", range(SPLIT_CASES))
+def test_chain_offset_split_launch_is_bitwise(cuda, index, C):
+    """Each kernel that draws randomness, launched over C chains and over
+    its two halves with chain0 0 and C/2 (each half packed on its own;
+    3,000 chains split at 1,500, no multiple of a warp or a block), gives
+    the same bits; with chain0 0 for both halves it does not."""
+    cs, cases = _split_cases(cuda, C, 16)
+    name, run = cases[index]
+    same, max_abs = cs.split_matches(run, C)
+    torch.cuda.synchronize()
+    assert same, (name, max_abs)
+    assert not cs.split_matches(run, C, offset=False)[0], name
+
+
+def test_mesh_world_size_one_is_bitwise(cuda, tmp_path):
+    """``run_glmcmc_fused`` with ``mesh=make_mesh()`` over a one-rank NCCL
+    group equals the ``mesh=None`` run: history and counts."""
+    import torch.distributed as dist
+    from glabc_tpu_torch import run_glmcmc_fused
+    from glabc_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    prob = MixtureProblem(0.05)
+    run = lambda mesh: run_glmcmc_fused(
+        prob, torch.Generator(device=cuda).manual_seed(2), 65, np.zeros(2),
+        num_chains=8192, steps_per_call=32, mesh=mesh)
+    ref = run(None)
+    initialize_distributed("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        got = run(make_mesh())
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(got.thetas, ref.thetas)
+    for a, b in zip(got.counts, ref.counts):
+        np.testing.assert_array_equal(a, b)

@@ -262,7 +262,7 @@ def test_runner_routes_glmcmc_nf(tmp_path):
     with pytest.raises(ValueError, match="method"):
         runner.run_glmcmc_nf(9, np.zeros(2), None, 0.5, LP, BASE, 3, 4, 2,
                              method="xla", **kw)
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         run_glmcmc_nf_fused(PROB, gen(0), 9, np.zeros(2), mesh=object(),
                             **SMALL)
     if not torch.cuda.is_available():   # no silent fallback to the CPU

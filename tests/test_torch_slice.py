@@ -232,13 +232,14 @@ def test_runner_summary_and_unported_methods(tmp_path, capsys):
     with pytest.raises(TypeError, match="TileProgram"):
         runner.run_glmala(5, np.zeros(2), None, 0.8, IP, 5, 0.3, 4,
                           method="fused", tile_program=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         runner.run_glmcmc_nf(5, np.zeros(2), None, 0.5, LP, IP, 5, 4, 2,
                              mesh=object())
     with pytest.raises(NotImplementedError):
         MCMCRunner(PROB, output_dir=str(tmp_path), use_native_io=True,
                    device="cpu")
-    with pytest.raises(NotImplementedError):
+    # mesh= is ported: a mesh that is not a 1-D DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         run_glmcmc_fused(PROB, gen(0), 5, np.zeros(2), mesh=object(),
                          device="cpu")
 
