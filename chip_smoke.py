@@ -98,7 +98,20 @@ Phases, each reported on its own lines:
    must equal the ``mesh=None`` run bit for bit (its launches counted as
    a path, its wall printed beside the unsharded one), and two ranks on
    the one card (gloo over CUDA tensors, two processes) must each return
-   the one-rank run of 16,384 chains x 129.
+   the one-rank run of 16,384 chains x 129;
+12. m13 (run after phase 9 and before phase 11): the native chain writer
+   (built with g++) under ``MCMCRunner(use_native_io=True,
+   write_chains='all').run_glmcmc(method='fused')`` at 65,536 chains x
+   1,025, its binary file read back by ``read_binary_chains`` bitwise
+   equal to the history; K1 at the same shape saved by
+   ``CheckpointManager`` after 2 of 4 launches, restored and run on,
+   bitwise the straight run; one ``trace`` of K1 launches inside an
+   ``annotate`` range, in a spawned process of its own, whose Chrome trace
+   must name the kernel and the range; and the examples ``glabc_tpu_torch/examples/mixture.py`` and
+   ``ma2.py`` at their JAX defaults (the plain path: no launch), then
+   through their kernels (``mixture.py --method fused`` at 2,048 x 1,025:
+   K1 4 launches and the posterior band; ``ma2.py --method fused``: K8 8
+   launches; ``ma2.py --method aglmcmc``: K5's program variant only).
 
 ``python3 chip_smoke.py --seed-spread N [agl] [glmala] [nf] [ma2]
 [glmala_prog] [agl_prog]`` runs only phase 1 and the compared paths of
@@ -3476,6 +3489,210 @@ def two_ranks_one_card():
     check(same, "two ranks on one card differ from one rank")
 
 
+# ------------------------------------------------------------ phase 12: m13
+M13_CUT = 2      # launches before the checkpoint of the resume check
+# mixture.py --method fused: 2,048 x 769 kept draws clear the example's
+# 1e6 needed for its E|theta| band; at 65,536 chains the runner's verbose
+# summary (R-hat over every chain, on the host) took 58 s of 60
+EXAMPLE_CHAINS = 2048
+
+
+def checkpoint_resume(device, directory, chains, launches, cut, T=256,
+                      mesh=None, seed=11):
+    """K1 (packed, d=2, the canonical config) for ``launches`` launches of
+    ``T`` steps, its loop state saved by ``CheckpointManager`` before
+    launch ``cut``; then that state restored into new tensors and run on
+    to the end.  Under ``mesh`` each rank runs its own chains with its
+    ``chain0``, one checkpoint file a rank.  Returns ``(straight, resumed,
+    step)``: each the history from launch ``cut`` on and the final theta,
+    y and logk, and the step the manager restored."""
+    import numpy as np
+    import torch
+    from glabc_tpu_torch import MixtureProblem
+    from glabc_tpu_torch.ops.kernels import packed_state_init
+    from glabc_tpu_torch.samplers._shard import ChainShard
+    from glabc_tpu_torch.utils import CheckpointManager
+
+    problem = MixtureProblem(0.05)
+    kern = make_kernel("packed", problem, T)
+    shard = ChainShard(chains, mesh)
+    g = torch.Generator(device=device).manual_seed(seed)
+    state = packed_state_init(problem, g, np.zeros(2),
+                              shard.local // kern.pack, kern.pack,
+                              device=device, shard=shard.spec)
+
+    def run(state, first, mgr=None):
+        hist = []
+        for i in range(first, launches):
+            if i == cut and mgr is not None:
+                mgr.save(cut, {"theta": state[0], "y": state[1],
+                               "logk": state[2], "call": cut, "seed": seed})
+            *state, h, _ = kern.run(seed, *state, step0=i * T,
+                                    chain0=shard.chain0)
+            hist.append(h)
+        return (torch.cat(hist[cut - first:]),) + tuple(state)
+
+    with CheckpointManager(directory, max_to_keep=2, mesh=mesh) as mgr:
+        straight = run(state, 0, mgr)
+        arrays, step = mgr.restore()
+    restored = [torch.as_tensor(arrays[k], device=device)
+                for k in ("theta", "y", "logk")]
+    return straight, run(restored, int(arrays["call"])), step
+
+
+def _example(name):
+    """``glabc_tpu_torch/examples/<name>.py``, imported by its path."""
+    import importlib.util
+
+    path = os.path.join(HERE, "glabc_tpu_torch", "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(
+        f"glabc_tpu_torch_example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _trace_child(tmp):
+    """One ``trace`` of 3 K1 launches inside an ``annotate`` range, in a
+    process of its own: in the long smoke process ``torch.profiler``
+    dropped the kernel's events in some runs (PERF.md §7), as it did in no
+    run as the first trace of a process.  Writes ``<tmp>/trace.json``."""
+    import torch
+    from glabc_tpu_torch import MixtureProblem
+    from glabc_tpu_torch.utils import annotate, trace
+
+    problem = MixtureProblem(0.05)
+    kern = make_kernel("packed", problem, 256)
+    state = init_state(kern, problem, CHAINS, seed=5)[0]
+    launch = lambda: kern.run(1, *state)
+    ms = median_ms(launch)
+    with trace(os.path.join(tmp, "trace")) as prof:
+        with annotate("m13_k1_launch"):
+            ms_traced = timed(launch, 3)[0]
+    with open(prof.trace_path, encoding="utf-8") as f:
+        text = f.read()
+    torch.cuda.synchronize()
+    with open(os.path.join(tmp, "trace.json"), "w", encoding="utf-8") as f:
+        json.dump({"file": os.path.basename(prof.trace_path),
+                   "kib": len(text) / 2**10, "ms": ms,
+                   "ms_traced": ms_traced,
+                   "kernel": "mixture_glmcmc_kernel" in text,
+                   "range": "m13_k1_launch" in text}, f)
+
+
+def phase_m13(tmp, card):
+    """The last modules on the card: the native chain writer under a fused
+    GLMCMC run read back against the history; a ``CheckpointManager``
+    resume of K1 bitwise the straight run; a ``trace`` of K1, in a process
+    of its own, that names the kernel; the Mixture and MA(2) examples at
+    their JAX defaults and through their kernels."""
+    import numpy as np
+    import torch
+    from glabc_tpu_torch import DiagGaussian, MCMCRunner, MixtureProblem
+    from glabc_tpu_torch.native import native_available
+    from glabc_tpu_torch.utils import read_binary_chains
+
+    paths = {}
+    calls = (ITERS - 1) // 256
+    lp = DiagGaussian.create(2, 0.0, math.log(0.35))
+    ip = DiagGaussian.create(2, 0.0, 0.0)
+    check(native_available(), "the native chain writer did not build")
+
+    # native IO: every chain into one binary file beside the fused run
+    def fused(use_native_io, output_file):
+        runner = MCMCRunner(MixtureProblem(0.05), output_dir=tmp, seed=3,
+                            num_chains=CHAINS, verbose=False,
+                            write_chains="all", use_native_io=use_native_io)
+        runner.run_glmcmc(ITERS, np.zeros(2), None, 0.9, lp, ip, 5,
+                          output_file=output_file, method="fused")
+        return runner.last_result
+
+    secs_none, _ = wall(lambda: fused(False, None))
+    (secs, res), counts = counted(lambda: wall(lambda: fused(True,
+                                                             "chains.bin")))
+    paths["m13_native_io"] = counts
+    check(counts == only(packed=calls),
+          f"m13 native IO: launches {counts}")
+    path = os.path.join(tmp, "chains.bin")
+    got = read_binary_chains(path)
+    same = np.array_equal(got, res.thetas)
+    mb = os.path.getsize(path) / 2**20
+    log(f"[m13] native writer: run_glmcmc(method='fused', "
+        f"write_chains='all', use_native_io=True) {CHAINS:,} chains x "
+        f"{ITERS:,}: {mb:.1f} MiB in one binary file, read back by "
+        f"read_binary_chains {'bitwise equal to' if same else 'DIFFERS from'}"
+        f" the history; wall {secs:.2f} s with the writer against "
+        f"{secs_none:.2f} s writing nothing; {card}")
+    check(same, "read_binary_chains differs from the fused run's history")
+    os.remove(path)
+
+    # CheckpointManager: K1's state saved mid-run, restored, run on
+    (straight, resumed, step), counts = counted(lambda: checkpoint_resume(
+        DEVICE, os.path.join(tmp, "ckpt"), CHAINS, calls, M13_CUT))
+    paths["m13_checkpoint"] = counts
+    check(counts == only(packed=2 * calls - M13_CUT),
+          f"m13 checkpoint: launches {counts}")
+    same = all(torch.equal(a, b) for a, b in zip(straight, resumed))
+    log(f"[m13] CheckpointManager: K1 {CHAINS:,} chains, saved after launch "
+        f"{M13_CUT} of {calls} (step {step}), restored and run on: history "
+        f"and final state {'bitwise equal to' if same else 'DIFFER from'} "
+        "the straight run")
+    check(same and step == M13_CUT, "a resumed K1 run differs from the "
+          "straight run")
+
+    # trace: K1 launches under the profiler, in a process of their own
+    ctx = __import__("multiprocessing").get_context("spawn")
+    child = ctx.Process(target=_trace_child, args=(tmp,))
+    child.start()
+    child.join(300)
+    if child.is_alive():
+        child.kill()
+        die("the trace child did not finish in 300 s")
+    check(child.exitcode == 0, f"the trace child exited {child.exitcode}")
+    with open(os.path.join(tmp, "trace.json"), encoding="utf-8") as f:
+        r = json.load(f)
+    log(f"[m13] trace (a fresh process): {r['file']} ({r['kib']:.0f} KiB) "
+        f"names mixture_glmcmc_kernel: {r['kernel']}, the annotate range: "
+        f"{r['range']}; K1 at {CHAINS:,} chains {r['ms_traced']:.3f} ms a "
+        f"launch under the profiler against {r['ms']:.3f} ms without; "
+        f"{card}")
+    check(r["kernel"] and r["range"], "the Chrome trace does not name the "
+          "K1 kernel and the annotate range")
+
+    # the examples, imported by path, on the card
+    mixture, ma2 = _example("mixture"), _example("ma2")
+    out = os.path.join(tmp, "examples")
+    runs = (
+        ("mixture.py (JAX defaults)", "mixture_defaults",
+         lambda: mixture.main(["--output-dir", out]), only()),
+        ("ma2.py (JAX defaults)", "ma2_defaults", lambda: ma2.main([]),
+         only()),
+        (f"mixture.py --method fused --chains {EXAMPLE_CHAINS} --num-ite "
+         f"{ITERS}", "mixture_fused", lambda: mixture.main(
+             ["--method", "fused", "--chains", str(EXAMPLE_CHAINS),
+              "--num-ite", str(ITERS), "--output-dir", out]),
+         only(packed=calls)),
+        ("ma2.py --method fused", "ma2_fused",
+         lambda: ma2.main(["--method", "fused"]),
+         only(generic_glmcmc=-(-1999 // 256))),
+        ("ma2.py --method aglmcmc", "ma2_aglmcmc",
+         lambda: ma2.main(["--method", "aglmcmc"]), None),
+    )
+    for label, key, fn, want in runs:
+        (secs, _), counts = counted(lambda: wall(fn))
+        paths[f"m13_{key}"] = counts
+        log(f"[m13] example {label}: wall {secs:.2f} s, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if want is None:   # the mixed kernel's program variant only
+            check(counts["pool_isir_mixed_prog"] > 0 and sum(
+                counts.values()) == counts["pool_isir_mixed_prog"],
+                f"{label}: launches {counts}")
+        else:
+            check(counts == want, f"{label}: launches {counts}, expected "
+                  f"{want}")
+    return paths
+
+
 def main():
     t0 = time.perf_counter()
     try:
@@ -3515,10 +3732,11 @@ def main():
         nf_paths, nf_insts = phase_glmcmc_nf(tmp)
         bf16_counts, bf16_rows = phase_flow_bf16(nf_insts)
         gen_paths, gen_insts = phase_generic(tmp)
+        m13_paths = phase_m13(tmp, card)
     mesh_paths = phase_sharded(card)
     paths = {"bench": bench["launches"], **paths, **agl_paths, **mala_paths,
              **nf_paths, "flow_api_bf16": bf16_counts, **gen_paths,
-             **mesh_paths}
+             **mesh_paths, **m13_paths}
 
     rows = phase_kernels_line(bench, carry3, prob3, paths)
     rows += agl_kernel_rows(insts, paths)

@@ -7,7 +7,11 @@ and GlobalMCMC on Mixture-family problems, AGLMCMC, GLMALA and GLMCMC-NF
 (with its coupling flow), each plain and fused, and the generic fused
 kernels over a tile program (MA(2), or a user's CUDA header and its torch
 twin): ``run_fused_program``, ``run_glmala_program`` and the mixed AGLMCMC
-kernel's ``tile_program=``.
+kernel's ``tile_program=``; around them chain IO (CSV, or the native C++
+writer of :mod:`glabc_tpu_torch.native`), versioned checkpoints
+(``utils.CheckpointManager``), profiling hooks (``utils.annotate``,
+``trace``, ``debug_mode``) and the examples of ``glabc_tpu_torch/
+examples/``.
 
 Entry points run on the current CUDA device unless they are given
 ``device='cpu'``; without a GPU and without a device they raise.  With
@@ -20,7 +24,7 @@ sources in ``csrc/`` build with ``nvcc`` at their first launch, into
 from .models import (ABCProblem, CouplingFlow, DiagGaussian, Gamma,
                      GaussianMixture, GKProblem, HighDimMixtureProblem,
                      KernelDensity, MA2Problem, MixtureProblem, Uniform)
-from .ops import chain_summary, esjd, ess, rhat
+from .ops import chain_summary, esjd, esjd_per_second, ess, rhat
 from .ops.kernels.program import (TileProgram, ma2_tile_program,
                                   mixture_tile_program)
 from .runner import MCMCRunner
@@ -69,6 +73,7 @@ __all__ = [
     "Uniform",
     "chain_summary",
     "esjd",
+    "esjd_per_second",
     "ess",
     "rhat",
     "__version__",

@@ -21,10 +21,11 @@ lr 5e-4 / weight-decay 1e-5):
 ``(dim, N)`` tiles; they carry autograd and are what training
 (:meth:`CouplingFlow.forward_kld`) differentiates.  With
 ``matmul_dtype='bfloat16'`` they round the conditioner's product operands
-to bfloat16: the plain version of the K7-bf16 kernel.  :meth:`forward` and
-:meth:`log_prob` evaluate the flow without gradients through
-``ops/kernels/flow_kernel.py``: on the card that is the K7 kernel, on the
-CPU its plain version (``push_t``/``pull_t`` under ``no_grad``).
+to bfloat16: the plain version of the K7-bf16 kernel.  :meth:`forward_t`
+and :meth:`log_prob_t` (feature-major), and :meth:`forward` and
+:meth:`log_prob` on top of them, evaluate the flow without gradients
+through ``ops/kernels/flow_kernel.py``: on the card that is the K7 kernel,
+on the CPU its plain version (``push_t``/``pull_t`` under ``no_grad``).
 """
 
 from __future__ import annotations
@@ -197,9 +198,10 @@ class CouplingFlow(nn.Module):
             self.log_scale + 0.5 * eps * eps, dim=-1)
 
     # ------------------------------------------------------------------ api
-    def forward(self, num_samples: int = 1, generator=None):
-        """Sample: ``(x (N, dim), log q(x) (N,))``, without gradients; the
-        push is the K7 kernel on the card."""
+    def forward_t(self, num_samples: int = 1, generator=None):
+        """Sample in the feature-major layout: ``(x_t (dim, N), log q
+        (N,))``, without gradients; the push is the K7 kernel on the
+        card."""
         from ..ops.kernels.flow_kernel import flow_push_fused
 
         with torch.no_grad():
@@ -209,23 +211,36 @@ class CouplingFlow(nn.Module):
             log_p = -0.5 * self.dim * _LOG_2PI - torch.sum(
                 self.log_scale + 0.5 * eps * eps, dim=-1)
             x_t, s = flow_push_fused(self, z.T.contiguous())
-            return x_t.T, log_p - s
+            return x_t, log_p - s
+
+    def log_prob_t(self, x_t) -> torch.Tensor:
+        """``log q`` of feature-major points ``x_t (dim, N)`` -> ``(N,)``,
+        without gradients; the pull is the K7 kernel on the card."""
+        from ..ops.kernels.flow_kernel import flow_pull_fused
+
+        x_t = torch.as_tensor(x_t, dtype=torch.float32,
+                              device=self.loc.device)
+        with torch.no_grad():
+            z_t, s = flow_pull_fused(self, x_t.contiguous())
+            return self.base_log_prob(z_t.T) - s
+
+    def forward(self, num_samples: int = 1, generator=None):
+        """Sample: ``(x (N, dim), log q(x) (N,))``, through
+        :meth:`forward_t`."""
+        x_t, log_q = self.forward_t(num_samples, generator)
+        return x_t.T, log_q
 
     def sample(self, num_samples: int = 1, generator=None) -> torch.Tensor:
         return self.forward(num_samples, generator)[0]
 
     def log_prob(self, x) -> torch.Tensor:
-        """``log q(x)`` of ``x (N, dim)`` or ``(dim,)``, without gradients;
-        the pull is the K7 kernel on the card."""
-        from ..ops.kernels.flow_kernel import flow_pull_fused
-
+        """``log q(x)`` of ``x (N, dim)`` or ``(dim,)``, through
+        :meth:`log_prob_t`."""
         x = torch.as_tensor(x, dtype=torch.float32, device=self.loc.device)
         squeeze = x.dim() == 1
         if squeeze:
             x = x[None]
-        with torch.no_grad():
-            z_t, s = flow_pull_fused(self, x.T.contiguous())
-            out = self.base_log_prob(z_t.T) - s
+        out = self.log_prob_t(x.T)
         return out[0] if squeeze else out
 
     def forward_kld(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,17 @@
 from .resampling import (blocked_searchsorted_take,
                          blocked_stable_partition_take,
-                         categorical_from_log_weights, sanitize_log_weights,
+                         categorical_from_log_weights,
+                         categorical_from_weights, sanitize_log_weights,
                          stable_partition_indices, stable_partition_take,
                          systematic_resample)
-from .stats import ChainSummary, chain_summary, esjd, ess, rhat, weighted_std
+from .stats import (ChainSummary, chain_summary, esjd, esjd_per_second, ess,
+                    rhat, weighted_std)
 
 __all__ = [
     "blocked_searchsorted_take",
     "blocked_stable_partition_take",
     "categorical_from_log_weights",
+    "categorical_from_weights",
     "sanitize_log_weights",
     "stable_partition_indices",
     "stable_partition_take",
@@ -16,6 +19,7 @@ __all__ = [
     "ChainSummary",
     "chain_summary",
     "esjd",
+    "esjd_per_second",
     "ess",
     "rhat",
     "weighted_std",

@@ -21,9 +21,9 @@ from typing import Optional
 import torch
 
 __all__ = ["sanitize_log_weights", "categorical_from_log_weights",
-           "systematic_resample", "stable_partition_indices",
-           "stable_partition_take", "blocked_searchsorted_take",
-           "blocked_stable_partition_take"]
+           "categorical_from_weights", "systematic_resample",
+           "stable_partition_indices", "stable_partition_take",
+           "blocked_searchsorted_take", "blocked_stable_partition_take"]
 
 _TINY = torch.finfo(torch.float32).tiny
 
@@ -54,6 +54,19 @@ def categorical_from_log_weights(log_w: torch.Tensor, generator=None,
     score = torch.where(torch.isneginf(log_w),
                         torch.full_like(score, -math.inf), score)
     return torch.argmax(score, dim=dim)
+
+
+def categorical_from_weights(w: torch.Tensor, generator=None,
+                             dim: Optional[int] = None, *,
+                             axis: Optional[int] = None) -> torch.Tensor:
+    """:func:`categorical_from_log_weights` on linear weights ``w``; NaNs
+    and negatives are zero mass.  ``axis=`` is an alias of ``dim=``."""
+    w = torch.where(torch.isnan(w) | (w < 0), torch.zeros_like(w), w)
+    pos = w > 0
+    log_w = torch.where(pos, torch.log(torch.where(pos, w,
+                                                   torch.ones_like(w))),
+                        torch.full_like(w, -math.inf))
+    return categorical_from_log_weights(log_w, generator, dim, axis=axis)
 
 
 def systematic_resample(w: torch.Tensor, num_samples: int,

@@ -1,6 +1,7 @@
 """Chain diagnostics and weighted statistics in torch.
 
-Port of ``glabc_tpu/ops/stats.py``: :func:`esjd` (reference ``ESJD.py:2-25``),
+Port of ``glabc_tpu/ops/stats.py``: :func:`esjd` (reference ``ESJD.py:2-25``)
+and its per-second score :func:`esjd_per_second` (``Mixture_hyper.py:36-37``),
 :func:`weighted_std` (``kernel_density.py:39-68``) and :func:`chain_summary`
 (the report every reference sampler prints, e.g. ``GLMCMC.py:113-135``), plus
 ESS and rank-normalized split R-hat.  Inputs may be numpy arrays or tensors.
@@ -14,8 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["esjd", "ess", "rhat", "weighted_std", "chain_summary",
-           "ChainSummary"]
+__all__ = ["esjd", "esjd_per_second", "ess", "rhat", "weighted_std",
+           "chain_summary", "ChainSummary"]
 
 
 def _t(x, dtype=torch.float32) -> torch.Tensor:
@@ -34,6 +35,12 @@ def esjd(chain) -> torch.Tensor:
     m = torch.einsum("...nd,...ne->...de", delta, delta) / n
     det = torch.linalg.det(m)
     return torch.sign(det) * torch.abs(det) ** (1.0 / d)
+
+
+def esjd_per_second(chain, wallclock_s: float, num_ite: int) -> torch.Tensor:
+    """The reference's hyperparameter-selection score,
+    ``esjd(chain) / (wallclock / num_ite)`` (``Mixture_hyper.py:36-37``)."""
+    return esjd(chain) / (wallclock_s / num_ite)
 
 
 def ess(chain) -> torch.Tensor:

@@ -58,18 +58,20 @@ class MCMCRunner:
             write_chains: chains that reach CSV: None (chain 0, reference
                 format), 'all', or an index list.
             verbose: print the reference-style summary after each run.
+            use_native_io: write the chains through the C++ asynchronous
+                writer (``ChainWriter(use_native=True)``; with
+                ``write_chains='all'`` one binary file read by
+                ``read_binary_chains``); the Python writer where it cannot
+                be built.
             device: where the runs go; default the current CUDA device.
         """
-        if use_native_io:
-            raise NotImplementedError(
-                "use_native_io: the native chain writer is not ported yet "
-                "(ROADMAP Queue 1, M13)")
         self.device = resolve_device(device)
         self.abc_set = abc_set
         self.output_dir = output_dir
         self.num_chains = num_chains
         self.verbose = verbose
         self.write_chains = write_chains
+        self.use_native_io = use_native_io
         self.segment_size = segment_size
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
@@ -92,7 +94,8 @@ class MCMCRunner:
         if output_file is None:
             return None
         writer = ChainWriter(os.path.join(self.output_dir, output_file),
-                             chains=self.write_chains)
+                             chains=self.write_chains,
+                             use_native=self.use_native_io)
         theta0 = np.asarray(theta0, np.float32)
         if theta0.ndim == 1:
             theta0 = np.broadcast_to(theta0, (self.num_chains, theta0.shape[0]))

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import sys
+import time
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -170,15 +172,20 @@ def run_segmented(step: Callable, carry, num_steps: int,
                   segment_size: int = 10_000,
                   on_segment: Optional[Callable[[np.ndarray, int], None]] = None,
                   checkpoint: Optional[Callable[[Any, int], None]] = None,
-                  step_offset: int = 0):
+                  step_offset: int = 0,
+                  progress: bool = False):
     """Run ``num_steps`` batched steps in host-visible segments.
 
     ``step(carry) -> (carry, StepOut)``.  Each segment's ``(C, S, d)`` theta
     block goes to the host and to ``on_segment(block, start_index)``;
-    ``checkpoint(carry, steps_done)`` runs after each segment.  Returns
-    ``(carry, thetas (C, num_steps, d))``."""
+    ``checkpoint(carry, steps_done)`` runs after each segment.  With
+    ``progress`` one line per segment goes to stderr, each starting with a
+    carriage return: the steps done and the transitions a second since the
+    first segment (the reference's tqdm bar, ``GlobalMCMC.py:37``).
+    Returns ``(carry, thetas (C, num_steps, d))``."""
     blocks = []
     done = 0
+    t_start = None
     while done < num_steps:
         take = min(segment_size, num_steps - done)
         seg = []
@@ -192,6 +199,16 @@ def run_segmented(step: Callable, carry, num_steps: int,
         done += take
         if checkpoint is not None:
             checkpoint(carry, step_offset + done)
+        if progress:
+            now = time.time()
+            if t_start is None:
+                t_start, rate = now, 0.0
+            else:
+                rate = done * block.shape[0] / max(now - t_start, 1e-9)
+            print(f"\r[{step_offset + done}/{step_offset + num_steps}] "
+                  f"{rate:,.0f} transitions/s", end="", file=sys.stderr)
+            if done >= num_steps:
+                print(file=sys.stderr)
     thetas = (np.concatenate(blocks, axis=1) if blocks
               else np.zeros((0, 0, 0), np.float32))
     return carry, thetas

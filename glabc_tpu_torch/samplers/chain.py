@@ -78,8 +78,8 @@ def sample_with_step(problem, step: Callable, generator, num_ite: int, theta0,
                      y0=None, num_chains: int = 1, segment_size: int = 10_000,
                      on_segment: Optional[Callable] = None,
                      checkpoint_path: Optional[str] = None,
-                     resume: bool = False, mesh=None,
-                     device=None) -> SamplerResult:
+                     resume: bool = False, mesh=None, device=None,
+                     progress: bool = False) -> SamplerResult:
     """Run the batched ``step(carry) -> (carry, StepOut)`` for ``num_ite - 1``
     transitions; the chains have length ``num_ite`` with the initial state at
     index 0 (``GLMCMC.py:43-47``).
@@ -91,14 +91,16 @@ def sample_with_step(problem, step: Callable, generator, num_ite: int, theta0,
     ``mesh``: a 1-D ``DeviceMesh``; every rank calls with the same
     arguments and generator seed and returns the whole result (see the
     module docstring); the chain count must divide by its size, and each
-    rank checkpoints to its own file."""
+    rank checkpoints to its own file.
+
+    ``progress``: one line per segment on stderr (``run_segmented``)."""
     dev = resolve_device(device)
     return drive_plain(
         step, generator, num_ite, ChainCarry,
         lambda: init_chain_carry(problem, generator, theta0, y0, num_chains,
                                  dev),
         _num_chains(theta0, num_chains), segment_size, on_segment,
-        checkpoint_path, resume, mesh, dev)
+        checkpoint_path, resume, mesh, dev, progress)
 
 
 def _num_chains(theta0, num_chains: int) -> int:
@@ -109,7 +111,7 @@ def _num_chains(theta0, num_chains: int) -> int:
 def drive_plain(step: Callable, generator, num_ite: int, carry_cls,
                 init: Callable, num_chains: int, segment_size: int,
                 on_segment, checkpoint_path, resume: bool, mesh,
-                dev) -> SamplerResult:
+                dev, progress: bool = False) -> SamplerResult:
     """The plain samplers' loop: ``init()`` the carry (or restore it),
     ``num_ite - 1 - start`` steps in segments, checkpoints and the result.
     Under ``mesh`` every rank runs the whole run and checkpoints the whole
@@ -136,7 +138,7 @@ def drive_plain(step: Callable, generator, num_ite: int, carry_cls,
             path, {**c.to_arrays(), "meta.world_size": shard.world}, done)
     carry, thetas = run_segmented(step, carry, (num_ite - 1) - start,
                                   segment_size, on_segment, save,
-                                  step_offset=start)
+                                  step_offset=start, progress=progress)
     if thetas.size and start == 0:
         thetas = np.concatenate([theta_init, thetas], axis=1)
     elif not thetas.size:

@@ -1069,3 +1069,59 @@ def test_mesh_world_size_one_is_bitwise(cuda, tmp_path):
     np.testing.assert_array_equal(got.thetas, ref.thetas)
     for a, b in zip(got.counts, ref.counts):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("chains", [None, "all"])
+def test_native_writer_on_cuda_history(cuda, tmp_path, chains):
+    """The native writer under a fused run on the card (K1 launches): with
+    ``chains='all'`` the binary file reads back bitwise as the history;
+    with ``chains=None`` the chain-0 CSV holds chain 0 (``%.9g`` reads back
+    to the same float32)."""
+    from glabc_tpu_torch import DiagGaussian, MCMCRunner
+    from glabc_tpu_torch.native import native_available
+    from glabc_tpu_torch.utils import read_binary_chains
+
+    assert native_available()
+    runner = MCMCRunner(MixtureProblem(0.05), output_dir=str(tmp_path),
+                        num_chains=4096, verbose=False, write_chains=chains,
+                        use_native_io=True)
+    before = PackedMixtureGLMCMC.launches
+    ch = runner.run_glmcmc(
+        129, np.zeros(2), None, 0.9, DiagGaussian.create(2, 0.0, float(np.log(0.35))),
+        DiagGaussian.create(2), 5, output_file="h.bin", method="fused",
+        steps_per_call=32)
+    assert PackedMixtureGLMCMC.launches == before + 4
+    if chains == "all":
+        got = read_binary_chains(str(tmp_path / "h.bin"))
+        np.testing.assert_array_equal(got, ch)
+    else:
+        got = np.loadtxt(tmp_path / "h.bin", delimiter=",", dtype=np.float32)
+        np.testing.assert_array_equal(got, ch[0])
+
+
+@pytest.mark.parametrize("d,N", [(2, 4099), (3, 1000), (8, 777)])
+def test_flow_forward_t_and_log_prob_t_through_k7(cuda, d, N):
+    """``forward_t`` and ``log_prob_t`` on the card launch the K7 push and
+    pull once each, and agree with the plain flow (``push_t``/``pull_t``)
+    on the same base draws to K7's 1e-4 max(1, |x|)."""
+    from glabc_tpu_torch.ops.kernels import FlowPull, FlowPush
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f, _ = _flow_on(cuda, d, seed=d + N)
+    push0, pull0 = FlowPush.launches, FlowPull.launches
+    x_t, log_q = f.forward_t(N, torch.Generator(device=cuda).manual_seed(3))
+    lq = f.log_prob_t(x_t)
+    assert (FlowPush.launches, FlowPull.launches) == (push0 + 1, pull0 + 1)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    with torch.no_grad():
+        eps = torch.randn((N, d), generator=g, device=cuda)
+        z = f.loc + torch.exp(f.log_scale) * eps
+        x_ref, s_ref = f.push_t(z.T)
+        log_q_ref = f.base_log_prob(z) - s_ref
+        z_back, s_back = f.pull_t(x_t)
+        lq_ref = f.base_log_prob(z_back.T) - s_back
+    rel = lambda a, b: ((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
+    assert rel(x_t, x_ref) <= 1e-4
+    assert rel(log_q, log_q_ref) <= 1e-4
+    assert rel(lq, lq_ref) <= 1e-4
+    assert rel(lq, log_q) <= 1e-4      # the round trip

@@ -17,7 +17,7 @@ any JAX module was loaded.  A child that hangs fails the module after
 * Exact sharding: the fused drivers and the plain chain paths on 2 ranks
   return the 1-rank (``mesh=None``) result bit for bit, on every rank;
   checkpoints are one file a rank, resume bitwise, and a resume on
-  another world size raises.
+  another world size raises; so do ``CheckpointManager(mesh=)``'s.
 * Collectives: ``distributed_quantile`` against JAX's under ``shard_map``
   on a 2-device mesh (float32, rtol 1e-6); ``sharded_hat_eps_update`` and
   ``distributed_systematic_resample`` against the one-device rules on the
@@ -196,6 +196,45 @@ def _checkpoints(rank, mesh, out, tmp):
                 out[f"ckpt.{name}.other_world_raises"] = True
 
 
+def _checkpoint_manager(rank, mesh, out, tmp):
+    """``CheckpointManager(mesh=)``: K1's loop state (each rank its own
+    chains) saved after 1 of 3 launches into one directory, one file a
+    rank, restored and run on (``chip_smoke.checkpoint_resume``); then
+    the directory refused without the mesh, and a directory written
+    without a mesh refused by the mesh."""
+    import torch.distributed as dist
+    from glabc_tpu_torch.utils import CheckpointManager
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    directory = os.path.join(tmp, "manager")
+    straight, resumed, step = chip_smoke.checkpoint_resume(
+        "cpu", directory, chains=64, launches=3, cut=1, T=8, mesh=mesh)
+    out["mgr.bitwise"] = all(torch.equal(a, b)
+                             for a, b in zip(straight, resumed))
+    out["mgr.step"] = step
+    out["mgr.files"] = sorted(os.listdir(directory))
+    plain_dir = os.path.join(tmp, "manager_plain")
+    dist.barrier()
+    if rank == 0:   # another world size: one process, no mesh
+        with CheckpointManager(directory) as mgr:
+            try:
+                mgr.restore()
+                out["mgr.no_mesh_raises"] = False
+            except ValueError:
+                out["mgr.no_mesh_raises"] = True
+            with CheckpointManager(plain_dir) as plain:
+                plain.save(1, {"x": np.arange(3)}, wait=True)
+    dist.barrier()
+    with CheckpointManager(plain_dir, mesh=mesh) as mgr:
+        try:
+            mgr.restore()
+            out["mgr.mesh_raises"] = False
+        except ValueError:
+            out["mgr.mesh_raises"] = True
+
+
 def _collectives(rank, mesh, out, tmp):
     import torch.distributed as dist
     from glabc_tpu_torch import CouplingFlow, MixtureProblem
@@ -330,8 +369,8 @@ def _in_distribution(rank, mesh, out, tmp):
         out[f"{name}.thetas"] = res.thetas
 
 
-_CHECKS = (_check_split, _exact_runs, _checkpoints, _collectives,
-           _in_distribution)
+_CHECKS = (_check_split, _exact_runs, _checkpoints, _checkpoint_manager,
+           _collectives, _in_distribution)
 
 
 def _worker(rank, store_path, out_dir):
@@ -416,6 +455,22 @@ def test_mesh_checkpoint_resume(ranks, name):
                                       r[f"ckpt.{name}.tail"])
         assert bool(r[f"ckpt.{name}.own_file"])
     assert bool(ranks[0][f"ckpt.{name}.other_world_raises"])
+
+
+@pytest.mark.parametrize("rank", range(WORLD))
+def test_checkpoint_manager_resume_on_the_mesh(ranks, rank):
+    """Each rank's K1 loop, saved and restored by ``CheckpointManager``
+    under the mesh, runs on to its straight run bit for bit, from its own
+    file of the shared directory."""
+    r = ranks[rank]
+    assert bool(r["mgr.bitwise"]) and int(r["mgr.step"]) == 1
+    assert list(r["mgr.files"]) == ["ckpt_1.rank0.npz", "ckpt_1.rank1.npz"]
+
+
+def test_checkpoint_manager_other_world_size_raises(ranks):
+    assert bool(ranks[0]["mgr.no_mesh_raises"])
+    for r in ranks:
+        assert bool(r["mgr.mesh_raises"])
 
 
 @pytest.mark.parametrize("qi", range(len(QS)))

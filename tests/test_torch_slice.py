@@ -227,17 +227,22 @@ def test_runner_summary_and_unported_methods(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[GLMCMC] 4 chain(s) x 33 iterations" in out
     assert "R-hat" in out
-    # every runner method is ported; the options still to port raise, and
-    # a tile_program that is not the port's TileProgram is refused
+    # every runner method is ported; a tile_program that is not the port's
+    # TileProgram is refused
     with pytest.raises(TypeError, match="TileProgram"):
         runner.run_glmala(5, np.zeros(2), None, 0.8, IP, 5, 0.3, 4,
                           method="fused", tile_program=object())
     with pytest.raises(TypeError, match="DeviceMesh"):
         runner.run_glmcmc_nf(5, np.zeros(2), None, 0.5, LP, IP, 5, 4, 2,
                              mesh=object())
-    with pytest.raises(NotImplementedError):
-        MCMCRunner(PROB, output_dir=str(tmp_path), use_native_io=True,
-                   device="cpu")
+    # use_native_io is ported: chain 0's CSV through the C++ writer
+    native = MCMCRunner(PROB, output_dir=str(tmp_path), use_native_io=True,
+                        num_chains=4, verbose=False, device="cpu")
+    ch = native.run_glmcmc(17, np.zeros(2), None, 0.9, LP, IP, 5,
+                           output_file="native.csv")
+    csv = np.loadtxt(tmp_path / "native.csv", delimiter=",",
+                     dtype=np.float32)
+    np.testing.assert_array_equal(csv, ch[0])
     # mesh= is ported: a mesh that is not a 1-D DeviceMesh is refused
     with pytest.raises(TypeError, match="DeviceMesh"):
         run_glmcmc_fused(PROB, gen(0), 5, np.zeros(2), mesh=object(),
