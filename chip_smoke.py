@@ -113,7 +113,24 @@ Phases, each reported on its own lines:
    K1 4 launches and the posterior band; ``ma2.py --method fused``: K8 8
    launches; ``ma2.py --method aglmcmc``: K5's program variant only).
 
-``python3 chip_smoke.py --seed-spread N [agl] [glmala] [nf] [ma2]
+13. shapes (run after phase 12 and before phase 11): the kernels past
+   the static shapes against their plain versions: K7 and K7-bf16, push
+   and pull, at (dim, hidden, layers) in {(2, 100, 4), (2, 8, 4), (20,
+   128, 4), (33, 256, 4), (64, 512, 2)} and 8,192 and 8,209 rows
+   (FLOW_SPLIT_TOL with its one-product control; bf16 against the plain
+   bf16 flow's own order sensitivity, ``bf16_order_control``) and on
+   integer layers (exact), K3 and K5 at d in {33, 64, 128} bit for bit,
+   K4 there within KDE_TOL, each counted on its own variant; then
+   GLMCMC-NF gf=1 fused on a 20-D problem with a 32 x 256 flow (8,192 x
+   201), AGLMCMC gf=1 and gf=0.5 (shared, S = 1,024) at d=40 (4,096 x
+   1,001) and the bf16 flow API on the NF flow, each a counted path; and
+   K7 push, K3, K4 and K5 at today's shapes, their outputs' sha256 and
+   times (``--parent DIR``, a checkout of the parent commit's
+   ``glabc_tpu_torch``: beside the parent's, parent, this, this, parent,
+   the hashes equal).
+
+``python3 chip_smoke.py --shapes [--parent DIR]`` runs only phases 1, 2
+and 13.  ``python3 chip_smoke.py --seed-spread N [agl] [glmala] [nf] [ma2]
 [glmala_prog] [agl_prog]`` runs only phase 1 and the compared paths of
 phases 6-9 over N seeds each and prints the spread of the statistics those
 phases compare.
@@ -201,6 +218,19 @@ FLOW_SPLIT_TOL = 3e-6
 BF16_ROW_TOL = 1e-4
 BF16_SHARE = 1e-4
 BF16_MAX_TOL = 1e-3
+# At phase 13's wide shapes the plain bf16 flow itself moves past those
+# limits when only its float32 order changes (on an NVIDIA H100 80GB HBM3
+# at 700 W, with h0 w1 summed in slices of 32: 0.40-0.49 % of rows by
+# more than 1e-4 and up to 5.4e-3 at dim 64 x 512 units, 0.05-0.13 % and
+# up to 1.3e-3 at 33 x 256), so no kernel that sums in another order can
+# meet them there.  There the bf16 kernel
+# is held to that order sensitivity instead, measured on the same inputs by
+# bf16_order_control: the share of rows beyond BF16_ROW_TOL, pooled over
+# the phase, at most BF16_ORDER_SHARE times the control's (or BF16_SHARE),
+# and each shape's largest difference at most BF16_ORDER_MAX times the
+# control's (or BF16_MAX_TOL).
+BF16_ORDER_SHARE = 2.0
+BF16_ORDER_MAX = 4.0
 # dense bf16 and TF32 tensor-core peaks of one H100 SXM at 700 W (NVIDIA
 # data sheet)
 TC_BF16_PER_S = 989e12
@@ -736,6 +766,14 @@ def _wrappers():
     out["pool_isir_mixed_prog"] = (PoolISIRMixed, "program_launches")
     out["flow_push_bf16"] = (FlowPush, "bf16_launches")
     out["flow_pull_bf16"] = (FlowPull, "bf16_launches")
+    # the variants past the static shapes (phase 13)
+    for key, cls in (("pool_isir", PoolISIR),
+                     ("kde_logprob", BatchedMixtureLogProb),
+                     ("pool_isir_mixed", PoolISIRMixed),
+                     ("flow_push", FlowPush), ("flow_pull", FlowPull)):
+        out[key + "_wide"] = (cls, "wide_launches")
+    out["flow_push_wide_bf16"] = (FlowPush, "wide_bf16_launches")
+    out["flow_pull_wide_bf16"] = (FlowPull, "wide_bf16_launches")
     return out
 
 
@@ -1890,19 +1928,32 @@ class Bf16Diff:
         self.f32_dx = max(self.f32_dx, float((got[0] - f32[0]).abs().max()))
         self.f32_ds = max(self.f32_ds, float((got[1] - f32[1]).abs().max()))
 
-    def check(self, label):
+    def merge(self, other):
+        """Pool ``other``'s rows into these."""
+        self.rows += other.rows
+        self.bad += other.bad
+        self.bad32 += other.bad32
+        for k in ("max_rel", "max_abs", "f32_dx", "f32_ds"):
+            setattr(self, k, max(getattr(self, k), getattr(other, k)))
+
+    def check(self, label, share_limit=BF16_SHARE, max_limit=BF16_MAX_TOL):
+        """The limits: the share of rows beyond BF16_ROW_TOL (None: pooled
+        over several shapes elsewhere) and the largest difference."""
         share, share32 = self.bad / self.rows, self.bad32 / self.rows
+        lim = BF16_SHARE if share_limit is None else share_limit
         log(f"[K7-bf16-vs-plain] {label}: rows differing by > "
-            f"{BF16_ROW_TOL:g} {share:.3g} (limit {BF16_SHARE:g}), max "
-            f"|diff| / max(1, |plain|) {self.max_rel:.3g} (limit "
-            f"{BF16_MAX_TOL:g}), max abs diff {self.max_abs:.3g}; float32 "
+            f"{BF16_ROW_TOL:g} {share:.3g} (limit "
+            f"{'pooled' if share_limit is None else f'{share_limit:.3g}'}),"
+            f" max |diff| / max(1, |plain|) {self.max_rel:.3g} (limit "
+            f"{max_limit:.3g}), max abs diff {self.max_abs:.3g}; float32 "
             f"flow against the plain bf16: rows differing {share32:.3g} "
-            f"(must be >= {10 * BF16_SHARE:g}); bf16 kernel against float32: "
+            f"(must be >= {10 * lim:.3g}); bf16 kernel against float32: "
             f"max |dx| {self.f32_dx:.3g}, max |d sum log s| {self.f32_ds:.3g}")
-        check(share <= BF16_SHARE and self.max_rel <= BF16_MAX_TOL,
+        check((share_limit is None or share <= share_limit)
+              and self.max_rel <= max_limit,
               f"K7-bf16 {label}: {share:.3g} of rows differ, max "
               f"{self.max_rel:.3g}")
-        check(share32 >= 10 * BF16_SHARE, f"K7-bf16 {label}: the float32 "
+        check(share32 >= 10 * lim, f"K7-bf16 {label}: the float32 "
               f"flow passes for bf16 ({share32:.3g} of rows differ)")
 
 
@@ -2418,21 +2469,25 @@ def _agl_row(name, source, replaces, key, paths, main_path, max_abs, ms,
                 launches_by_path={k: v[key] for k, v in paths.items()})
 
 
-def agl_kernel_rows(insts, paths):
+def agl_kernel_rows(insts, paths, wide=False):
     """K3, K4 and K5 at their main-path shapes (the arguments of their last
     launch on their entry path): time per launch (median of 3 windows of
     3), the plain version's time and agreement, bytes, operations, bound.
-    No single PyTorch call computes these functions: no library time."""
+    No single PyTorch call computes these functions: no library time.
+    ``wide``: their runtime-d variants on phase 13's d=40 runs."""
     import torch
 
     rows = []
+    gf1, gf05 = (("shapes_aglmcmc_gf1", "shapes_aglmcmc_gf05") if wide
+                 else ("run_aglmcmc_gf1", "run_aglmcmc_gf05"))
+    sfx = "_wide" if wide else ""
 
     def median_ms(fn):
         fn()                                            # warm
         return sorted(timed(fn, 3)[0] for _ in range(3))[1]
 
     # K3
-    kern, a, k = insts["run_aglmcmc_gf1"].last["pool_isir"]
+    kern, a, k = insts[gf1].last["pool_isir"]
     ms = median_ms(lambda: kern.run(*a, **k))
     got = kern.run(*a, **k)
     plain_ms, want = timed(lambda: kern.plain(*a, **k), 1)
@@ -2440,7 +2495,8 @@ def agl_kernel_rows(insts, paths):
     check(same, "pool_isir at the main shape differs from its plain version")
     T, B, d, C = a[1].shape
     b, b_old, moved, ops, moved_old, ops_old = pool_isir_bound(a, got)
-    log(f"[K3] pool_isir at the main shape, {C:,} chains x T={T}, B={B}, "
+    log(f"[K3{sfx}] pool_isir at the main shape, {C:,} chains x T={T}, "
+        f"B={B}, "
         f"d={d}, {kern._threads(C, a[2].device)} threads a block, "
         f"{float(got[3].sum()) / (C * T):.5f} of chain-steps move: bitwise "
         f"{same}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
@@ -2449,13 +2505,13 @@ def agl_kernel_rows(insts, paths):
         f"{moved_old / 1e9:.4f} GB, {ops_old:.4g} operations -> "
         f"{b_old[0]:.4f} ms ({b_old[1]})")
     rows.append(_agl_row(
-        "pool_isir", "glabc_tpu_torch/csrc/pool_isir.cu",
-        "glabc_tpu/ops/pallas/pool_isir_kernel.py:103", "pool_isir", paths,
-        "run_aglmcmc_gf1", max_abs, ms, plain_ms, b))
+        "pool_isir" + sfx, "glabc_tpu_torch/csrc/pool_isir.cu",
+        "glabc_tpu/ops/pallas/pool_isir_kernel.py:103", "pool_isir" + sfx,
+        paths, gf1, max_abs, ms, plain_ms, b))
     del got, want
 
     # K4
-    kern, a, k = insts["run_aglmcmc_gf1"].last["kde_logprob"]
+    kern, a, k = insts[gf1].last["kde_logprob"]
     ms = median_ms(lambda: kern.run(*a, **k))
     got = kern.run(*a, **k)
     plain_ms, want = timed(lambda: kern.plain(*a, **k), 1)
@@ -2468,19 +2524,20 @@ def agl_kernel_rows(insts, paths):
     work = C * N * P
     moved = nbytes(*a, got)
     b = bound_ms(moved, work * kde_ops(d), work)
-    log(f"[K4] kde_logprob at the main shape, {C:,} chains x N={N} points "
+    log(f"[K4{sfx}] kde_logprob at the main shape, {C:,} chains x N={N} "
+        f"points "
         f"x P={P} components, d={d}: max |diff| {max_abs:.3g}, relative "
         f"{err:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
         f"{moved / 1e9:.4f} GB, {work * kde_ops(d):.4g} operations and "
         f"{work:.4g} exponentials -> bound {b[0]:.3f} ms ({b[1]})")
     rows.append(_agl_row(
-        "kde_logprob", "glabc_tpu_torch/csrc/kde_logprob.cu",
-        "glabc_tpu/ops/pallas/kde_logprob_kernel.py:106", "kde_logprob",
-        paths, "run_aglmcmc_gf1", max_abs, ms, plain_ms, b))
+        "kde_logprob" + sfx, "glabc_tpu_torch/csrc/kde_logprob.cu",
+        "glabc_tpu/ops/pallas/kde_logprob_kernel.py:106",
+        "kde_logprob" + sfx, paths, gf1, max_abs, ms, plain_ms, b))
     del got, want
 
     # K5
-    kern, a, k = insts["run_aglmcmc_gf05"].last["pool_isir_mixed"]
+    kern, a, k = insts[gf05].last["pool_isir_mixed"]
     ms = median_ms(lambda: kern.run(*a, **k))
     got = kern.run(*a, **k)
     plain_ms, want = timed(lambda: kern.plain(*a, **k), 1)
@@ -2495,17 +2552,17 @@ def agl_kernel_rows(insts, paths):
     ops, sfu = map(sum, zip(mixed_isir_ops(d, B, S), builtin_local_ops(d)))
     moved = nbytes(*a[1], *a[2:9], *(x for x in got if x is not None))
     b = k5_bound("K5", a, got, ops, sfu, moved)
-    log(f"[K5] pool_isir_mixed at the main shape, {C:,} chains x T={T}, "
+    log(f"[K5{sfx}] pool_isir_mixed at the main shape, {C:,} chains x "
+        f"T={T}, "
         f"B={B}, S={S}, d={d}, (threads a block, chains a warp) "
         f"{kern._geometry(C, a[6].device)}: bitwise {same}, max abs diff "
         f"{max_abs:.3g}, share of chains "
         f"differing {share:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.1f} "
         f"ms; {moved / 1e9:.4f} GB -> bound {b[0]:.3f} ms ({b[1]})")
     rows.append(_agl_row(
-        "pool_isir_mixed", "glabc_tpu_torch/csrc/pool_isir_mixed.cu",
+        "pool_isir_mixed" + sfx, "glabc_tpu_torch/csrc/pool_isir_mixed.cu",
         "glabc_tpu/ops/pallas/pool_isir_mixed_kernel.py:190",
-        "pool_isir_mixed", paths, "run_aglmcmc_gf05", max_abs, ms, plain_ms,
-        b))
+        "pool_isir_mixed" + sfx, paths, gf05, max_abs, ms, plain_ms, b))
     return rows
 
 
@@ -3692,6 +3749,564 @@ def phase_m13(tmp, card):
                   f"{want}")
     return paths
 
+# ------------------------------------------------------- shapes (phase 13)
+# K7 and K7-bf16 at the shapes the weight-resident kernels do not take
+# (dim, hidden, layers), each at SHAPE_ROWS rows; K3, K4 and K5 above d=32.
+SHAPE_FLOWS = ((2, 100, 4), (2, 8, 4), (20, 128, 4), (33, 256, 4),
+               (64, 512, 2))
+SHAPE_ROWS = (8192, 8209)
+SHAPE_DIMS = (33, 64, 128)
+SHAPE_CHAINS = 4096    # K3 and K5 against plain: chains x 32 steps
+# end to end: the reference config (benchmarks/ours_parity.py:6-8) at new
+# widths: NF gf=1 on a 20-D problem with a 32 x 256 flow, AGLMCMC at d=40
+SHAPE_NF_DIM, SHAPE_NF_HIDDEN, SHAPE_NF_LAYERS = 20, 256, 32
+SHAPE_NF_CHAINS, SHAPE_NF_ITERS = 8192, 201
+SHAPE_AGL_DIM, SHAPE_AGL_CHAINS, SHAPE_AGL_ITERS = 40, 4096, 1001
+# A/B at today's shapes (PERF.md section 6): K7 push of a pool at d=2
+# through 32 x 128, K3, K4 and K5 at the AGLMCMC reference runs' shapes
+AB_FLOW_ROWS = 32768000
+AB_K3 = (32768, 200, 5, 2)        # chains, T, B, d
+AB_K4 = (32768, 1000, 1000, 2)    # chains, N, P, d
+AB_K5 = (16384, 400, 5, 2, 1024)  # chains, T, B, d, S
+
+
+def _integer_flow(d, H, seed):
+    """One layer whose every product operand is a small integer (the
+    log-scale columns scaled by 2^-16), so that each sum is exact in
+    float32 in any order, and points of small integers: a kernel that puts
+    every weight in its place equals the plain version's log-scale sums bit
+    for bit."""
+    import torch
+    from glabc_tpu_torch.models import CouplingFlow
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    ints = lambda shape, lo, hi: torch.randint(lo, hi, shape, generator=g,
+                                               device=DEVICE).float()
+    d2 = d // 2
+    d1 = d - d2
+    w2 = ints((1, H, 2 * d2), -1, 2)
+    w2[..., d2:] *= 2.0 ** -16
+    f = CouplingFlow(torch.zeros(d, device=DEVICE),
+                     torch.zeros(d, device=DEVICE), ints((1, d1, H), 0, 2),
+                     ints((1, H), -1, 2), ints((1, H, H), -1, 2),
+                     ints((1, H), -2, 3), w2, ints((1, 2 * d2), -2, 3))
+    return f, ints((d, 300), 0, 3)
+
+
+def bf16_order_control(flow, x, inverse):
+    """The plain bf16 flow with each layer's h0 w1 summed over its K rows in
+    slices of 32, the slices' sums then added in order, as the wide kernel
+    adds its slices: the same bf16 operands, another float32 order.  How
+    far the plain version moves under that alone is what an order can cost
+    a kernel at that shape."""
+    import torch
+
+    r = lambda t: t.to(torch.bfloat16).to(torch.float32)
+    w0, b0, w1, b1, w2, b2 = (w.detach() for w in flow.stack())
+    d2 = flow.dim // 2
+    d1 = flow.dim - d2
+    u = x.T
+    acc = torch.zeros(u.shape[0], dtype=u.dtype, device=u.device)
+    for step in range(flow.n_layers):
+        l = flow.n_layers - 1 - step if inverse else step
+        u1 = u[:, d2:] if inverse else u[:, :d1]
+        h = r(torch.relu(r(u1) @ r(w0[l]) + b0[l]))
+        w, h1 = r(w1[l]), None
+        for k in range(0, flow.hidden, 32):
+            p = h[:, k:k + 32] @ w[k:k + 32]
+            h1 = p if h1 is None else h1 + p
+        h = torch.relu(h1 + b1[l])
+        ts = r(h) @ r(w2[l]) + b2[l]
+        t, s_ = ts[:, :d2], ts[:, d2:]
+        if inverse:
+            u = torch.cat([u1, (u[:, :d2] - t) * torch.exp(-s_)], dim=1)
+        else:
+            u = torch.cat([u[:, d1:] * torch.exp(s_) + t, u1], dim=1)
+        acc = acc + s_.sum(dim=1)
+    return u.T.contiguous(), acc
+
+
+def shape_flows_vs_plain():
+    """K7 and K7-bf16, push and pull, at SHAPE_FLOWS x SHAPE_ROWS against
+    their plain versions (FLOW_SPLIT_TOL and its one-product control;
+    BF16_MAX_TOL on each shape and BF16_SHARE over the rows of every shape
+    together, as ``tests/test_torch_gpu.py`` pools it: a kernel that adds
+    its products in another order than the plain matmul flips a bf16
+    rounding now and then, and at 8,192 rows one row is already 1.2e-4),
+    each launch counted on the variant that takes the shape; and each
+    (dim, hidden) on an integer-valued layer, whose log-scale sums must be
+    exact."""
+    import torch
+    from glabc_tpu_torch.ops.kernels import FlowPull, FlowPush
+    from glabc_tpu_torch.ops.kernels.flow_kernel import kernel_variant
+
+    pooled, pooled_ctl = Bf16Diff(), 0
+    for d, H, L in SHAPE_FLOWS:
+        var = kernel_variant(d, H)
+        attrs = {"float32": "wide_launches" if var == "wide" else "launches",
+                 "bfloat16": ("wide_bf16_launches" if var == "wide"
+                              else "bf16_launches")}
+        f, g = _test_flow(d, L, H, seed=1000 * d + H)
+        for N in SHAPE_ROWS:
+            z = torch.randn((d, N), generator=g, device=DEVICE)
+            for cls in (FlowPush, FlowPull):
+                label = f"{cls.__name__} d={d} H={H} L={L} N={N:,} ({var})"
+                got = {}
+                for dt in ("float32", "bfloat16"):
+                    before = getattr(cls, attrs[dt])
+                    got[dt] = cls(dt).run(f, z)
+                    check(getattr(cls, attrs[dt]) == before + 1,
+                          f"{label}: {dt} did not launch its {var} kernel")
+                want32 = cls().plain(f, z)
+                want16 = cls("bfloat16").plain(f, z)
+                torch.cuda.synchronize()
+                check(all(bool(torch.isfinite(a).all()) for o in
+                          got.values() for a in o), f"{label}: not finite")
+                err = max(_rel_err(a, b) for a, b in
+                          zip(got["float32"], want32))
+                check_split(label, err, f, z, want32, cls.inverse)
+                diff = Bf16Diff()
+                diff.add(got["bfloat16"], want16, want32)
+                ctl = _bf16_row_diff(bf16_order_control(f, z, cls.inverse),
+                                     want16)
+                ctl_bad = int((ctl > BF16_ROW_TOL).sum())
+                ctl_max = float(ctl.max())
+                log(f"[K7-bf16-order] {label}: the plain bf16 flow summed in "
+                    f"slices of 32: rows differing by > {BF16_ROW_TOL:g} "
+                    f"{ctl_bad / ctl.numel():.3g}, max {ctl_max:.3g}")
+                limit = max(BF16_MAX_TOL, BF16_ORDER_MAX * ctl_max)
+                diff.check(label, share_limit=None, max_limit=limit)
+                pooled.merge(diff)
+                pooled_ctl += ctl_bad
+        for dt in ("float32", "bfloat16"):
+            fi, zi = _integer_flow(d, H, seed=d * H)
+            for cls in (FlowPush, FlowPull):
+                got, want = cls(dt).run(fi, zi), cls(dt).plain(fi, zi)
+                torch.cuda.synchronize()
+                exact = bool(torch.equal(got[1], want[1]))
+                rel = _rel_err(got[0], want[0])
+                log(f"[shapes] K7 {dt} {cls.__name__} d={d} H={H} on an "
+                    f"integer layer ({var}): log-scale sums exact {exact}, "
+                    f"coordinates within {rel:.3g}")
+                check(exact and rel <= 1e-6, f"K7 {dt} {cls.__name__} d={d}"
+                      f" H={H}: an integer layer is not exact")
+    share = max(BF16_SHARE, BF16_ORDER_SHARE * pooled_ctl / pooled.rows)
+    log(f"[K7-bf16-order] every shape together: the order control's rows "
+        f"beyond {BF16_ROW_TOL:g} {pooled_ctl / pooled.rows:.3g}, so the "
+        f"kernel's limit {share:.3g}")
+    pooled.check(f"every shape of phase 13 together, {pooled.rows:,} rows",
+                 share_limit=share, max_limit=pooled.max_rel)
+
+
+def shape_agl_vs_plain():
+    """K3 and K5 at SHAPE_DIMS bit for bit, K4 within KDE_TOL, each on
+    its runtime-d variant."""
+    import torch
+    from glabc_tpu_torch import HighDimMixtureProblem
+    from glabc_tpu_torch.models import KernelDensity
+    from glabc_tpu_torch.ops.kernels import (BatchedMixtureLogProb,
+                                             PoolISIR, PoolISIRMixed,
+                                             kde_logprob_inputs,
+                                             resident_from_kde)
+
+    C, T, B = SHAPE_CHAINS, 32, 5
+    for d in SHAPE_DIMS:
+        ptheta, plogw, g = _random_pools(T, B, d, C, 3 * d)
+        theta = torch.randn((d, C), generator=g, device=DEVICE)
+        logw = torch.randn((C,), generator=g, device=DEVICE) - 4.0
+        kern = PoolISIR(d, batch_size=B, steps_per_call=T)
+        before = PoolISIR.wide_launches
+        got = kern.run(5, ptheta, plogw, theta, logw, step0=1000)
+        check(PoolISIR.wide_launches == before + 1, f"K3 d={d}: no launch "
+              "of the runtime-d variant")
+        want = kern.plain(5, ptheta, plogw, theta, logw, step0=1000)
+        torch.cuda.synchronize()
+        same, max_abs = _bitwise(got, want)
+        log(f"[shapes] K3 d={d}: {C:,} chains x {T} steps, bitwise {same}, "
+            f"moves per step {float(got[3].mean()) / T:.3f}")
+        check(same, f"pool_isir d={d} differs from its plain version (max "
+              f"abs {max_abs:.3g})")
+
+        Ck, P = 256, 1000
+        X = torch.randn((Ck, P, d), generator=g, device=DEVICE)
+        w = torch.rand((Ck, P), generator=g, device=DEVICE)
+        w[:, ::7] = 0.0
+        x = torch.randn((Ck, P, d), generator=g, device=DEVICE) * 1.5
+        args = (x, *kde_logprob_inputs(KernelDensity.fit(X, w)))
+        k4 = BatchedMixtureLogProb()
+        before = BatchedMixtureLogProb.wide_launches
+        got = k4.run(*args)
+        check(BatchedMixtureLogProb.wide_launches == before + 1,
+              f"K4 d={d}: no launch of the runtime-d variant")
+        want = k4.plain(*args)
+        torch.cuda.synchronize()
+        err = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+        log(f"[shapes] K4 d={d}: {Ck} chains x N=P={P}: max |diff| / "
+            f"max(1, |log q|) {err:.3g} (limit {KDE_TOL:g})")
+        check(bool(torch.isfinite(got).all()) and err <= KDE_TOL,
+              f"kde_logprob d={d}: {err:.3g} > {KDE_TOL}")
+
+        prob = HighDimMixtureProblem(d)
+        px = (ptheta.abs() + 0.2 * torch.randn(
+            ptheta.shape, generator=g, device=DEVICE)).contiguous()
+        plogk = torch.randn((T, B, C), generator=g, device=DEVICE) - 1.0
+        res = resident_from_kde(KernelDensity.fit(
+            torch.randn((1024, d), generator=g, device=DEVICE) * 1.4))
+        y = (theta.abs() + 0.2 * torch.randn(
+            (d, C), generator=g, device=DEVICE)).contiguous()
+        logk = prob.log_kernel_of_y(y.T.contiguous())
+        k5 = PoolISIRMixed(d, prob.y_obs.numpy(), epsilon=prob.epsilon,
+                           sigma=prob._noise_std, global_frequency=0.5,
+                           batch_size=B, steps_per_call=T)
+        a = (res, ptheta, px, plogw, plogk, theta, y, logk)
+        before = PoolISIRMixed.wide_launches
+        got = k5.run(7, *a, step0=2000)
+        check(PoolISIRMixed.wide_launches == before + 1, f"K5 d={d}: no "
+              "launch of the runtime-d variant")
+        want = k5.plain(7, *a, step0=2000)
+        torch.cuda.synchronize()
+        same, max_abs = _bitwise(got, want)
+        log(f"[shapes] K5 d={d} S=1024 gf=0.5: {C:,} chains x {T} steps, "
+            f"bitwise {same}, global share {float(got[3].mean()) / T:.4f}, "
+            f"local acceptance "
+            f"{float(got[5].sum() / (C * T - got[3].sum())):.4f}")
+        check(same, f"pool_isir_mixed d={d} is not bitwise equal to its "
+              f"plain version (max abs {max_abs:.3g})")
+
+
+def _move_fraction(ch):
+    """The share of (chain, step) whose state differs from the step
+    before."""
+    import numpy as np
+
+    return float(np.mean(np.any(ch[:, 1:] != ch[:, :-1], axis=-1)))
+
+
+def shape_entry_runs(tmp):
+    """The entry points on the card at the new widths: GLMCMC-NF gf=1 fused
+    (32 x 256 flow, 20-D), AGLMCMC gf=1 fused (K3, K4) and gf=0.5 with
+    shared adaptation (K5) at d=40, then the flow API in bf16 on the NF
+    run's flow; each path's launches counted from 0 just before it.
+    Returns the paths' counts and instruments."""
+    import numpy as np
+    import torch
+    from glabc_tpu_torch import (DiagGaussian, HighDimMixtureProblem,
+                                 MCMCRunner)
+    from glabc_tpu_torch.ops.kernels import flow_pull_fused, flow_push_fused
+
+    paths, insts = {}, {}
+
+    def run(name, fn, want, d, chains, iters, keys=None):
+        secs, (runner, ch), inst = instrumented(paths, insts, name, fn, want)
+        check(ch.shape == (chains, iters, d), f"{name}: chains {ch.shape}")
+        check(bool(np.isfinite(ch).all()), f"{name}: chains not finite")
+        log(f"[shapes] {name}: {chains:,} chains x {iters}, d={d}: move "
+            f"fraction {_move_fraction(ch):.5f}, {inst.split(secs, keys)}")
+        return runner
+
+    d = SHAPE_NF_DIM
+    prob = HighDimMixtureProblem(dim=d)
+    nf = MCMCRunner(prob, output_dir=tmp, seed=0,
+                    num_chains=SHAPE_NF_CHAINS, verbose=False)
+    segs = (SHAPE_NF_ITERS - 1) // 200
+    run("shapes_glmcmc_nf_gf1", lambda: (nf, nf.run_glmcmc_nf(
+        SHAPE_NF_ITERS, np.zeros(d), None, 1.0,
+        DiagGaussian.create(d, 0.0, math.log(0.35)),
+        DiagGaussian.create(d, 0.0, 0.0), 5, 200, 50, output_file=None,
+        method="fused", hidden=SHAPE_NF_HIDDEN, n_layers=SHAPE_NF_LAYERS)),
+        only(pool_isir=segs, flow_push_wide=segs, flow_pull_wide=segs),
+        d, SHAPE_NF_CHAINS, SHAPE_NF_ITERS,
+        ["flow_push", "pool_isir", "flow_pull"])
+    losses = np.asarray(nf.last_result.loss_hist, np.float64)
+    check(bool(np.isfinite(losses).all()), f"NF d={d}: losses {losses}")
+
+    d = SHAPE_AGL_DIM
+    prob = HighDimMixtureProblem(dim=d)
+    lp = DiagGaussian.create(d, 0.0, math.log(0.35))
+    ip = DiagGaussian.create(d, 0.0, 0.0)
+    segs = (SHAPE_AGL_ITERS - 1) // 200
+    agl = MCMCRunner(prob, output_dir=tmp, seed=1,
+                     num_chains=SHAPE_AGL_CHAINS, verbose=False)
+    run("shapes_aglmcmc_gf1", lambda: (agl, agl.run_aglmcmc(
+        SHAPE_AGL_ITERS, np.zeros(d), None, 1.0, lp, ip, 5, 200, 0.8, 0.2,
+        output_file=None, method="fused")),
+        only(pool_isir_wide=segs, kde_logprob_wide=segs - 1), d,
+        SHAPE_AGL_CHAINS, SHAPE_AGL_ITERS, ["pool_isir"])
+    mixed = MCMCRunner(prob, output_dir=tmp, seed=2,
+                       num_chains=SHAPE_AGL_CHAINS, verbose=False)
+    launches = -(-(SHAPE_AGL_ITERS - 1) // 400)
+    run("shapes_aglmcmc_gf05", lambda: (mixed, mixed.run_aglmcmc(
+        SHAPE_AGL_ITERS, np.zeros(d), None, 0.5, lp, ip, 5, 200, 0.8, 0.2,
+        output_file=None, method="fused", shared_support=1024)),
+        only(pool_isir_mixed_wide=launches), d, SHAPE_AGL_CHAINS,
+        SHAPE_AGL_ITERS, ["pool_isir_mixed"])
+    c = mixed.last_result.counts
+    share = float(c.global_attempts.sum()) / (SHAPE_AGL_CHAINS
+                                              * (SHAPE_AGL_ITERS - 1))
+    log(f"[shapes] shapes_aglmcmc_gf05: global share {share:.5f}")
+    check(abs(share - 0.5) <= 0.01, f"AGLMCMC gf=0.5 d={d}: global share "
+          f"{share}")
+
+    # the flow API in bf16 on the NF run's flow: push the run's last pool
+    # draw, pull the chains' last states
+    _, (flow, z), _ = insts["shapes_glmcmc_nf_gf1"].last["flow_push"]
+    _, (_, xs), _ = insts["shapes_glmcmc_nf_gf1"].last["flow_pull"]
+    bf = dict(matmul_dtype="bfloat16")
+    (secs, outs), counts = counted(lambda: wall(lambda: (
+        flow_push_fused(flow, z, **bf), flow_pull_fused(flow, xs, **bf))))
+    paths["shapes_flow_api_bf16"] = counts
+    want = only(flow_push_wide_bf16=1, flow_pull_wide_bf16=1)
+    check(counts == want, f"shapes_flow_api_bf16: launches {counts}, "
+          f"expected {want}")
+    check(all(bool(torch.isfinite(a).all()) for o in outs for a in o),
+          "K7-bf16 wide on the NF flow: not finite")
+    log(f"[shapes] flow API bf16 on the NF run's 32 x 256 flow (untrained:"
+        f" 201 steps hold no epoch): push {z.shape[1]:,} rows, pull "
+        f"{xs.shape[1]:,}: wall {secs:.3f} s")
+    insts["shapes_flow_api_bf16"] = (flow, z, xs, outs)
+    return paths, insts
+
+
+def shape_flow_rows(insts, paths):
+    """The wide K7 kernels' ``kernels`` rows at their main-path shapes: the
+    NF run's last push and pull (float32) and the bf16 flow API path's:
+    time per launch on the path's own flow and rows, and the bound
+    (flow_tf32_work / flow_bf16_work); the bf16 share of rows beyond
+    BF16_ROW_TOL pooled over the push and the pull (shape_flows_vs_plain
+    gives the limits' reason).  The run's 201 steps hold no epoch,
+    so its flow is the untrained identity, on which every version agrees
+    exactly: the agreement (and the plain version's time, over chunks of
+    2^20 rows) is taken on a random flow of the same shape
+    (``_test_flow``), a push over the same rows and a pull of the random
+    flow's push of as many normal rows (points of its own data space, as
+    the run pulls points of its flow's)."""
+    import torch
+    from glabc_tpu_torch.ops.kernels import FlowPull, FlowPush
+
+    flow, z, xs, (pushed16, pulled16) = insts["shapes_flow_api_bf16"]
+    nf = insts["shapes_glmcmc_nf_gf1"]
+    cases = []
+    for key, dt, kern, x, got in (
+            ("flow_push_wide", "float32", None, None, None),
+            ("flow_pull_wide", "float32", None, None, None),
+            ("flow_push_wide_bf16", "bfloat16", FlowPush("bfloat16"), z,
+             pushed16),
+            ("flow_pull_wide_bf16", "bfloat16", FlowPull("bfloat16"), xs,
+             pulled16)):
+        if kern is None:
+            kern, (_, x), _ = nf.last[key[:9]]
+            got = None
+        cases.append((key, dt, kern, x, got))
+    rows, chunk = [], 1 << 20
+    pooled, pooled_ctl = Bf16Diff(), 0      # the bf16 push's and pull's rows
+    test_flow, tg = _test_flow(flow.dim, flow.n_layers, flow.hidden, seed=21)
+    for key, dt, kern, x, got in cases:
+        reps = 1 if x.shape[1] > (1 << 20) else 10
+        kern.run(flow, x)                                # warm
+        ms = sorted(timed(lambda: kern.run(flow, x), reps)[0]
+                    for _ in range(3))[1]
+        main_got = kern.run(flow, x) if got is None else got
+        if kern.inverse:
+            x = FlowPush().run(test_flow, torch.randn(
+                x.shape, generator=tg, device=DEVICE))[0]
+        got = kern.run(test_flow, x)
+        plain_ms, max_abs, err = 0.0, 0.0, 0.0
+        diff, ctl_bad, ctl_max = Bf16Diff(), 0, 0.0
+        for c0 in range(0, x.shape[1], chunk):
+            xc = x[:, c0:c0 + chunk].contiguous()
+            t_ms, want = timed(lambda: kern.plain(test_flow, xc), 1)
+            plain_ms += t_ms
+            part = [got[0][:, c0:c0 + chunk], got[1][c0:c0 + chunk]]
+            if dt == "bfloat16":
+                diff.add(part, want, type(kern)().plain(test_flow, xc))
+                ctl = _bf16_row_diff(bf16_order_control(
+                    test_flow, xc, kern.inverse), want)
+                ctl_bad += int((ctl > BF16_ROW_TOL).sum())
+                ctl_max = max(ctl_max, float(ctl.max()))
+            for a_, b_ in zip(part, want):
+                max_abs = max(max_abs, float((a_ - b_).abs().max()))
+                err = max(err, _rel_err(a_, b_))
+            if c0 == 0:
+                first = (xc, want)
+            del want
+        label = (f"{key} at the main shape, {x.shape[1]:,} rows (a random "
+                 f"flow of the run's shape)")
+        if dt == "bfloat16":
+            log(f"[K7-bf16-order] {label}: the plain bf16 flow summed in "
+                f"slices of 32: rows differing by > {BF16_ROW_TOL:g} "
+                f"{ctl_bad / diff.rows:.3g}, max {ctl_max:.3g}")
+            diff.check(label, share_limit=None,
+                       max_limit=max(BF16_MAX_TOL, BF16_ORDER_MAX * ctl_max))
+            pooled.merge(diff)
+            pooled_ctl += ctl_bad
+        else:
+            check_split(f"{label} (one TF32 product on its first "
+                        f"{first[0].shape[1]:,} rows)", err, test_flow,
+                        *first, kern.inverse)
+        check(all(bool(torch.isfinite(a).all()) for a in main_got),
+              f"{key} on the run's flow: not finite")
+        d, N = x.shape
+        work = flow_bf16_work if dt == "bfloat16" else flow_tf32_work
+        tc, ops, sfu = (N * w for w in work(d, flow.n_layers, flow.hidden))
+        moved = nbytes(x, *got) + nbytes(*flow.stack())
+        b_ms, b_by, terms = tc_bound_ms(
+            moved, tc, ops, sfu,
+            TC_BF16_PER_S if dt == "bfloat16" else TC_TF32_PER_S)
+        log(f"[K7-wide] {key}: {N:,} rows, d={d}, {flow.n_layers} layers x "
+            f"{flow.hidden}: max abs diff {max_abs:.3g}, max |diff| / max(1,"
+            f" |x|) {err:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
+            f"{moved / 1e9:.4f} GB, {tc:.4g} tensor-core FLOPs, {ops:.4g} "
+            f"operations, {sfu:.4g} exponentials -> bound {b_ms:.4f} ms ("
+            + ", ".join(f"{k} {v:.4f}" for k, v in terms.items()) + ")")
+        main = ("shapes_flow_api_bf16" if dt == "bfloat16"
+                else "shapes_glmcmc_nf_gf1")
+        rows.append(dict(
+            name=f"coupling_flow_wide ({key.split('_')[1]}, {dt})",
+            route="cuda", source="glabc_tpu_torch/csrc/coupling_flow_wide.cu",
+            replaces="glabc_tpu/ops/pallas/flow_kernel.py:"
+            + ("149" if "push" in key else "164"),
+            launches=paths[main][key], max_abs_err=max_abs, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None,
+            launches_by_path={k: v[key] for k, v in paths.items()}))
+        del got, main_got
+    pooled.check("the bf16 push and pull at the main shape together", max(
+        BF16_SHARE, BF16_ORDER_SHARE * pooled_ctl / pooled.rows),
+        max_limit=pooled.max_rel)
+    return rows
+
+
+def ab_cases():
+    """Today's shapes of K7 push, K3, K4 and K5 (AB_*), inputs made on the
+    card from fixed seeds: ``{name: fn}``, each ``fn()`` one launch through
+    the package on ``sys.path``, returning its outputs."""
+    import torch
+    from glabc_tpu_torch import MixtureProblem
+    from glabc_tpu_torch.models import KernelDensity
+    from glabc_tpu_torch.ops.kernels import (BatchedMixtureLogProb, FlowPush,
+                                             PoolISIR, PoolISIRMixed,
+                                             kde_logprob_inputs,
+                                             resident_from_kde)
+
+    cases = {}
+    f, g = _test_flow(2, 32, 128, seed=11)
+    z = torch.randn((2, AB_FLOW_ROWS), generator=g, device=DEVICE)
+    cases["K7-push"] = lambda: FlowPush().run(f, z)
+    C, T, B, d = AB_K3
+    pt, pw, g = _random_pools(T, B, d, C, 12)
+    th = torch.randn((d, C), generator=g, device=DEVICE)
+    lw = torch.randn((C,), generator=g, device=DEVICE) - 4.0
+    k3 = PoolISIR(d, batch_size=B, steps_per_call=T)
+    cases["K3"] = lambda: k3.run(5, pt, pw, th, lw, step0=1000)
+    C, N, P, d = AB_K4
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    X = torch.randn((C, P, d), generator=g, device=DEVICE)
+    x = torch.randn((C, N, d), generator=g, device=DEVICE) * 1.5
+    k4a = (x, *kde_logprob_inputs(KernelDensity.fit(X)))
+    cases["K4"] = lambda: BatchedMixtureLogProb().run(*k4a)
+    C, T, B, d, S = AB_K5
+    prob = MixtureProblem(0.05)
+    pt5, pw5, g = _random_pools(T, B, d, C, 14)
+    px = (pt5.abs() + 0.2 * torch.randn(pt5.shape, generator=g,
+                                        device=DEVICE)).contiguous()
+    pk = torch.randn((T, B, C), generator=g, device=DEVICE) - 1.0
+    res = resident_from_kde(KernelDensity.fit(
+        torch.randn((S, d), generator=g, device=DEVICE) * 1.4))
+    th5 = torch.randn((d, C), generator=g, device=DEVICE)
+    y5 = (th5.abs() + 0.2 * torch.randn((d, C), generator=g,
+                                        device=DEVICE)).contiguous()
+    lk5 = prob.log_kernel_of_y(y5.T.contiguous())
+    k5 = PoolISIRMixed(d, prob.y_obs.numpy(), epsilon=prob.epsilon,
+                       sigma=prob._noise_std, global_frequency=0.5,
+                       batch_size=B, steps_per_call=T)
+    cases["K5"] = lambda: k5.run(7, res, pt5, px, pw5, pk, th5, y5, lk5,
+                                 step0=2000)
+    return cases
+
+
+def ab_hashes():
+    """``{name: (sha256 of the outputs, ms per launch)}`` of ab_cases()
+    through the package on ``sys.path``: the median of 3 windows (1 launch
+    for K7, 5 for the rest) after one warm launch."""
+    import hashlib
+    import torch
+
+    out = {}
+    for name, fn in ab_cases().items():
+        got = fn()
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for t in got:
+            if t is not None:
+                h.update(t.detach().cpu().numpy().tobytes())
+        reps = 1 if name == "K7-push" else 5
+        ms = sorted(timed(fn, reps)[0] for _ in range(3))[1]
+        out[name] = (h.hexdigest(), ms)
+        del got
+    return out
+
+
+def _parent_hashes(parent):
+    """ab_hashes() through the package under ``parent`` (a checkout of the
+    parent commit), in a process of its own."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "ab.json")
+        env = dict(os.environ, GLABC_PACKAGE_ROOT=os.path.abspath(parent))
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--ab-hashes", out], env=env, text=True,
+                              capture_output=True, timeout=900)
+        if proc.returncode != 0:
+            die(f"the parent's A/B run failed ({proc.returncode}):\n"
+                f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        with open(out) as fh:
+            return json.load(fh)
+
+
+def shape_ab(parent):
+    """Today's shapes: each kernel's output sha256 and time, this tree's
+    twice between two runs of ``parent``'s (when given) in the same call;
+    the hashes must be equal."""
+    runs = []
+    if parent:
+        runs.append(("parent", _parent_hashes(parent)))
+    runs += [("this", ab_hashes()), ("this", ab_hashes())]
+    if parent:
+        runs.append(("parent", _parent_hashes(parent)))
+    for name in runs[0][1]:
+        hashes = {r[name][0] for _, r in runs}
+        log(f"[shapes-ab] {name}: ms " + ", ".join(
+            f"{who} {r[name][1]:.3f}" for who, r in runs)
+            + f"; sha256 {runs[0][1][name][0][:16]}..., equal in every run "
+            f"{len(hashes) == 1}")
+        check(len(hashes) == 1, f"{name}: the outputs at today's shape "
+              "differ between runs")
+    if not parent:
+        log("[shapes-ab] no parent checkout given (--parent DIR): this "
+            "tree's hashes and times only")
+
+
+def phase_shapes(tmp, parent=None):
+    """Phase 13: the kernels past the static shapes against their plain
+    versions, the entry points at the new widths (counted paths), and the
+    A/B at today's shapes."""
+    t = time.perf_counter()
+    shape_flows_vs_plain()
+    shape_agl_vs_plain()
+    log(f"[shapes] kernels against plain: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    paths, insts = shape_entry_runs(tmp)
+    log(f"[shapes] entry runs: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    shape_ab(parent)
+    log(f"[shapes] A/B at today's shapes: {time.perf_counter() - t:.1f} s")
+    return paths, insts
+
+
+def _option(name):
+    """The value after ``name`` on the command line, or None."""
+    args = sys.argv[1:]
+    return args[args.index(name) + 1] if name in args[:-1] else None
+
 
 def main():
     t0 = time.perf_counter()
@@ -3701,11 +4316,16 @@ def main():
         die("torch is not installed")
     if not torch.cuda.is_available():
         die("torch.cuda.is_available() is false: this script needs a GPU")
-    sys.path.insert(0, HERE)
+    # GLABC_PACKAGE_ROOT: another checkout's package (the parent's A/B run)
+    root = os.environ.get("GLABC_PACKAGE_ROOT") or HERE
+    sys.path.insert(0, root)
     try:
         import glabc_tpu_torch  # noqa: F401
     except ImportError as e:
         die(f"glabc_tpu_torch is not importable beside chip_smoke.py: {e}")
+    check(os.path.abspath(glabc_tpu_torch.__file__).startswith(
+        os.path.abspath(root)), f"glabc_tpu_torch came from "
+        f"{glabc_tpu_torch.__file__}, not {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--seed-spread"]:
@@ -3713,6 +4333,22 @@ def main():
         seed_spread(int(sys.argv[2]),
                     sys.argv[3:] or ("agl", "glmala", "nf", "ma2",
                                      "glmala_prog", "agl_prog"))
+        return
+    if sys.argv[1:2] == ["--ab-hashes"]:
+        with open(sys.argv[2], "w") as fh:
+            json.dump(ab_hashes(), fh)
+        return
+    parent = _option("--parent")
+    if "--shapes" in sys.argv[1:]:
+        name, card = phase_device()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            paths, insts = phase_shapes(tmp, parent)
+        rows = shape_flow_rows(insts, paths)
+        rows += agl_kernel_rows(insts, paths, wide=True)
+        log(f"[done] {time.perf_counter() - t0:.1f} s")
+        log(card)
+        print(json.dumps({"kernels": rows}), flush=True)
         return
 
     name, card = phase_device()
@@ -3733,10 +4369,11 @@ def main():
         bf16_counts, bf16_rows = phase_flow_bf16(nf_insts)
         gen_paths, gen_insts = phase_generic(tmp)
         m13_paths = phase_m13(tmp, card)
+        shape_paths, shape_insts = phase_shapes(tmp, parent)
     mesh_paths = phase_sharded(card)
     paths = {"bench": bench["launches"], **paths, **agl_paths, **mala_paths,
              **nf_paths, "flow_api_bf16": bf16_counts, **gen_paths,
-             **mesh_paths, **m13_paths}
+             **mesh_paths, **m13_paths, **shape_paths}
 
     rows = phase_kernels_line(bench, carry3, prob3, paths)
     rows += agl_kernel_rows(insts, paths)
@@ -3747,6 +4384,9 @@ def main():
     rows += flow_bf16_kernel_rows(bf16_rows, paths)
     rows += generic_kernel_rows(gen_insts, paths)
     del gen_insts
+    rows += shape_flow_rows(shape_insts, paths)
+    rows += agl_kernel_rows(shape_insts, paths, wide=True)
+    del shape_insts
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

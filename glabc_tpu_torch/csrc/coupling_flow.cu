@@ -80,6 +80,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "flow_mma.cuh"
+
 namespace glabc {
 
 constexpr int kMaxWarps = 8;
@@ -133,16 +135,6 @@ __host__ __device__ inline size_t flow_smem(int d, int HP, int warps,
          sizeof(float);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-
 // the lane's and the block's index, read where they are used (a volatile
 // read is not hoisted out of the loops, so it holds no register there)
 __device__ __forceinline__ int lane_id() {
@@ -155,49 +147,6 @@ __device__ __forceinline__ int block_id() {
   int r;
   asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(r));
   return r;
-}
-
-// x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo: hi its TF32 rounding (the low 13 bits cleared, so that
-// x - hi is exact), lo the TF32 rounding of the remainder
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(x) & 0xffffe000u;
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// c += a b on one m16n8k8 tile: TF32 operands, float32 accumulators
-__device__ __forceinline__ void mma_tf32(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the three split products of one k-tile into c: lo hi, hi lo, hi hi (the
-// small terms first); the B fragment {hi(k), hi(k + 4), lo(k), lo(k + 4)}
-// as one 16-byte load
-template <int MT>
-__device__ __forceinline__ void mma3(float (&c)[MT][4],
-                                     const uint32_t (&hi)[MT][4],
-                                     const uint32_t (&lo)[MT][4],
-                                     const float4 b) {
-  const uint32_t bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
-  const uint32_t bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) mma_tf32(c[mt], lo[mt], bh0, bh1);
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) mma_tf32(c[mt], hi[mt], bl0, bl1);
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) mma_tf32(c[mt], hi[mt], bh0, bh1);
 }
 
 // MT m16 tiles per warp tile: 2 (32 rows) where there are rows enough to

@@ -103,6 +103,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "flow_mma.cuh"
+
 namespace glabc {
 
 constexpr int kTileM = 64;      // rows of a wgmma tile
@@ -154,10 +156,6 @@ __host__ __device__ inline size_t bf16_flow_smem(int d, int H, int ntiles) {
   return kAtom + static_cast<size_t>(kStages) * layer_image(d, H).bytes +
          2 * kStages * sizeof(uint64_t) +
          static_cast<size_t>(d + 1) * rb * sizeof(float);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // ---- mbarriers and the bulk copy
@@ -616,15 +614,6 @@ struct Wgmma<128> {
   }
 };
 
-// relu of two floats, rounded to bf16 (to nearest even) in one
-// conversion, lo in the low half: the rounding of relu(x) is relu of the
-// rounding
-__device__ __forceinline__ uint32_t pack_relu_bf16(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -639,16 +628,6 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1,
       : "=r"(r0), "=r"(r1)
       : "r"(addr)
       : "memory");
-}
-
-// c += a b on one m16n8k16 tile: bf16 operands, float32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ts = relu(h1 + b1) w2 for the warp's 16 rows of the tile: A from h1's

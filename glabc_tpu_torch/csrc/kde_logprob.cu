@@ -47,6 +47,25 @@
 // chip_smoke.py's k4_sass_line), and the main shape takes 10.8 ms, 78 % of
 // the MUFU rate a microbenchmark reaches on the same card (PERF.md).  R = 4,
 // K = 8 (one block per chain) took 11.2 ms.
+//
+// D is a compile-time bound on d up to 32, one instantiation each, the
+// thread's points in registers.  Above d = 32 (up to 128) one runtime-d
+// kernel takes the launch, kde_logprob_wide_kernel: the block's 256 points
+// (one a thread) sit in dynamic shared memory, coordinate-major (d x 256
+// floats, 128 KB at d = 128), beside the staged component rows (d + 1
+// floats each, 48 KB); a term is walked in chunks of 32 coordinates, the
+// thread's 32 coordinates loaded into registers once per chunk of 16
+// components, so that each shared-memory read of a row feeds one
+// multiply-add and each point read 16.  Its
+// arithmetic is the plain version's, not the log2 domain of the static
+// kernels: a term is pre, then + x_f ms_f in coordinate order, each product
+// and sum rounded on its own (--fmad=false), the running logsumexp over
+// chunks of 16 by the accurate expf, and (max + log(sum)) - 0.5 q2.  At
+// d = 40 a fitted per-chain KDE's terms are large and cancel, so each
+// extra rounding of a term shows: on an H100 the log2-domain arithmetic
+// read 1.4e-3 max(1, |log q|) from the plain version on the AGLMCMC d = 40
+// epoch's densities, against the limit 1e-4.
+// At d > 32 a term is over 33 multiply-adds, so the FP32 lanes bound it.
 
 #include <cuda_runtime.h>
 
@@ -183,6 +202,107 @@ kde_logprob_kernel(KdeArgs a) {
   }
 }
 
+constexpr int kKdeMaxD = 128;
+constexpr int kKdeWideD = 32;   // the largest static instantiation
+constexpr int kKdeWideK = 16;   // components a chunk
+constexpr int kKdeWideF = 32;   // coordinates a chunk
+constexpr int kKdeWideRowFloats = 12 * 1024;  // staged rows: 48 KB
+
+__global__ void __launch_bounds__(kKdeThreads)
+kde_logprob_wide_kernel(KdeArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int d = a.d, W = d + 1;
+  float* const xs = smem;                       // (d, kKdeThreads)
+  float* const rows = smem + d * kKdeThreads;   // (a.rows, W)
+  const int c = blockIdx.x / a.tiles_n;
+  const int p0n = (blockIdx.x - c * a.tiles_n) * kKdeThreads;
+  const int n = p0n + threadIdx.x;
+  // the block's points, zero past N (those lanes compute and do not write)
+  for (int k = threadIdx.x; k < kKdeThreads * d; k += kKdeThreads) {
+    const int i = k / d, f = k - i * d;
+    xs[f * kKdeThreads + i] =
+        p0n + i < a.N
+            ? a.x[(static_cast<size_t>(c) * a.N + p0n + i) * d + f]
+            : 0.0f;
+  }
+  float m = -INFINITY, s = 0.0f;
+  const size_t base = static_cast<size_t>(c) * a.P;
+  for (int p0 = 0; p0 < a.P; p0 += a.rows) {
+    const int np = min(a.rows, a.P - p0);
+    const int npad = (np + kKdeWideK - 1) / kKdeWideK * kKdeWideK;
+    __syncthreads();
+    for (int k = threadIdx.x; k < npad * W; k += kKdeThreads) {
+      const int i = k / W, f = k - i * W;
+      float v = 0.0f;
+      if (i >= np) {
+        v = f == 0 ? -INFINITY : 0.0f;
+      } else if (f == 0) {
+        v = a.pre[base + p0 + i];
+      } else {
+        v = a.ms[(base + p0 + i) * d + (f - 1)];
+      }
+      rows[k] = v;
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int i0 = 0; i0 < npad; i0 += kKdeWideK) {
+      float t[kKdeWideK];
+#pragma unroll
+      for (int k = 0; k < kKdeWideK; ++k) t[k] = rows[(i0 + k) * W];
+#pragma unroll 1
+      for (int f0 = 0; f0 < d; f0 += kKdeWideF) {
+        const int nf = min(kKdeWideF, d - f0);
+        float xv[kKdeWideF];
+#pragma unroll
+        for (int f = 0; f < kKdeWideF; ++f)
+          xv[f] = f < nf ? xs[(f0 + f) * kKdeThreads + threadIdx.x] : 0.0f;
+#pragma unroll
+        for (int k = 0; k < kKdeWideK; ++k) {
+          const float* const row = rows + (i0 + k) * W + 1 + f0;
+          float acc = t[k];
+#pragma unroll
+          for (int f = 0; f < kKdeWideF; ++f)
+            if (f < nf) acc = acc + xv[f] * row[f];
+          t[k] = acc;
+        }
+      }
+      float mx = t[0];
+#pragma unroll
+      for (int k = 1; k < kKdeWideK; ++k) mx = fmaxf(mx, t[k]);
+      const float mn = fmaxf(m, mx);
+      float acc = s * expf(m - mn);
+#pragma unroll
+      for (int k = 0; k < kKdeWideK; ++k) acc = acc + expf(t[k] - mn);
+      s = acc;
+      m = mn;
+    }
+  }
+  if (n >= a.N) return;
+  float q2 = 0.0f;
+  for (int f = 0; f < d; ++f) {
+    const float xf = xs[f * kKdeThreads + threadIdx.x];
+    q2 = q2 + (xf * xf) * a.inv_h2[static_cast<size_t>(c) * d + f];
+  }
+  a.out[static_cast<size_t>(c) * a.N + n] = (m + logf(s)) - 0.5f * q2;
+}
+
+int launch_kde_wide(KdeArgs a, cudaStream_t s) {
+  const int W = a.d + 1;
+  const int cap = kKdeWideRowFloats / W / kKdeWideK * kKdeWideK;
+  a.rows = min((a.P + kKdeWideK - 1) / kKdeWideK * kKdeWideK, cap);
+  a.tiles_n = (a.N + kKdeThreads - 1) / kKdeThreads;
+  const size_t smem = (static_cast<size_t>(a.d) * kKdeThreads +
+                       static_cast<size_t>(a.rows) * W) *
+                      sizeof(float);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kde_logprob_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>(a.C) * a.tiles_n);
+  kde_logprob_wide_kernel<<<grid, kKdeThreads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_kde(KdeArgs a, cudaStream_t s) {
   constexpr int W = kde_row(D);
@@ -203,7 +323,7 @@ extern "C" int glabc_kde_logprob(const float* x, const float* ms,
                                  float* out, int C, int N, int P, int d,
                                  void* stream) {
   using namespace glabc;
-  if (d < 1 || d > 32 || P < 1) return -1;
+  if (d < 1 || d > kKdeMaxD || P < 1) return -1;
   if (C == 0 || N == 0) return 0;
   KdeArgs a{x, ms, pre, inv_h2, out, C, N, P, d, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -213,5 +333,6 @@ extern "C" int glabc_kde_logprob(const float* x, const float* ms,
   if (d <= 4) return launch_kde<4>(a, s);
   if (d <= 8) return launch_kde<8>(a, s);
   if (d <= 16) return launch_kde<16>(a, s);
-  return launch_kde<32>(a, s);
+  if (d <= kKdeWideD) return launch_kde<32>(a, s);
+  return launch_kde_wide(a, s);
 }

@@ -44,6 +44,13 @@
 // The block's size (its warps) comes from the chain count (the wrapper's
 // choice); no result depends on it.
 //
+// D is a compile-time bound on d up to 32, one instantiation each.  Above
+// d = 32 (up to 128) one runtime-d instantiation (D = 0) takes the launch:
+// the winners' thetas and the chunk's start state, which grow with d, move
+// from static to dynamic shared memory ((TC + 1) d 32 floats, 80 KB at
+// d = 128), with TC = 4 steps a chunk; every float operation is the one of
+// the static instantiations, so it is bit for bit the plain version too.
+//
 // Layout: chains are the fastest axis of every array: pool theta
 // (T, B, d, C), pool log w (T, B, C), state (d, C), history (T, d, C).
 // Random numbers: counter (chain0 + chain, step0 + t, block, 0), key (seed low,
@@ -74,14 +81,24 @@ struct PoolArgs {
 };
 
 constexpr int kMaxB = 7;  // candidates a step
+constexpr int kMaxD = 128;
+constexpr int kWideD = 32;  // the largest static instantiation
 
-// Steps a chunk: shared memory for the winners' thetas stays at 16 KB.
+// Steps a chunk: shared memory for the winners' thetas stays at 16 KB
+// (D = 0, the runtime-d variant: 4 steps, the thetas in dynamic memory).
 template <int D>
 __host__ __device__ constexpr int chunk_steps() {
-  return D <= 4 ? 32 : (D <= 8 ? 16 : (D <= 16 ? 8 : 4));
+  return D <= 0 ? 4 : (D <= 4 ? 32 : (D <= 8 ? 16 : (D <= 16 ? 8 : 4)));
 }
 
-// D is a compile-time upper bound on d; loops run to D and test j < d.
+// Dynamic shared memory of the runtime-d variant: s_th and s_carry.
+inline size_t wide_smem(int d) {
+  return static_cast<size_t>(chunk_steps<0>() + 1) * d * 32 * sizeof(float);
+}
+
+// D is a compile-time upper bound on d (0: d itself, above kWideD); the
+// winners' thetas s_th[TC][D][32] and the carried state s_carry[D][32] are
+// static for D > 0 and dynamic for D = 0.
 template <int D, int MaxThreads>
 __global__ void __launch_bounds__(MaxThreads) pool_isir_kernel(PoolArgs a) {
   constexpr int TC = chunk_steps<D>();
@@ -91,8 +108,14 @@ __global__ void __launch_bounds__(MaxThreads) pool_isir_kernel(PoolArgs a) {
   __shared__ signed char s_win[TC][32]; // j* (-1: none); after B, -1 unless
                                         // the chain moved at the step
   __shared__ signed char s_last[TC][32];  // the chunk's last move <= t
-  __shared__ float s_th[TC][D][32];     // the winners' thetas at moves
-  __shared__ float s_carry[D][32];      // the state at the chunk's start
+  __shared__ float s_th_fixed[D > 0 ? TC * D * 32 : 1];
+  __shared__ float s_carry_fixed[D > 0 ? D * 32 : 1];
+  extern __shared__ float s_dyn[];
+  // the winners' thetas at moves, (TC, DW, 32), and the state at the
+  // chunk's start, (DW, 32)
+  const int DW = D > 0 ? D : a.d;
+  float* const s_th = D > 0 ? s_th_fixed : s_dyn;
+  float* const s_carry = D > 0 ? s_carry_fixed : s_dyn + TC * DW * 32;
   const int lane = static_cast<int>(threadIdx.x & 31u);
   const int warp = static_cast<int>(threadIdx.x >> 5);
   const int nw = static_cast<int>(blockDim.x >> 5);
@@ -102,7 +125,7 @@ __global__ void __launch_bounds__(MaxThreads) pool_isir_kernel(PoolArgs a) {
   const size_t C = static_cast<size_t>(a.C);
   const uint32_t chain = a.chain0 + static_cast<uint32_t>(c);
   for (int f = warp; f < d; f += nw)
-    s_carry[f][lane] = valid ? a.theta_in[f * C + c] : 0.0f;
+    s_carry[f * 32 + lane] = valid ? a.theta_in[f * C + c] : 0.0f;
   float logw = (warp == 0 && valid) ? a.logw_in[c] : 0.0f;
   float sel = -1.0f, moved = 0.0f;
   __syncthreads();
@@ -172,7 +195,7 @@ __global__ void __launch_bounds__(MaxThreads) pool_isir_kernel(PoolArgs a) {
         const int r = i / d, f = i - r * d;
         const int j = s_win[r][lane];
         if (j >= 0)
-          s_th[r][f][lane] =
+          s_th[(r * DW + f) * 32 + lane] =
               a.pool_theta[((static_cast<size_t>(t0 + r) * B + j) * d + f) *
                                C + c];
       }
@@ -183,19 +206,21 @@ __global__ void __launch_bounds__(MaxThreads) pool_isir_kernel(PoolArgs a) {
         const int r = i / d, f = i - r * d;
         const int l = s_last[r][lane];
         a.hist[(static_cast<size_t>(t0 + r) * d + f) * C + c] =
-            l >= 0 ? s_th[l][f][lane] : s_carry[f][lane];
+            l >= 0 ? s_th[(l * DW + f) * 32 + lane]
+                   : s_carry[f * 32 + lane];
       }
     }
     __syncthreads();
     if (valid) {
       const int l = s_last[tn - 1][lane];
       for (int f = warp; f < d; f += nw)
-        if (l >= 0) s_carry[f][lane] = s_th[l][f][lane];
+        if (l >= 0) s_carry[f * 32 + lane] = s_th[(l * DW + f) * 32 + lane];
     }
     __syncthreads();
   }
   if (!valid) return;
-  for (int f = warp; f < d; f += nw) a.theta_out[f * C + c] = s_carry[f][lane];
+  for (int f = warp; f < d; f += nw)
+    a.theta_out[f * C + c] = s_carry[f * 32 + lane];
   if (warp == 0) {
     a.logw_out[c] = logw;
     a.sel[c] = sel;
@@ -203,14 +228,25 @@ __global__ void __launch_bounds__(MaxThreads) pool_isir_kernel(PoolArgs a) {
   }
 }
 
+template <int D, int MaxThreads>
+int launch_at(const PoolArgs& a, int threads, cudaStream_t s) {
+  const dim3 grid((a.C + 31) / 32);
+  size_t smem = 0;
+  if (D == 0) {
+    smem = wide_smem(a.d);
+    const cudaError_t e = cudaFuncSetAttribute(
+        pool_isir_kernel<D, MaxThreads>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  pool_isir_kernel<D, MaxThreads><<<grid, threads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch(const PoolArgs& a, int threads, cudaStream_t s) {
-  const dim3 grid((a.C + 31) / 32);
-  if (threads <= 256)
-    pool_isir_kernel<D, 256><<<grid, threads, 0, s>>>(a);
-  else
-    pool_isir_kernel<D, 1024><<<grid, threads, 0, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return threads <= 256 ? launch_at<D, 256>(a, threads, s)
+                        : launch_at<D, 1024>(a, threads, s);
 }
 
 }  // namespace glabc
@@ -224,7 +260,7 @@ extern "C" int glabc_pool_isir(const float* pool_theta, const float* pool_logw,
                                unsigned int chain0, int threads,
                                void* stream) {
   using namespace glabc;
-  if (d < 1 || d > 32 || B < 1 || B > kMaxB || threads < 32 ||
+  if (d < 1 || d > kMaxD || B < 1 || B > kMaxB || threads < 32 ||
       threads > 1024 || threads % 32)
     return -1;
   if (C == 0) return 0;
@@ -239,5 +275,6 @@ extern "C" int glabc_pool_isir(const float* pool_theta, const float* pool_logw,
   if (d <= 4) return launch<4>(a, threads, s);
   if (d <= 8) return launch<8>(a, threads, s);
   if (d <= 16) return launch<16>(a, threads, s);
-  return launch<32>(a, threads, s);
+  if (d <= kWideD) return launch<32>(a, threads, s);
+  return launch<0>(a, threads, s);
 }

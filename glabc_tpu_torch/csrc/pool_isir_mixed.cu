@@ -71,6 +71,19 @@
 // two-pass logsumexp at every step took 18.3 ms, and the MA(2) program's
 // (8,192 x 400) 9.8 ms where it took 26.1 ms (PERF.md).
 //
+// D is a compile-time bound on d up to 32, one instantiation each, the
+// chain's state and its step's pool slice in registers and the mixture in
+// shared memory.  Above d = 32 (up to 128) the built-in move runs one
+// runtime-d kernel, pool_isir_mixed_wide_kernel: the chain's theta, y and
+// local proposal live in thread-local arrays (local memory, the L1's), the
+// pool slice is read where it is used (the winner of the iSIR is carried as
+// its slot and its theta and y copied only at a global move), the
+// mixture's rows are read from global memory (S (d + 1) floats, 528 KB at
+// S = 1,024, d = 128: past what a block's shared memory holds), and the
+// resident logsumexp's theta is broadcast through a warp's slot in shared
+// memory instead of d shuffles.  Every float operation is the static
+// kernels', in their order, so it is bit for bit the plain version too.
+//
 // Random numbers: counter (chain0 + chain, step0 + t, block, 0).  Scalar slots
 // (lane s % 4 of block s / 4): Gumbels 0..B, u_local B+1, u_coin B+2; then
 // blocks S_b + j/2 hold dim j's Box-Muller pair (lanes 2(j%2), 2(j%2)+1),
@@ -484,6 +497,200 @@ pool_isir_mixed_kernel(MixedArgs a) {
   a.lacc[c] = lacc;
 }
 
+constexpr int kMixedMaxD = 128;
+constexpr int kMixedWideD = 32;  // the largest static instantiation
+
+// The built-in move at runtime d (kMixedWideD < d <= kMixedMaxD), one thread
+// a chain as above; the steps' float operations are pool_isir_mixed_kernel's
+// with BuiltinLocal, in its order.
+template <int MaxThreads>
+__global__ void __launch_bounds__(MaxThreads)
+pool_isir_mixed_wide_kernel(MixedArgs a) {
+  extern __shared__ __align__(16) float s_tv[];  // a warp's d, per warp
+  const int d = a.d;
+  const int lane = threadIdx.x & 31;
+  float* const tv = s_tv + (threadIdx.x >> 5) * d;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int c = warp * a.lanes + lane;
+  const bool live = lane < a.lanes && c < a.C;
+  const int cl = live ? c : a.C - 1;        // an inert lane reads chain C - 1
+  const size_t C = static_cast<size_t>(a.C);
+  float th[kMixedMaxD], yv[kMixedMaxD], cth[kMixedMaxD], cy[kMixedMaxD];
+  for (int j = 0; j < d; ++j) {
+    th[j] = a.theta_in[j * C + cl];
+    yv[j] = a.y_in[j * C + cl];
+  }
+  float logk = a.logk_in[cl];
+  float gatt = 0.0f, gacc = 0.0f, lacc = 0.0f;
+  const uint32_t chain = a.chain0 + static_cast<uint32_t>(c);
+  const int n_scalar_blocks = (a.B + 3 + 3) / 4;
+  const int B = a.B;
+  bool dirty = live;       // log q and the prior of theta need computing
+  float logq = 0.0f, lp_theta = 0.0f;
+  auto prior = [&](const float* x) {
+    float s = 0.0f;
+    for (int j = 0; j < d; ++j) {
+      const float z = (x[j] - a.prior_loc) * a.inv_prior_scale;
+      const float per = a.c_prior - 0.5f * (z * z);
+      s = (j == 0) ? per : s + per;
+    }
+    return s;
+  };
+  // the resident mixture's score of component i at the warp's tv
+  auto score = [&](int i) {
+    const float* const mu = a.mu + static_cast<size_t>(i) * d;
+    float dot = 0.0f;
+    for (int f = 0; f < d; ++f) {
+      const float p = __ldg(mu + f) * tv[f];
+      dot = (f == 0) ? p : dot + p;
+    }
+    return dot + __ldg(a.pre + i);
+  };
+
+  for (int t = 0; t < a.T; ++t) {
+    const uint32_t step = a.step0 + static_cast<uint32_t>(t);
+    Scalars sc;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      sc.b[k] = k < n_scalar_blocks
+                    ? philox4x32_10(make_uint4(chain, step,
+                                               static_cast<uint32_t>(k), 0u),
+                                    a.key0, a.key1)
+                    : make_uint4(0u, 0u, 0u, 0u);
+    }
+
+    // ---- 1. resident proposal density and prior at the current state,
+    // for the lanes whose state moved, one lane at a time by the whole warp
+    unsigned need = __ballot_sync(kFullMask, dirty);
+    float lse = 0.0f;
+    while (need) {
+      const int src = __ffs(need) - 1;
+      need &= need - 1;
+      if (lane == src)
+        for (int f = 0; f < d; ++f) tv[f] = th[f];
+      __syncwarp();
+      float m = -1.0e30f;
+      for (int i = lane; i < a.S; i += 32) m = fmaxf(m, score(i));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(kFullMask, m, off));
+      float sum = 0.0f;
+      for (int i = lane; i < a.S; i += 32) sum = sum + expf(score(i) - m);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum = sum + __shfl_xor_sync(kFullMask, sum, off);
+      if (lane == src) lse = logf(sum) + m;
+      __syncwarp();  // every lane is done with tv
+    }
+    if (dirty) {
+      float q2 = 0.0f;
+      for (int f = 0; f < d; ++f) {
+        const float p = (th[f] * th[f]) * __ldg(a.inv2h + f);
+        q2 = (f == 0) ? p : q2 + p;
+      }
+      logq = lse - 0.5f * q2;
+      lp_theta = prior(th);
+    }
+    const float logw_cur = (lp_theta + logk) - logq;
+
+    // ---- 2. global: iSIR over pool slice t; the winner carried as its slot
+    float best = logw_cur + gumbel_from_uniform(sc.u(B));
+    float blogk = logk;
+    int bj = -1;
+    for (int j = 0; j < B; ++j) {
+      const size_t slot = static_cast<size_t>(t) * B + j;
+      const float score_j =
+          a.plogw[slot * C + cl] + gumbel_from_uniform(sc.u(j));
+      if (score_j > best) {
+        best = score_j;
+        blogk = a.plogk[slot * C + cl];
+        bj = j;
+      }
+    }
+
+    // ---- 3. local: random-walk MH (BuiltinLocal::move)
+    uint4 blk = make_uint4(0u, 0u, 0u, 0u);
+    for (int j = 0; j < d; ++j) {
+      if ((j & 1) == 0) {
+        blk = philox4x32_10(
+            make_uint4(chain, step,
+                       static_cast<uint32_t>(n_scalar_blocks + (j >> 1)), 0u),
+            a.key0, a.key1);
+      }
+      const float u1 = uniform_from_bits((j & 1) ? blk.z : blk.x);
+      const float u2 = uniform_from_bits((j & 1) ? blk.w : blk.y);
+      float n1, n2;
+      normal_pair(u1, u2, &n1, &n2);
+      cth[j] = th[j] + a.lp_scale * n1;
+      cy[j] = fabsf(cth[j]) + a.sigma * n2;
+    }
+    float ssq = 0.0f;
+    for (int j = 0; j < d; ++j) {
+      const float diff = cy[j] - __ldg(a.y_obs + j);
+      const float sq = diff * diff;
+      ssq = (j == 0) ? sq : ssq + sq;
+    }
+    const float lkl = a.c_kern - ssq * a.a_kern;
+    const float la_l = ((prior(cth) + lkl) - lp_theta) - logk;
+    const bool l_acc = logf(sc.u(B + 1)) < la_l;
+
+    // ---- 4. coin, update, counters, history
+    const bool is_g = sc.u(B + 2) < a.gf;
+    const bool bmoved = bj >= 0;
+    if (is_g) {
+      if (bmoved) {
+        const size_t slot = static_cast<size_t>(t) * B + bj;
+        for (int f = 0; f < d; ++f) {
+          th[f] = a.ptheta[(slot * d + f) * C + cl];
+          yv[f] = a.px[(slot * d + f) * C + cl];
+        }
+      }
+      logk = blogk;
+    } else if (l_acc) {
+      for (int f = 0; f < d; ++f) {
+        th[f] = cth[f];
+        yv[f] = cy[f];
+      }
+      logk = lkl;
+    }
+    dirty = live && (is_g ? bmoved : l_acc);
+    gatt += is_g ? 1.0f : 0.0f;
+    gacc += (is_g && bmoved) ? 1.0f : 0.0f;
+    lacc += (!is_g && l_acc) ? 1.0f : 0.0f;
+    if (a.collect && live) {
+      float* h = a.hist + static_cast<size_t>(t) * d * C + c;
+      for (int f = 0; f < d; ++f) h[f * C] = th[f];
+    }
+  }
+  if (!live) return;
+  for (int f = 0; f < d; ++f) {
+    a.theta_out[f * C + c] = th[f];
+    a.y_out[f * C + c] = yv[f];
+  }
+  a.logk_out[c] = logk;
+  a.gatt[c] = gatt;
+  a.gacc[c] = gacc;
+  a.lacc[c] = lacc;
+}
+
+template <int MaxThreads>
+int launch_mixed_wide_at(const MixedArgs& a, int threads, cudaStream_t s) {
+  const size_t smem = static_cast<size_t>(threads / 32) * a.d * sizeof(float);
+  const long long warps = (a.C + a.lanes - 1) / a.lanes;
+  const dim3 grid(static_cast<unsigned>((warps * 32 + threads - 1) / threads));
+  pool_isir_mixed_wide_kernel<MaxThreads><<<grid, threads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_mixed_wide(const MixedArgs& a, int threads, cudaStream_t s) {
+  if (threads < 32 || threads > 1024 || threads % 32 || a.lanes < 1 ||
+      a.lanes > 32)
+    return -1;
+  if (a.C == 0) return 0;
+  return threads <= 256 ? launch_mixed_wide_at<256>(a, threads, s)
+                        : launch_mixed_wide_at<1024>(a, threads, s);
+}
+
 template <int D, int YD, class Local, int MaxThreads>
 int launch_mixed_at(const MixedArgs& a, int threads, size_t smem,
                     cudaStream_t s) {
@@ -531,7 +738,7 @@ extern "C" int glabc_pool_isir_mixed(
     float gf, unsigned int key0, unsigned int key1, unsigned int step0,
     unsigned int chain0, int threads, int lanes, void* stream) {
   using namespace glabc;
-  if (d < 1 || d > 32 || B < 1 || B > kMaxB || S < 1) return -1;
+  if (d < 1 || d > kMixedMaxD || B < 1 || B > kMaxB || S < 1) return -1;
   MixedArgs a{mu,        pre,      inv2h,    y_obs,    nullptr,  ptheta,
               px,        plogw,    plogk,    theta_in, y_in,     logk_in,
               theta_out, y_out,    logk_out, gatt,     gacc,     lacc,
@@ -547,7 +754,8 @@ extern "C" int glabc_pool_isir_mixed(
   if (d <= 4) return launch_builtin<4>(a, threads, s);
   if (d <= 8) return launch_builtin<8>(a, threads, s);
   if (d <= 16) return launch_builtin<16>(a, threads, s);
-  return launch_builtin<32>(a, threads, s);
+  if (d <= kMixedWideD) return launch_builtin<32>(a, threads, s);
+  return launch_mixed_wide(a, threads, s);
 }
 
 #ifdef GLABC_PROGRAM

@@ -78,6 +78,10 @@ SOURCES = {
         "glabc_coupling_flow_bf16_max_tiles": [_I, _I],
         "glabc_coupling_flow_bf16_layer_bytes": [_I, _I],
     },
+    "coupling_flow_wide": {
+        "glabc_coupling_flow_wide": [_P] * 4 + [_I] * 8 + [_P],
+        "glabc_coupling_flow_wide_layer_floats": [_I] * 3,
+    },
 }
 
 # sources built per tile program -> the C signatures a program build adds

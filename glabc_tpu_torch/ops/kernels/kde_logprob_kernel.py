@@ -29,6 +29,8 @@ __all__ = ["BatchedMixtureLogProb", "batched_kde_log_prob",
 _LOG_2PI = math.log(2.0 * math.pi)
 # the plain version works this many elements of (chains, N, P) at a time
 _PLAIN_CHUNK = 1 << 27
+_MAX_D = 128         # csrc/kde_logprob.cu: d up to this
+_WIDE_D = 32         # above this the runtime-d variant
 
 
 def kde_logprob_inputs(kdes):
@@ -47,11 +49,14 @@ def kde_logprob_inputs(kdes):
 
 class BatchedMixtureLogProb:
     """``run(x, ms, pre, inv_h2) -> (C, N)``.  ``launches`` counts launches
-    of the CUDA kernel (class-wide) and rises for nothing else.  The plain
+    of the CUDA kernel at d up to 32 and ``wide_launches`` those of its
+    runtime-d variant above, up to 128 (class-wide); each rises for nothing
+    else.  The plain
     version works ``_PLAIN_CHUNK`` elements of ``(chains, N, P)`` at a
     time, so it runs at any chain count."""
 
     launches = 0
+    wide_launches = 0
 
     @staticmethod
     def _check(x, ms, pre, inv_h2):
@@ -107,8 +112,8 @@ class BatchedMixtureLogProb:
         from ._build import load_library
 
         C, N, P, d = x.shape[0], x.shape[1], ms.shape[1], x.shape[2]
-        if d > 32:
-            raise ValueError(f"the CUDA kernel takes d <= 32, got {d}")
+        if d > _MAX_D:
+            raise ValueError(f"the CUDA kernel takes d <= {_MAX_D}, got {d}")
         out = torch.empty((C, N), dtype=torch.float32, device=x.device)
         if C * N == 0:
             return out
@@ -120,7 +125,10 @@ class BatchedMixtureLogProb:
                                        out.data_ptr(), C, N, P, d, stream)
         if rc != 0:
             raise RuntimeError(f"kde_logprob launch failed: CUDA error {rc}")
-        type(self).launches += 1
+        if d > _WIDE_D:
+            type(self).wide_launches += 1
+        else:
+            type(self).launches += 1
         return out
 
 

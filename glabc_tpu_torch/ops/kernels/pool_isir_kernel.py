@@ -12,9 +12,11 @@ selected dataset and kernel value from the same pool.
 Layout (the card's, not the TPU's: chains fastest, nothing padded):
 pool theta ``(T, B, d, C)``, pool log-weights ``(T, B, C)``, state theta
 ``(d, C)``, carried log-weight, ``sel`` and ``moved`` ``(C,)``, history
-``(T, d, C)``.  Random numbers: Philox4x32-10, counter ``(chain, step0 + t,
-block, 0)``, Gumbel slot ``s`` in lane ``s % 4`` of block ``s // 4``: slots
-``0..B-1`` for the candidates, slot ``B`` for the current state.
+``(T, d, C)``.  The kernel takes theta_dim up to 128: above 32 a
+runtime-d variant (its own count, ``wide_launches``).  Random numbers:
+Philox4x32-10, counter ``(chain, step0 + t, block, 0)``, Gumbel slot ``s``
+in lane ``s % 4`` of block ``s // 4``: slots ``0..B-1`` for the
+candidates, slot ``B`` for the current state.
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ from .philox import gumbel, philox4x32, seed_key, uniform_from_bits
 
 __all__ = ["PoolISIR", "pack_pool_theta", "pack_pool_logw", "draw_gumbels",
            "run_plain", "pool_isir_launch"]
+
+_MAX_D = 128         # csrc/pool_isir.cu: theta_dim up to this
+_WIDE_D = 32         # above this the runtime-d variant
 
 
 def pack_pool_theta(theta: torch.Tensor, T: int, B: int) -> torch.Tensor:
@@ -107,13 +112,16 @@ def pool_isir_launch(num_chains: int, num_sms: int) -> int:
 class PoolISIR:
     """Fused iSIR-over-pool transitions, problem-agnostic.
 
-    ``launches`` counts launches of the CUDA kernel (class-wide) and rises
-    for nothing else.  ``block_chains`` is the number of threads per CUDA
-    block (a multiple of 32 up to 1024; None: :func:`pool_isir_launch`'s
-    for the launch's chain count); a block owns 32 chains whatever its
-    size, and the size does not change the results."""
+    ``launches`` counts launches of the CUDA kernel at theta_dim up to 32
+    and ``wide_launches`` those of its runtime-d variant above
+    (class-wide); each rises for nothing else.  ``block_chains`` is the
+    number of threads per CUDA block (a multiple of 32 up to 1024; None:
+    :func:`pool_isir_launch`'s for the launch's chain count); a block owns
+    32 chains whatever its size, and the size does not change the
+    results."""
 
     launches = 0
+    wide_launches = 0
 
     def __init__(self, theta_dim: int, *, batch_size: int = 5,
                  steps_per_call: int = 200, block_chains: int | None = None,
@@ -194,9 +202,9 @@ class PoolISIR:
                 chain0):
         from ._build import load_library
 
-        if self.d > 32:
-            raise ValueError(f"the CUDA kernel takes theta_dim <= 32, got "
-                             f"{self.d}")
+        if self.d > _MAX_D:
+            raise ValueError(f"the CUDA kernel takes theta_dim <= {_MAX_D}, "
+                             f"got {self.d}")
         lib = load_library("pool_isir")
         C = theta.shape[1]
         dev = theta.device
@@ -215,5 +223,8 @@ class PoolISIR:
                 int(step0), int(chain0), self._threads(C, dev), stream)
         if rc != 0:
             raise RuntimeError(f"pool_isir launch failed: CUDA error {rc}")
-        type(self).launches += 1
+        if self.d > _WIDE_D:
+            type(self).wide_launches += 1
+        else:
+            type(self).launches += 1
         return th_o, lw_o, sel, moved, hist

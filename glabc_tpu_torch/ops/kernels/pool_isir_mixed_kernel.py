@@ -48,6 +48,8 @@ __all__ = ["PoolISIRMixed", "ResidentProposal", "default_launch",
 _LOG_2PI = math.log(2.0 * math.pi)
 _NEG = -1.0e30
 _LANES = 32          # the warp the kernel sums a resident density over
+_MAX_D = 128         # csrc/pool_isir_mixed.cu: theta_dim up to this
+_WIDE_D = 32         # above this the built-in move's runtime-d variant
 
 
 class ResidentProposal(NamedTuple):
@@ -295,13 +297,16 @@ class PoolISIRMixed:
     the built-in Mixture local move or a :class:`TileProgram`'s
     (``program=``; then ``y_obs``, ``epsilon``, ``sigma``, ``lp_scale`` and
     ``prior_*`` are the program's and are ignored here).  ``launches``
-    counts launches of the built-in kernel and ``program_launches`` those of
-    a program's (class-wide), each rising for nothing else;
+    counts launches of the built-in kernel at theta_dim up to 32,
+    ``wide_launches`` those of its runtime-d variant above (up to 128) and
+    ``program_launches`` those of a program's (class-wide), each rising for
+    nothing else;
     ``block_chains`` (threads per CUDA block, a multiple of 32 up to 1024;
     None: :func:`default_launch`'s for the launch's chain count) does not
     change the results."""
 
     launches = 0
+    wide_launches = 0
     program_launches = 0
 
     def __init__(self, theta_dim: int, y_obs=None, *, epsilon: float = 0.05,
@@ -420,9 +425,9 @@ class PoolISIRMixed:
                 step0, chain0):
         from ._build import load_library
 
-        if self.d > 32:
-            raise ValueError(f"the CUDA kernel takes theta_dim <= 32, got "
-                             f"{self.d}")
+        if self.d > _MAX_D:
+            raise ValueError(f"the CUDA kernel takes theta_dim <= {_MAX_D}, "
+                             f"got {self.d}")
         if self.program is not None:
             return self._launch_program(seed, res, ptheta, px, plogw, plogk,
                                         theta, y, logk, step0, chain0)
@@ -453,7 +458,10 @@ class PoolISIRMixed:
         if rc != 0:
             raise RuntimeError(f"pool_isir_mixed launch failed: CUDA error "
                                f"{rc}")
-        type(self).launches += 1
+        if self.d > _WIDE_D:
+            type(self).wide_launches += 1
+        else:
+            type(self).launches += 1
         return (th_o, y_o, *outs, hist)
 
     def _launch_program(self, seed, res, ptheta, px, plogw, plogk, theta, y,

@@ -173,12 +173,14 @@ def test_flow_kernel_wrapper_checks():
         flow_pull_fused(f, torch.zeros(10, 2).T)
     with pytest.raises(ValueError, match="no kernel"):
         FlowPush().run(f.to("meta"), torch.zeros(2, 10, device="meta"))
-    # the float32 kernel's widths: multiples of 8 up to 128, checked before
-    # anything is launched (a meta tensor stands in for a CUDA one)
-    for hidden in (136, 12):
+    # the kernels' widths: any hidden up to 512, checked before anything
+    # is launched (a meta tensor stands in for a CUDA one, and the widths
+    # taken reach the launch, which refuses it)
+    for hidden, msg in ((136, "no kernel"), (12, "no kernel"),
+                        (513, "hidden <= 512")):
         fh = CouplingFlow.create(2, 2, hidden).to("meta")
         for cls in (FlowPush, FlowPull):
-            with pytest.raises(ValueError, match="hidden .* 128"):
+            with pytest.raises(ValueError, match=msg):
                 cls().run(fh, torch.zeros(2, 10, device="meta"))
     with pytest.raises(ValueError):
         CouplingFlow.create(1)

@@ -561,16 +561,189 @@ def test_flow_bf16_share_over_every_shape(cuda):
     assert bad32 >= 10 * BF16_SHARE * rows, (bad32, rows)
 
 
-@pytest.mark.parametrize("H", [24, 8, 144])
+@pytest.mark.parametrize("H", [513, 600, 1024])
 def test_flow_bf16_refuses_other_widths(cuda, H):
+    """Past 512 hidden units neither bf16 kernel takes a flow: the launch
+    raises before anything runs."""
     from glabc_tpu_torch.ops.kernels import FlowPush
 
     f, g = _flow_on(cuda, 2, L=2, H=H)
     z = torch.randn((2, 64), generator=g, device=cuda)
-    before = FlowPush.bf16_launches
+    before = (FlowPush.bf16_launches, FlowPush.wide_bf16_launches)
     with pytest.raises(ValueError, match="hidden"):
         FlowPush("bfloat16").run(f, z)
-    assert FlowPush.bf16_launches == before
+    assert (FlowPush.bf16_launches, FlowPush.wide_bf16_launches) == before
+
+
+# ------------------ the shapes past the static kernels (chip_smoke phase 13)
+# K7 and K7-bf16 at (dim, hidden, layers) the weight-resident kernels do not
+# take, or take only through a padded width
+SHAPE_FLOWS = [(2, 100, 4), (2, 8, 4), (20, 128, 4), (33, 256, 4),
+               (64, 512, 2)]
+
+
+@pytest.mark.parametrize("N", [8192, 8209])
+@pytest.mark.parametrize("d,H,L", SHAPE_FLOWS)
+def test_flow_kernels_at_lifted_shapes(cuda, d, H, L, N):
+    """K7 within 3e-6 of the plain float32 flow (chip_smoke's
+    FLOW_SPLIT_TOL), K7-bf16 within BF16_MAX_TOL of the plain bf16 flow, or
+    within 4 times the plain flow's own distance under another order where
+    that is larger (the share over every shape's rows together:
+    ``test_flow_bf16_share_over_lifted_shapes``), push and pull, each launch
+    counted on the variant that takes the shape."""
+    from glabc_tpu_torch.ops.kernels import FlowPull, FlowPush
+    from glabc_tpu_torch.ops.kernels.flow_kernel import kernel_variant
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wide = kernel_variant(d, H) == "wide"
+    f, g = _flow_on(cuda, d, L=L, H=H, seed=1000 * d + H)
+    z = torch.randn((d, N), generator=g, device=cuda)
+    for cls in (FlowPush, FlowPull):
+        attr = "wide_launches" if wide else "launches"
+        before = getattr(cls, attr)
+        got = cls().run(f, z)
+        assert getattr(cls, attr) == before + 1
+        want = cls().plain(f, z)
+        attr = "wide_bf16_launches" if wide else "bf16_launches"
+        before = getattr(cls, attr)
+        got16 = cls("bfloat16").run(f, z)
+        assert getattr(cls, attr) == before + 1
+        want16 = cls("bfloat16").plain(f, z)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(a).all() for a in (*got, *got16))
+        err = max(((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
+                  for a, b in zip(got, want))
+        assert err <= 3e-6, (cls.__name__, err)
+        diff = _row_diff(got16, want16)
+        ctl = _row_diff(_smoke().bf16_order_control(f, z, cls.inverse),
+                        want16)
+        limit = max(BF16_MAX_TOL, 4.0 * ctl.max().item())
+        assert diff.max() <= limit, (cls.__name__, diff.max(), limit)
+
+
+def _smoke():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    return chip_smoke
+
+
+def test_flow_bf16_share_over_lifted_shapes(cuda):
+    """Over the rows of every lifted shape (both row counts, push and
+    pull), the share of rows that differ from the plain bf16 flow by more
+    than BF16_ROW_TOL is at most BF16_SHARE, or twice the share by which
+    the plain flow differs from itself summed in slices of 32
+    (``chip_smoke.bf16_order_control``) where that is larger: at dim 64 x
+    512 units no order meets BF16_SHARE (chip_smoke.py gives the
+    numbers)."""
+    from glabc_tpu_torch.ops.kernels import FlowPull, FlowPush
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = bad = ctl_bad = 0
+    for d, H, L in SHAPE_FLOWS:
+        f, g = _flow_on(cuda, d, L=L, H=H, seed=1000 * d + H)
+        for N in (8192, 8209):
+            z = torch.randn((d, N), generator=g, device=cuda)
+            for cls in (FlowPush, FlowPull):
+                want = cls("bfloat16").plain(f, z)
+                diff = _row_diff(cls("bfloat16").run(f, z), want)
+                ctl = _row_diff(_smoke().bf16_order_control(f, z,
+                                                            cls.inverse),
+                                want)
+                rows += diff.numel()
+                bad += int((diff > BF16_ROW_TOL).sum())
+                ctl_bad += int((ctl > BF16_ROW_TOL).sum())
+    assert bad <= max(BF16_SHARE * rows, 2.0 * ctl_bad), (bad, ctl_bad, rows)
+
+
+@pytest.mark.parametrize("d,H", [(2, 100), (2, 8), (20, 128), (33, 256),
+                                 (64, 512), (18, 1), (3, 200)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flow_fragments_on_integers_at_lifted_shapes(cuda, d, H, dtype):
+    """An integer-valued layer at the lifted shapes: every product and sum
+    is exact, so the log-scale sums equal the plain version's bit for bit
+    wherever the kernel puts every weight in its place."""
+    from glabc_tpu_torch.ops.kernels import FlowPull, FlowPush
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f, z = _integer_flow(cuda, d, H, seed=d * H)
+    for cls in (FlowPush, FlowPull):
+        got = cls(dtype).run(f, z)
+        want = cls(dtype).plain(f, z)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]), cls.__name__
+        assert torch.allclose(got[0], want[0], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("d", [33, 64, 128])
+def test_pool_isir_wide_matches_plain_bitwise(cuda, d):
+    from glabc_tpu_torch.ops.kernels import PoolISIR
+
+    T, B, C = 16, 5, 2000
+    pt, pw, g = _pool_inputs(cuda, T, B, d, C, seed=d)
+    th = torch.randn((d, C), generator=g, device=cuda)
+    lw = torch.randn((C,), generator=g, device=cuda) - 4.0
+    kern = PoolISIR(d, batch_size=B, steps_per_call=T)
+    before = PoolISIR.wide_launches
+    got = kern.run(3, pt, pw, th, lw, step0=7)
+    assert PoolISIR.wide_launches == before + 1
+    want = kern.plain(3, pt, pw, th, lw, step0=7)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [33, 64, 128])
+def test_kde_logprob_wide_matches_plain(cuda, d):
+    from glabc_tpu_torch.models import KernelDensity
+
+    g = torch.Generator(device=cuda).manual_seed(d)
+    C, P = 64, 1000
+    X = torch.randn((C, P, d), generator=g, device=cuda)
+    w = torch.rand((C, P), generator=g, device=cuda)
+    x = torch.randn((C, 700, d), generator=g, device=cuda) * 1.5
+    args = (x, *kde_logprob_inputs(KernelDensity.fit(X, w)))
+    kern = BatchedMixtureLogProb()
+    before = BatchedMixtureLogProb.wide_launches
+    got = kern.run(*args)
+    assert BatchedMixtureLogProb.wide_launches == before + 1
+    want = kern.plain(*args)
+    torch.cuda.synchronize()
+    err = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+    assert torch.isfinite(got).all() and err <= 1e-4, err
+
+
+@pytest.mark.parametrize("d", [33, 64, 128])
+def test_pool_isir_mixed_wide_matches_plain_bitwise(cuda, d):
+    from glabc_tpu_torch.models import KernelDensity
+
+    prob = HighDimMixtureProblem(d)
+    T, B, C = 16, 5, 2000
+    pt, pw, g = _pool_inputs(cuda, T, B, d, C, seed=d + 1)
+    th = torch.randn((d, C), generator=g, device=cuda)
+    px = (pt.abs() + 0.2 * torch.randn(pt.shape, generator=g,
+                                       device=cuda)).contiguous()
+    pk = torch.randn((T, B, C), generator=g, device=cuda) - 1.0
+    res = resident_from_kde(KernelDensity.fit(
+        torch.randn((1024, d), generator=g, device=cuda) * 1.4))
+    y = (th.abs() + 0.2 * torch.randn((d, C), generator=g,
+                                      device=cuda)).contiguous()
+    logk = prob.log_kernel_of_y(y.T.contiguous())
+    kern = PoolISIRMixed(d, prob.y_obs.numpy(), epsilon=prob.epsilon,
+                         sigma=prob._noise_std, global_frequency=0.5,
+                         batch_size=B, steps_per_call=T)
+    a = (res, pt, px, pw, pk, th, y, logk)
+    before = PoolISIRMixed.wide_launches
+    got = kern.run(5, *a, step0=11)
+    assert PoolISIRMixed.wide_launches == before + 1
+    want = kern.plain(5, *a, step0=11)
+    torch.cuda.synchronize()
+    for x, w_ in zip(got, want):
+        assert torch.equal(x, w_)
+    assert 0 < float(got[4].sum()) and 0 < float(got[5].sum())
 
 
 # -------------------- the generic kernels over tile programs (K8, K9, K5)
