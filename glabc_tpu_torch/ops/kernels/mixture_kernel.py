@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ...utils.profiling import annotate
 from .philox import gumbel, normal_pair, philox4x32, seed_key, uniform_from_bits
 
 __all__ = ["FusedMixtureGLMCMC", "FusedStats", "fused_state_init",
@@ -479,14 +480,19 @@ def _initial_chains(problem, generator, theta0, num_chains, y0, dev,
     run of ``total`` chains) and ``y0 (total, d)`` may give."""
     d = problem.theta_dim
     chain0, total = (0, num_chains) if shard is None else shard
-    theta0 = torch.as_tensor(np.asarray(theta0, np.float32).reshape(-1),
-                             device=dev)
+    theta0 = np.asarray(theta0, np.float32).reshape(-1)
+    if y0 is not None:
+        y0 = np.asarray(y0, np.float32)
+    with annotate("glabc.io.h2d",
+                  theta0.nbytes + (0 if y0 is None else y0.nbytes)):
+        theta0 = torch.as_tensor(theta0, device=dev)
+        if y0 is not None:
+            y0 = torch.as_tensor(y0, device=dev)
     th_all = theta0.expand(total, d).contiguous()
     if y0 is None:
         y_all = problem.simulate(th_all, generator)
     else:
-        y_all = torch.as_tensor(np.asarray(y0, np.float32),
-                                device=dev).reshape(-1, problem.y_dim)
+        y_all = y0.reshape(-1, problem.y_dim)
         if y_all.shape[0] == 1:
             y_all = y_all.expand(total, problem.y_dim)
         if y_all.shape[0] != total:

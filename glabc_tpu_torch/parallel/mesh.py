@@ -24,6 +24,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import annotate
+
 __all__ = ["CHAIN_AXIS", "initialize_distributed", "make_mesh",
            "shard_chains", "chain_range", "check_mesh", "gather_chains"]
 
@@ -133,5 +135,6 @@ def gather_chains(x: torch.Tensor, mesh) -> torch.Tensor:
     _, world, group = check_mesh(mesh)
     x = x.contiguous()
     out = x.new_empty((world * x.shape[0], *x.shape[1:]))
-    dist.all_gather_into_tensor(out, x, group=group)
+    with annotate("glabc.mesh.gather", out.numel() * out.element_size()):
+        dist.all_gather_into_tensor(out, x, group=group)
     return out

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import annotate
 from .mesh import check_mesh, gather_chains
 
 __all__ = ["rank_generator", "distributed_quantile",
@@ -52,7 +53,8 @@ def rank_generator(generator: torch.Generator, mesh) -> torch.Generator:
 def _all_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     _, _, group = check_mesh(mesh)
     x = x.clone()
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    with annotate("glabc.mesh.all_sum", x.numel() * x.element_size()):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
 
 
@@ -130,37 +132,35 @@ def make_sharded_shared_epoch(problem, cfg, shared_support: int, mesh,
     Returns ``epoch(generator, pools_local, hat_eps) -> (pools_local, kde,
     hat_eps)``, the signature of the one-device epoch."""
     from ..models.kde import KernelDensity
-    from ..samplers.aglmcmc import (Pool, _pool_from_proposals, _redraw,
-                                    _training_log_w)
+    from ..samplers.aglmcmc import _redraw_chunks, _training_log_w
 
     anneal = sharded_hat_eps_update(cfg.alpha, cfg.hat_eps_T, mesh)
 
     def epoch(generator, pools, hat_eps):
         C, P = pools.dis.shape
-        hat_eps = anneal(pools.dis, hat_eps)
-        w = torch.exp(_training_log_w(problem, pools, hat_eps)
-                      .to(torch.float64))
-        w = torch.where(torch.isnan(w), torch.zeros_like(w), w)
-        idx = distributed_systematic_resample(w, shared_support, mesh,
-                                              generator, replicated=True)
-        n_local = C * P
-        mine = (idx // n_local) == check_mesh(mesh)[0]
-        loc = torch.where(mine, idx % n_local, torch.zeros_like(idx))
-        rows = pools.theta[loc // P, loc % P]
-        support = _all_sum(torch.where(mine[:, None], rows,
-                                       torch.zeros_like(rows)), mesh)
-        kde = KernelDensity.fit(support, None, bandwidth="silverman")
-        gen = rank_generator(generator, mesh)
         chunk = redraw_chunk if (redraw_chunk and redraw_chunk < C) else C
         if C % chunk:
             raise ValueError(f"chains a rank ({C}) must be divisible by "
                              f"redraw_chunk={redraw_chunk}")
-        parts = []
-        for _ in range(0, C, chunk):
-            new_theta = _redraw(problem, cfg, gen, kde, P, batch=(chunk,))
-            parts.append(_pool_from_proposals(problem, gen, new_theta,
-                                              kde.log_prob(new_theta)))
-        return Pool.cat(parts), kde, hat_eps
+        with annotate("glabc.epoch"):
+            with annotate("glabc.epoch.anneal"):
+                hat_eps = anneal(pools.dis, hat_eps)
+            with annotate("glabc.epoch.support"):
+                w = torch.exp(_training_log_w(problem, pools, hat_eps)
+                              .to(torch.float64))
+                w = torch.where(torch.isnan(w), torch.zeros_like(w), w)
+                idx = distributed_systematic_resample(
+                    w, shared_support, mesh, generator, replicated=True)
+                n_local = C * P
+                mine = (idx // n_local) == check_mesh(mesh)[0]
+                loc = torch.where(mine, idx % n_local, torch.zeros_like(idx))
+                rows = pools.theta[loc // P, loc % P]
+                support = _all_sum(torch.where(mine[:, None], rows,
+                                               torch.zeros_like(rows)), mesh)
+                kde = KernelDensity.fit(support, None, bandwidth="silverman")
+                gen = rank_generator(generator, mesh)
+            pools = _redraw_chunks(problem, cfg, gen, kde, C, P, chunk)
+        return pools, kde, hat_eps
 
     return epoch
 

@@ -1,4 +1,5 @@
-"""Checkpoint/resume for the fused-kernel and adaptive samplers.
+"""Checkpoint/resume for the fused-kernel and adaptive samplers, and their
+copies to the host.
 
 Port of ``glabc_tpu/samplers/_fused_io.py``.  The loop state is the kernel's
 state tensors plus host counters (fused loop), or any mapping of names to
@@ -19,12 +20,20 @@ import numpy as np
 import torch
 
 from ..utils.io import carry_path, load_carry, save_carry
+from ..utils.profiling import annotate
 
-__all__ = ["save_fused_ckpt", "restore_fused_ckpt", "save_epoch_ckpt",
-           "restore_epoch_ckpt"]
+__all__ = ["to_host", "save_fused_ckpt", "restore_fused_ckpt",
+           "save_epoch_ckpt", "restore_epoch_ckpt"]
 
 _STATE = ("theta", "y", "logk")
 _COUNTERS = ("g_att", "g_acc", "l_acc")
+
+
+def to_host(x: torch.Tensor) -> np.ndarray:
+    """``x`` as a numpy array on the host; the copy is a ``glabc.io.d2h``
+    span that counts its bytes."""
+    with annotate("glabc.io.d2h", x.numel() * x.element_size()):
+        return x.cpu().numpy()
 
 
 def save_fused_ckpt(path, state, counters, steps_run, call_idx, seed, done,

@@ -43,6 +43,7 @@ from ..ops.kernels.kde_logprob_kernel import batched_kde_log_prob
 from ..ops.resampling import (categorical_from_log_weights,
                               stable_partition_take, systematic_resample)
 from ..utils.io import carry_path
+from ..utils.profiling import annotate
 from ._fused_io import restore_epoch_ckpt, save_epoch_ckpt
 from ._shard import ChainShard
 from .base import MoveCounts, SamplerResult, _select, local_rw_move
@@ -263,22 +264,41 @@ def _shared_epoch_update(problem, cfg: AGLMCMCConfig, shared_support: int,
     resampled from the training weights of all pools, and per-chain pools
     drawn from it in chunks of ``redraw_chunk`` chains (the density of a
     chunk's draws is a ``(chunk P, shared_support)`` matrix).  Returns
-    ``(pools, kde (unbatched), hat_eps ())``."""
+    ``(pools, kde (unbatched), hat_eps ())``; a ``glabc.epoch`` span
+    around the spans of its phases (:func:`_redraw_chunks`)."""
     C, P = pools.dis.shape
-    hat_eps = _anneal(pools.dis.reshape(-1), hat_eps, cfg)
-    support = _shared_support(problem, pools, hat_eps, shared_support,
-                              generator)
-    kde = KernelDensity.fit(support, None, bandwidth="silverman")
     chunk = redraw_chunk if (redraw_chunk and redraw_chunk < C) else C
     if C % chunk:
         raise ValueError(f"num_chains={C} must be divisible by "
                          f"redraw_chunk={redraw_chunk}")
+    with annotate("glabc.epoch"):
+        with annotate("glabc.epoch.anneal"):
+            hat_eps = _anneal(pools.dis.reshape(-1), hat_eps, cfg)
+        with annotate("glabc.epoch.support"):
+            support = _shared_support(problem, pools, hat_eps,
+                                      shared_support, generator)
+            kde = KernelDensity.fit(support, None, bandwidth="silverman")
+        pools = _redraw_chunks(problem, cfg, generator, kde, C, P, chunk)
+    return pools, kde, hat_eps
+
+
+def _redraw_chunks(problem, cfg: AGLMCMCConfig, generator,
+                  kde: KernelDensity, num_chains: int, pool_rows: int,
+                  chunk: int) -> Pool:
+    """The shared epoch's new pools, ``chunk`` chains at a time: the KDE
+    draws (``glabc.epoch.redraw``), their density (``glabc.epoch.density``)
+    and the simulated, weighted pool rows (``glabc.epoch.pool``)."""
     parts = []
-    for _ in range(0, C, chunk):
-        new_theta = _redraw(problem, cfg, generator, kde, P, batch=(chunk,))
-        parts.append(_pool_from_proposals(problem, generator, new_theta,
-                                          kde.log_prob(new_theta)))
-    return Pool.cat(parts), kde, hat_eps
+    for _ in range(0, num_chains, chunk):
+        with annotate("glabc.epoch.redraw"):
+            new_theta = _redraw(problem, cfg, generator, kde, pool_rows,
+                                batch=(chunk,))
+        with annotate("glabc.epoch.density"):
+            log_q = kde.log_prob(new_theta)
+        with annotate("glabc.epoch.pool"):
+            parts.append(_pool_from_proposals(problem, generator, new_theta,
+                                              log_q))
+    return Pool.cat(parts)
 
 
 def make_shared_epoch_fn(problem, cfg: AGLMCMCConfig, shared_support: int,

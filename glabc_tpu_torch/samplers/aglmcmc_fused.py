@@ -51,8 +51,9 @@ from ..ops.kernels.pool_isir_mixed_kernel import (PoolISIRMixed,
                                                   resident_from_gaussian,
                                                   resident_from_kde)
 from ..utils.io import carry_path
+from ..utils.profiling import annotate
 from . import aglmcmc as _agl
-from ._fused_io import restore_epoch_ckpt, save_epoch_ckpt
+from ._fused_io import restore_epoch_ckpt, save_epoch_ckpt, to_host
 from ._shard import ChainShard
 from .aglmcmc import AGLCarry, AGLMCMCConfig, AGLResult, Pool
 from .base import MoveCounts
@@ -93,7 +94,8 @@ class _AsyncBlocks:
             dev = self._gather(dev)
         if dev.is_cuda:
             host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
-            host.copy_(dev, non_blocking=True)
+            with annotate("glabc.io.d2h", dev.numel() * dev.element_size()):
+                host.copy_(dev, non_blocking=True)
             self._event = torch.cuda.Event()
             self._event.record()
         else:
@@ -133,7 +135,7 @@ def _history(hist, take, done, on_segment, async_blocks, blocks,
         block = hist[:take].permute(2, 0, 1)
         if gather is not None:
             block = gather(block.contiguous())
-        block = block.cpu().numpy()
+        block = to_host(block)
         on_segment(block, done)
         blocks.append(block)
     else:
@@ -364,6 +366,7 @@ def run_aglmcmc_fused(problem, generator, num_ite, theta0,
         fused_state=(theta_k, y_cur, logk, logw_k))
 
 
+@annotate("glabc.run.aglmcmc_fused_mixed")
 def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
                             initial_isir_proposal, *,
                             global_frequency: float, batch_size: int = 5,
@@ -470,7 +473,7 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
     if restored is None:
         th_c, y_c, logk_k = _initial_chains(problem, generator, theta0,
                                             shard.total, y0, dev)
-        theta_init_row = th_c.cpu().numpy()[:, None, :]
+        theta_init_row = to_host(th_c)[:, None, :]
         theta_k, y_k = (shard.keep(x.T, dim=1) for x in (th_c, y_c))
         logk_k = shard.keep(logk_k)
         gen = shard.local_generator(generator)
@@ -497,8 +500,8 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
                                int(arrays["seed"]))
         theta_init_row = None
         pending_epoch = True
-    resident = (resident_from_gaussian(ip.loc.cpu().numpy(),
-                                       np.exp(ip.log_scale.cpu().numpy()),
+    resident = (resident_from_gaussian(to_host(ip.loc),
+                                       np.exp(to_host(ip.log_scale)),
                                        device=dev)
                 if kde is None else resident_from_kde(kde))
     packed = pack(pools)
@@ -512,10 +515,11 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
             # the run's generator, alike on every rank: the sharded epoch
             # draws each rank's redraw generator from it
             pools, kde, hat_eps = epoch_fn(generator, pools, hat_eps)
-            hat_eps_hist.append(hat_eps.cpu().numpy())
+            hat_eps_hist.append(to_host(hat_eps))
             ep += 1
-            packed = pack(pools)
-            resident = resident_from_kde(kde)
+            with annotate("glabc.epoch.pool"):
+                packed = pack(pools)
+                resident = resident_from_kde(kde)
             pending_epoch = False
         take = min(seg_len, total - done)
         theta_k, y_k, logk_k, gatt, gacc, lacc, hist = kern.run(
@@ -548,8 +552,8 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
     thetas = _finish_history(theta_init_row, blocks, async_blocks,
                              on_segment, collect_history, shard.total, d,
                              hist_dt)
-    g_att, g_acc, l_acc = (np.rint(shard.gather(c).cpu().numpy())
-                           .astype(np.int32) for c in counters)
+    g_att, g_acc, l_acc = (np.rint(to_host(shard.gather(c))).astype(np.int32)
+                           for c in counters)
     counts = MoveCounts(global_attempts=g_att, global_accepts=g_acc,
                         local_attempts=(steps_run - g_att).astype(np.int32),
                         local_accepts=l_acc)
@@ -558,6 +562,6 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
                      gen, counts)
     return AGLResult(
         thetas=thetas, counts=counts, final_carry=carry, kde=kde,
-        hat_eps=hat_eps.cpu().numpy(),
+        hat_eps=to_host(hat_eps),
         hat_eps_hist=np.asarray(hat_eps_hist) if hat_eps_hist else None,
         fused_state=(theta_k, y_k, logk_k))

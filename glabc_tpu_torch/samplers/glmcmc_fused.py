@@ -27,7 +27,8 @@ import torch
 from .._device import check_generator, resolve_device
 from ..ops.kernels.mixture_kernel import FusedMixtureGLMCMC, fused_state_init
 from ..ops.kernels.packed_kernel import PackedMixtureGLMCMC, packed_state_init
-from ._fused_io import restore_fused_ckpt, save_fused_ckpt
+from ..utils.profiling import annotate
+from ._fused_io import restore_fused_ckpt, save_fused_ckpt, to_host
 from ._shard import ChainShard
 from .base import MoveCounts, SamplerResult
 
@@ -36,6 +37,7 @@ __all__ = ["run_glmcmc_fused", "run_global_mcmc_fused"]
 _SUB = 8
 
 
+@annotate("glabc.run.glmcmc_fused")
 def run_glmcmc_fused(problem, generator, num_ite, theta0, *, y0=None,
                      ip_loc=0.0, ip_scale=1.0, lp_scale=0.35, prior_loc=0.0,
                      prior_scale=1.0, global_frequency=0.9, batch_size=5,
@@ -138,7 +140,7 @@ def run_glmcmc_fused(problem, generator, num_ite, theta0, *, y0=None,
             return hist[:, :d, :].permute(2, 0, 1)
 
     def host_block(hist):   # every rank's chains, on the host
-        return shard.gather(hist_block(hist).contiguous()).cpu().numpy()
+        return to_host(shard.gather(hist_block(hist).contiguous()))
 
     if restored is not None:
         (state, counters, steps_run, call_idx, seed, done) = restored
@@ -178,7 +180,7 @@ def run_glmcmc_fused(problem, generator, num_ite, theta0, *, y0=None,
 
     thetas = (np.concatenate(blocks, axis=1) if blocks
               else host_block(theta[None]))
-    g_att, g_acc, l_acc = (shard.gather(c).cpu().numpy()
+    g_att, g_acc, l_acc = (to_host(shard.gather(c))
                            for c in (g_att, g_acc, l_acc))
     g_att_i = np.rint(g_att).astype(np.int32)
     counts = MoveCounts(
