@@ -35,7 +35,8 @@ Phases, each reported on its own lines:
    segments of 200 and 9 per-chain epochs; K3 and K4), held to the
    posterior, annealing and acceptance bands and to the port's plain path
    on the card; at gf=0.5 (16,384 chains, 4,001 iterations, segments of
-   400, shared 1,024-point KDE; K5), held to the coin share, the posterior
+   400, shared 1,024-point KDE; K5, and K4 for each redraw chunk's
+   density), held to the coin share, the posterior
    and the plain path's annealed threshold and acceptance rates.  Each run's wall time is split
    into kernel, epoch and host copy of the history;
 7. GLMALA through ``MCMCRunner.run_glmala``: ``method='fused'`` (K6) with
@@ -85,7 +86,8 @@ Phases, each reported on its own lines:
    it (each chain's first, and those after a move), with the share of
    such chain-steps and lanes per warp-step; K4 also at the shape of the
    gf=0.5 run's shared-epoch density (32,768,000 points, 1,024
-   components) beside ``KernelDensity.log_prob`` as the epoch calls it.
+   components) in one launch, beside ``KernelDensity.log_prob`` in the
+   epoch's chunks of 512 chains (what the epoch computed before K4).
    Phase 2 prints K1's and K4's static SASS split by instruction class,
    and K8's and K7-bf16's registers as ptxas reports them;
 11. sharded (``mesh=``, run after phase 9 and before phase 10): every
@@ -793,6 +795,15 @@ def counted(fn):
         setattr(cls, attr, 0)
     out = fn()
     return out, {k: getattr(cls, attr) for k, (cls, attr) in counters.items()}
+
+
+def shared_k4(chains, steps, chunk=512, seg=400):
+    """K4's launches in a shared-adaptation run of ``steps`` transitions in
+    segments of ``seg``: one a redraw chunk of ``chunk`` chains (one chunk
+    when ``chunk`` is 0 or not below ``chains``) in each epoch, one epoch
+    between two segments."""
+    epochs = -(-steps // seg) - 1
+    return epochs * (chains // chunk if 0 < chunk < chains else 1)
 
 
 def only(**want):
@@ -1627,7 +1638,8 @@ def phase_aglmcmc(tmp):
     secs_m, (mixed, ch_m), inst_m = path(
         "run_aglmcmc_gf05", lambda: mixed_run(
             tmp, 2, "fused", MIXED_CHAINS, "aglmcmc_gf05.csv"),
-        only(pool_isir_mixed=steps // 400))
+        only(pool_isir_mixed=steps // 400,
+             kde_logprob=shared_k4(MIXED_CHAINS, steps)))
     _csv(mixed, "aglmcmc_gf05.csv", ch_m)
     rm = mixed.last_result
     c = rm.counts
@@ -1649,7 +1661,8 @@ def phase_aglmcmc(tmp):
 
     secs_ms, (scan_m, ch_ms), _ = path(
         "run_aglmcmc_gf05_scan", lambda: mixed_run(
-            tmp, 3, "scan", MIXED_SCAN_CHAINS), only())
+            tmp, 3, "scan", MIXED_SCAN_CHAINS),
+        only(kde_logprob=shared_k4(MIXED_SCAN_CHAINS, steps)))
     eps_s, g_s, l_s = mixed_stats(scan_m.last_result)
     a_ms = _absmean(ch_ms, 800)
     # bands around the plain path's rates, set from their spread over seeds
@@ -2569,10 +2582,10 @@ def agl_kernel_rows(insts, paths, wide=False):
 def k4_shared_epoch_line():
     """K4 at the shape of the AGLMCMC gf=0.5 run's shared-epoch density:
     one KDE of 1,024 support points (d = 2) over MIXED_CHAINS x 2,000 pool
-    points as one chain (C = 1), beside ``KernelDensity.log_prob`` as the
-    epoch calls it (chunks of 512 chains' points): both times and their
-    largest relative difference.  The epoch does not take K4 (the JAX
-    package computes this density with XLA, not Pallas)."""
+    points as one chain (C = 1), beside ``KernelDensity.log_prob`` in
+    chunks of 512 chains' points, as the epoch computed it before it took
+    K4 (it now makes one K4 launch a redraw chunk): both times and their
+    largest relative difference."""
     import torch
     from glabc_tpu_torch.models import KernelDensity
     from glabc_tpu_torch.ops.kernels import (BatchedMixtureLogProb,
@@ -3089,7 +3102,8 @@ def phase_generic(tmp):
     secs, (runner, ch), inst = path(
         "run_aglmcmc_prog", lambda: agl_prog_run(
             tmp, 0, "fused", AGL_PROG_CHAINS, "aglmcmc_prog.csv"),
-        only(pool_isir_mixed_prog=steps // 400))
+        only(pool_isir_mixed_prog=steps // 400,
+             kde_logprob=shared_k4(AGL_PROG_CHAINS, steps)))
     _csv(runner, "aglmcmc_prog.csv", ch)
     check(bool(np.isfinite(ch).all()) and _inside(ch[:, 1:]),
           "MA(2) AGLMCMC: a state outside the triangle")
@@ -3102,7 +3116,8 @@ def phase_generic(tmp):
     del ch
     secs_s, (scan, _), _ = path(
         "run_aglmcmc_prog_scan", lambda: agl_prog_run(
-            tmp, 1, "scan", AGL_PROG_SCAN_CHAINS), only())
+            tmp, 1, "scan", AGL_PROG_SCAN_CHAINS),
+        only(kde_logprob=shared_k4(AGL_PROG_SCAN_CHAINS, steps)))
     eps_s, g_s, l_s = mixed_stats(scan.last_result)
     log(f"[prog] MA(2) AGLMCMC gf=0.5: coin share {share:.5f}; final "
         f"hat_eps fused {eps_f:.4f} / plain {eps_s:.4f} (limit +- "
@@ -4038,7 +4053,10 @@ def shape_entry_runs(tmp):
     run("shapes_aglmcmc_gf05", lambda: (mixed, mixed.run_aglmcmc(
         SHAPE_AGL_ITERS, np.zeros(d), None, 0.5, lp, ip, 5, 200, 0.8, 0.2,
         output_file=None, method="fused", shared_support=1024)),
-        only(pool_isir_mixed_wide=launches), d, SHAPE_AGL_CHAINS,
+        only(pool_isir_mixed_wide=launches,
+             kde_logprob_wide=shared_k4(SHAPE_AGL_CHAINS,
+                                        SHAPE_AGL_ITERS - 1)),
+        d, SHAPE_AGL_CHAINS,
         SHAPE_AGL_ITERS, ["pool_isir_mixed"])
     c = mixed.last_result.counts
     share = float(c.global_attempts.sum()) / (SHAPE_AGL_CHAINS

@@ -4,7 +4,10 @@ kernel's wrapper and its plain torch version.
 Port of ``glabc_tpu/ops/pallas/kde_logprob_kernel.py``
 (``BatchedMixtureLogProb``, K4, and ``batched_kde_log_prob``); the kernel is
 ``csrc/kde_logprob.cu``.  The AGLMCMC adaptation epoch evaluates each
-chain's redrawn pool (N points) under that chain's own KDE (P components):
+chain's redrawn pool (N points) under that chain's own KDE (P components),
+and the shared epoch its redrawn pools under the shared KDE as one chain
+(C = 1, N = a redraw chunk's chains x pool rows, P = the support) up to
+d = 128:
 
     log q_c(x) = logsumexp_i(pre[c,i] + sum_f ms[c,i,f] x_f)
                  - 0.5 sum_f x_f^2 inv_h2[c,f]
@@ -53,7 +56,8 @@ class BatchedMixtureLogProb:
     runtime-d variant above, up to 128 (class-wide); each rises for nothing
     else.  The plain
     version works ``_PLAIN_CHUNK`` elements of ``(chains, N, P)`` at a
-    time, so it runs at any chain count."""
+    time, in blocks of chains and of points, so it runs at any chain and
+    point count."""
 
     launches = 0
     wide_launches = 0
@@ -95,17 +99,20 @@ class BatchedMixtureLogProb:
         terms in the same order, a two-pass logsumexp."""
         C, N, P, d = self._check(x, ms, pre, inv_h2)
         out = torch.empty((C, N), dtype=torch.float32, device=x.device)
-        step = max(1, _PLAIN_CHUNK // max(1, N * P))
+        rows = max(1, min(N, _PLAIN_CHUNK // P))        # points a block
+        step = max(1, _PLAIN_CHUNK // max(1, rows * P))  # chains a block
         for c0 in range(0, C, step):
-            xs, sl = x[c0:c0 + step], slice(c0, c0 + step)
-            lw = pre[sl, None, :].expand(-1, N, P)
-            for f in range(d):
-                lw = lw + xs[:, :, f:f + 1] * ms[sl, None, :, f]
-            q2 = None
-            for f in range(d):
-                term = (xs[:, :, f] * xs[:, :, f]) * inv_h2[sl, f:f + 1]
-                q2 = term if q2 is None else q2 + term
-            out[sl] = torch.logsumexp(lw, dim=-1) - 0.5 * q2
+            sl = slice(c0, c0 + step)
+            for n0 in range(0, N, rows):
+                xs, sn = x[sl, n0:n0 + rows], slice(n0, n0 + rows)
+                lw = pre[sl, None, :].expand(-1, xs.shape[1], P)
+                for f in range(d):
+                    lw = lw + xs[:, :, f:f + 1] * ms[sl, None, :, f]
+                q2 = None
+                for f in range(d):
+                    term = (xs[:, :, f] * xs[:, :, f]) * inv_h2[sl, f:f + 1]
+                    q2 = term if q2 is None else q2 + term
+                out[sl, sn] = torch.logsumexp(lw, dim=-1) - 0.5 * q2
         return out
 
     def _launch(self, x, ms, pre, inv_h2) -> torch.Tensor:

@@ -21,10 +21,12 @@ Every function steps all chains at once as batched tensors (``(C, P, d)``
 pools) where the JAX package vmaps.  Randomness comes from one
 ``torch.Generator``.  The quantile is ``sort`` + linear interpolation at
 ``q (n - 1)`` (``jnp.quantile``'s default): ``torch.quantile`` rejects more
-than 2^24 values and a per-chain ``q``.  The redrawn pool's per-chain
-density is the K4 kernel (:func:`batched_kde_log_prob`; its plain version
-for CPU tensors).  The JAX epoch's ``logprob_backend`` choice is not carried
-over.
+than 2^24 values and a per-chain ``q``.  The redrawn pools' density is the
+K4 kernel (:func:`batched_kde_log_prob`; its plain version for CPU
+tensors): per chain under each chain's KDE, and in the shared epoch under
+the shared KDE taken as one chain (C = 1) whose points are a redraw chunk's
+draws, up to K4's widest ``d`` (128; ``KernelDensity.log_prob`` above).
+The JAX epoch's ``logprob_backend`` choice is not carried over.
 """
 
 from __future__ import annotations
@@ -39,7 +41,10 @@ import torch
 
 from .._device import check_generator, resolve_device
 from ..models.kde import KernelDensity
-from ..ops.kernels.kde_logprob_kernel import batched_kde_log_prob
+from ..ops.kernels.kde_logprob_kernel import (_MAX_D as _K4_MAX_D,
+                                              BatchedMixtureLogProb,
+                                              batched_kde_log_prob,
+                                              kde_logprob_inputs)
 from ..ops.resampling import (categorical_from_log_weights,
                               stable_partition_take, systematic_resample)
 from ..utils.io import carry_path
@@ -263,7 +268,7 @@ def _shared_epoch_update(problem, cfg: AGLMCMCConfig, shared_support: int,
     discrepancies, one KDE on ``shared_support`` points systematically
     resampled from the training weights of all pools, and per-chain pools
     drawn from it in chunks of ``redraw_chunk`` chains (the density of a
-    chunk's draws is a ``(chunk P, shared_support)`` matrix).  Returns
+    chunk's draws is one K4 launch over ``chunk P`` points).  Returns
     ``(pools, kde (unbatched), hat_eps ())``; a ``glabc.epoch`` span
     around the spans of its phases (:func:`_redraw_chunks`)."""
     C, P = pools.dis.shape
@@ -282,19 +287,39 @@ def _shared_epoch_update(problem, cfg: AGLMCMCConfig, shared_support: int,
     return pools, kde, hat_eps
 
 
+def _shared_density(kde: KernelDensity):
+    """``log_q(x (..., d)) -> (...)`` under the shared (unbatched) KDE: K4
+    with the KDE as one chain (C = 1) and ``x``'s rows as its points, the
+    kernel's inputs built once; above K4's widest ``d``,
+    ``KernelDensity.log_prob``."""
+    if kde.dim > _K4_MAX_D:
+        return kde.log_prob
+    args = kde_logprob_inputs(KernelDensity(
+        kde.X[None], kde.weights[None], kde.bandwidth[None]))
+    kern = BatchedMixtureLogProb()
+
+    def log_q(x):
+        pts = x.reshape(1, -1, kde.dim).contiguous()
+        return kern.run(pts, *args).reshape(x.shape[:-1])
+
+    return log_q
+
+
 def _redraw_chunks(problem, cfg: AGLMCMCConfig, generator,
                   kde: KernelDensity, num_chains: int, pool_rows: int,
                   chunk: int) -> Pool:
     """The shared epoch's new pools, ``chunk`` chains at a time: the KDE
-    draws (``glabc.epoch.redraw``), their density (``glabc.epoch.density``)
-    and the simulated, weighted pool rows (``glabc.epoch.pool``)."""
+    draws (``glabc.epoch.redraw``), their density (``glabc.epoch.density``,
+    one K4 launch a chunk) and the simulated, weighted pool rows
+    (``glabc.epoch.pool``)."""
+    density = _shared_density(kde)
     parts = []
     for _ in range(0, num_chains, chunk):
         with annotate("glabc.epoch.redraw"):
             new_theta = _redraw(problem, cfg, generator, kde, pool_rows,
                                 batch=(chunk,))
         with annotate("glabc.epoch.density"):
-            log_q = kde.log_prob(new_theta)
+            log_q = density(new_theta)
         with annotate("glabc.epoch.pool"):
             parts.append(_pool_from_proposals(problem, generator, new_theta,
                                               log_q))

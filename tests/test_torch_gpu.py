@@ -1298,3 +1298,33 @@ def test_flow_forward_t_and_log_prob_t_through_k7(cuda, d, N):
     assert rel(log_q, log_q_ref) <= 1e-4
     assert rel(lq, lq_ref) <= 1e-4
     assert rel(lq, log_q) <= 1e-4      # the round trip
+
+
+@pytest.mark.parametrize("d,attr", [(2, "launches"), (40, "wide_launches")])
+def test_shared_epoch_density_through_k4(cuda, d, attr):
+    """One shared epoch at 1,024 chains and ``redraw_chunk`` 256 launches
+    K4 once a chunk (4 launches; the runtime-d variant at d = 40), and its
+    pools' ``log_q`` is within 1e-4 max(1, |log q|) of K4's plain version
+    on the same draws."""
+    from glabc_tpu_torch import DiagGaussian
+    from glabc_tpu_torch.models.kde import KernelDensity
+    from glabc_tpu_torch.samplers import aglmcmc as agl
+
+    prob = _problem(d)
+    cfg = agl.AGLMCMCConfig(0.5, 5, 200, 0.8, 0.2, 4, 0, 0)
+    g = torch.Generator(device=cuda).manual_seed(19)
+    pools = agl._init_pools(prob, g, DiagGaussian.create(d, device=cuda),
+                            1024, 1000)
+    before = getattr(BatchedMixtureLogProb, attr)
+    new, kde, _ = agl._shared_epoch_update(
+        prob, cfg, 1024, g, pools, torch.tensor(1e6, device=cuda),
+        redraw_chunk=256)
+    assert getattr(BatchedMixtureLogProb, attr) == before + 4
+    args = kde_logprob_inputs(KernelDensity(
+        kde.X[None], kde.weights[None], kde.bandwidth[None]))
+    want = BatchedMixtureLogProb().plain(
+        new.theta.reshape(1, -1, d).contiguous(), *args).reshape(1024, -1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(new.log_q).all()
+    assert ((new.log_q - want).abs() / want.abs().clamp_min(1.0)).max() \
+        <= 1e-4
