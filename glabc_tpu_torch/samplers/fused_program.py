@@ -35,7 +35,8 @@ from ..ops.kernels.generic_kernel import GenericFusedGLMCMC
 from ..ops.kernels.mixture_kernel import _initial_chains
 from ..ops.kernels.program import TileProgram
 from ..utils.io import carry_path
-from ._fused_io import restore_epoch_ckpt, save_epoch_ckpt
+from ..utils.profiling import annotate
+from ._fused_io import restore_epoch_ckpt, save_epoch_ckpt, to_host
 from ._shard import ChainShard
 from .aglmcmc_fused import _AsyncBlocks, _finish_history, _history, _seed
 from .base import MoveCounts, SamplerResult
@@ -112,25 +113,41 @@ def _loop(kern, run, state, counters, steps_run, done, call_idx, total,
 
 def _result(theta_init_row, blocks, async_blocks, on_segment,
             collect_history, shard, d, counters, steps_run, carry):
-    thetas = _finish_history(theta_init_row, blocks, async_blocks,
-                             on_segment, collect_history, shard.total, d,
-                             None)
-    g_att, g_acc, l_acc = (np.rint(shard.gather(c).cpu().numpy())
-                           .astype(np.int32) for c in counters)
+    """The run's result: the history (from ``theta_init_row``, None on
+    a resume) when it is collected, else every chain's final state ``(C,
+    1, d)``; the counters and the final states come to the host through
+    ``to_host``."""
+    if collect_history:
+        thetas = _finish_history(theta_init_row, blocks, async_blocks,
+                                 on_segment, True, shard.total, d, None)
+    else:
+        thetas = to_host(shard.gather(carry[0].T.contiguous()))[:, None, :]
+    g_att, g_acc, l_acc = (np.rint(to_host(shard.gather(c))).astype(np.int32)
+                           for c in counters)
     counts = MoveCounts(global_attempts=g_att, global_accepts=g_acc,
                         local_attempts=(steps_run - g_att).astype(np.int32),
                         local_accepts=l_acc)
     return SamplerResult(thetas=thetas, counts=counts, final_carry=carry)
 
 
-def _init_state(problem, generator, theta0, shard, y0, dev):
+def _initial_row(theta, collect_history):
+    """The history's first row of every chain, ``(C, 1, d)`` on the host,
+    when the history is collected (else None: no copy)."""
+    if not collect_history:
+        return None
+    return to_host(theta.T.contiguous())[:, None, :]
+
+
+def _init_state(problem, generator, theta0, shard, y0, dev,
+                collect_history):
     """Every chain's initial state (the generator moves as on one
     device), the rank's own kept: ``(theta, y, logk)`` in the kernels'
-    layout and the history's first row of every chain."""
+    layout and, when the history is collected, its first row of every
+    chain."""
     theta, y, logk = program_state_init(problem, generator, theta0,
                                         shard.total, y0, dev)
-    row = theta.T.cpu().numpy()[:, None, :]
-    return (shard.keep(theta, 1), shard.keep(y, 1), shard.keep(logk)), row
+    return ((shard.keep(theta, 1), shard.keep(y, 1), shard.keep(logk)),
+            _initial_row(theta, collect_history))
 
 
 def _restore(checkpoint_path, resume, meta):
@@ -153,6 +170,7 @@ def _saver(checkpoint_path, names, seed, T, meta):
     return save
 
 
+@annotate("glabc.run.fused_program")
 def run_fused_program(problem, program: TileProgram, generator, num_ite,
                       theta0, *, y0=None, global_frequency=0.9, batch_size=5,
                       num_chains: int = 1024, steps_per_call: int = 256,
@@ -165,9 +183,13 @@ def run_fused_program(problem, program: TileProgram, generator, num_ite,
     tile program through the generic fused kernel.  ``problem`` supplies
     the initial simulation and kernel value; ``program`` is its lowering
     (e.g. ``problem.tile_program()``).  Chains have length ``num_ite`` with
-    the initial state at index 0.  ``checkpoint_path``/``resume``: the loop
-    state is saved after every whole launch; a resume continues bitwise and
-    returns the history after the resume point.  ``mesh``: a 1-D
+    the initial state at index 0; at ``collect_history=False``, ``thetas``
+    is every chain's final state, ``(C, 1, d)``, as in
+    :func:`~glabc_tpu_torch.samplers.glmcmc_fused.run_glmcmc_fused`.  The
+    call is a ``glabc.run.fused_program`` span, its host copies
+    ``glabc.io.*`` spans with their bytes.  ``checkpoint_path``/``resume``:
+    the loop state is saved after every whole launch; a resume continues
+    bitwise and returns the history after the resume point.  ``mesh``: a 1-D
     ``DeviceMesh``; every rank calls with the same arguments and generator
     seed, ``num_chains`` divides by its size, every rank returns the whole
     result and checkpoints its own chains."""
@@ -187,7 +209,7 @@ def run_fused_program(problem, program: TileProgram, generator, num_ite,
     restored = _restore(checkpoint_path, resume, meta)
     if restored is None:
         state, theta_init_row = _init_state(problem, generator, theta0,
-                                            shard, y0, dev)
+                                            shard, y0, dev, collect_history)
         seed = _seed(seed, generator)
         counters = [torch.zeros(C, dtype=torch.float64, device=dev)
                     for _ in range(3)]
@@ -218,6 +240,7 @@ def run_fused_program(problem, program: TileProgram, generator, num_ite,
                    collect_history, shard, d, counters, steps_run, state)
 
 
+@annotate("glabc.run.glmala_program")
 def run_glmala_program(problem, program: TileProgram, generator, num_ite,
                        theta0, *, y0=None, global_frequency=0.8,
                        batch_size=5, tau=0.3, num_grad: int = 100,
@@ -231,7 +254,8 @@ def run_glmala_program(problem, program: TileProgram, generator, num_ite,
     """GLMALA on a tile program through the generic fused kernel (the
     program's ``discrepancy`` and ``prior_grad`` feed the CRN
     synthetic-likelihood gradient).  The call contract of
-    :func:`run_fused_program`; ``coin_mode`` as in
+    :func:`run_fused_program` (its ``thetas`` at ``collect_history=False``
+    too), as a ``glabc.run.glmala_program`` span; ``coin_mode`` as in
     :func:`~glabc_tpu_torch.samplers.glmala_fused.run_glmala_fused`
     (``'shared'`` skips the gradient batch on global steps; its coins come
     from a host numpy stream seeded with the kernel seed, ``steps_per_call``
@@ -260,7 +284,7 @@ def run_glmala_program(problem, program: TileProgram, generator, num_ite,
                                             shard.total, y0, dev)
         grad = program_grad_init(problem, generator, theta, num_grad,
                                  fd_step)
-        theta_init_row = theta.T.cpu().numpy()[:, None, :]
+        theta_init_row = _initial_row(theta, collect_history)
         state = (shard.keep(theta, 1), shard.keep(y, 1), shard.keep(logk),
                  shard.keep(grad, 1))
         seed = _seed(seed, generator)
