@@ -35,8 +35,8 @@ Phases, each reported on its own lines:
    segments of 200 and 9 per-chain epochs; K3 and K4), held to the
    posterior, annealing and acceptance bands and to the port's plain path
    on the card; at gf=0.5 (16,384 chains, 4,001 iterations, segments of
-   400, shared 1,024-point KDE; K5, and K4 for each redraw chunk's
-   density), held to the coin share, the posterior
+   400, shared 1,024-point KDE; K5, and K10 and K4 for each redraw
+   chunk's pool rows and density), held to the coin share, the posterior
    and the plain path's annealed threshold and acceptance rates.  Each run's wall time is split
    into kernel, epoch and host copy of the history;
 7. GLMALA through ``MCMCRunner.run_glmala``: ``method='fused'`` (K6) with
@@ -113,7 +113,8 @@ Phases, each reported on its own lines:
    ``ma2.py`` at their JAX defaults (the plain path: no launch), then
    through their kernels (``mixture.py --method fused`` at 2,048 x 1,025:
    K1 4 launches and the posterior band; ``ma2.py --method fused``: K8 8
-   launches; ``ma2.py --method aglmcmc``: K5's program variant only).
+   launches; ``ma2.py --method aglmcmc``: K5's program variant, and K4
+   for the shared epoch's density).
 
 13. shapes (run after phase 12 and before phase 11): the kernels past
    the static shapes against their plain versions: K7 and K7-bf16, push
@@ -391,6 +392,38 @@ def bound_ms(bytes_moved, ops, sfu=0):
     t_ops = max(ops / OPS_PER_S, sfu / SFU_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def redraw_bytes(u, z, noise, inputs):
+    """The bytes K10 needs for a launch on these inputs: per chain, u and z
+    of each candidate up to its P-th valid one (all M when fewer are
+    valid, and then those up to the invalid one that fills the last row),
+    its noise, and its P rows written (theta, x, dis, prior + log K); the
+    CDF, support, bandwidth and y_obs once."""
+    import torch
+
+    (C, M), (P, d) = u.shape, noise.shape[1:]
+    cdf, X, bw = inputs.cdf, inputs.X, inputs.bw
+    k = torch.searchsorted(cdf, u * cdf[-1:], right=True).clamp_(
+        max=cdf.shape[0] - 1)
+    cand = X[k] + z * bw
+    ok = (inputs.prior0 - 0.5 * torch.sum(cand * cand, dim=-1)
+          > inputs.cutoff)
+
+    def upto(flags, count):
+        """Candidates read until ``count`` flags are seen (all if fewer)."""
+        seen = torch.cumsum(flags.to(torch.int64), dim=1)
+        first = torch.argmax((seen >= count[:, None]).to(torch.int32), dim=1)
+        return torch.where(seen[:, -1] >= count, first + 1,
+                           torch.full_like(first, M))
+
+    n_ok = ok.sum(dim=1)
+    full = torch.full_like(n_ok, P)
+    read = upto(ok, full) + torch.where(n_ok < P, upto(~ok, P - n_ok),
+                                        torch.zeros_like(n_ok))
+    per_cand = 4 * (1 + d)
+    return (int(read.sum()) * per_cand + nbytes(noise)
+            + C * P * (2 * d + 2) * 4 + nbytes(cdf, X, bw, inputs.y_obs))
 
 
 def pool_isir_ops(d, B):
@@ -756,16 +789,18 @@ def _wrappers():
                                              GenericFusedGLMALA,
                                              GenericFusedGLMCMC,
                                              PackedMixtureGLMCMC, PoolISIR,
-                                             PoolISIRMixed)
+                                             PoolISIRMixed, SharedRedraw)
 
     out = {"packed": PackedMixtureGLMCMC, "unpacked": FusedMixtureGLMCMC,
            "pool_isir": PoolISIR, "kde_logprob": BatchedMixtureLogProb,
            "pool_isir_mixed": PoolISIRMixed, "glmala": FusedMixtureGLMALA,
            "flow_push": FlowPush, "flow_pull": FlowPull,
            "generic_glmcmc": GenericFusedGLMCMC,
-           "generic_glmala": GenericFusedGLMALA}
+           "generic_glmala": GenericFusedGLMALA,
+           "shared_redraw": SharedRedraw}
     out = {k: (cls, "launches") for k, cls in out.items()}
     out["pool_isir_mixed_prog"] = (PoolISIRMixed, "program_launches")
+    out["kde_logprob_pool"] = (BatchedMixtureLogProb, "pool_launches")
     out["flow_push_bf16"] = (FlowPush, "bf16_launches")
     out["flow_pull_bf16"] = (FlowPull, "bf16_launches")
     # the variants past the static shapes (phase 13)
@@ -779,11 +814,13 @@ def _wrappers():
     return out
 
 
-def _launch_key(key, kern):
+def _launch_key(key, kern, kwargs):
     """The count a wrapper's launch goes to (the mixed kernel's program
-    variant has its own)."""
+    variant and K4 with the shared epoch's pool epilogue have their own)."""
     if key == "pool_isir_mixed" and kern.program is not None:
         return "pool_isir_mixed_prog"
+    if key == "kde_logprob" and kwargs.get("log_w") is not None:
+        return "kde_logprob_pool"
     return key
 
 
@@ -801,7 +838,9 @@ def shared_k4(chains, steps, chunk=512, seg=400):
     """K4's launches in a shared-adaptation run of ``steps`` transitions in
     segments of ``seg``: one a redraw chunk of ``chunk`` chains (one chunk
     when ``chunk`` is 0 or not below ``chains``) in each epoch, one epoch
-    between two segments."""
+    between two segments.  On the Mixture family these launches carry the
+    pool epilogue (``kde_logprob_pool=``) and K10 launches as often
+    (``shared_redraw=``); elsewhere K10 does not launch."""
     epochs = -(-steps // seg) - 1
     return epochs * (chains // chunk if 0 < chunk < chains else 1)
 
@@ -1381,7 +1420,7 @@ class Instrument:
                 continue
 
             def run(kern, *a, _orig=cls.run, _key=key, **k):
-                _key = _launch_key(_key, kern)
+                _key = _launch_key(_key, kern, k)
                 score = self.prefer.get(_key)
                 s = None if score is None else score(kern, a, k)
                 if s is None or s >= self._score.get(_key, s):
@@ -1418,11 +1457,12 @@ class Instrument:
         return False
 
     def split(self, secs, names=None):
-        """The wall time as the kernels' card time (K4 runs inside the
-        epochs, so it is not counted apart), epochs, training, history
-        copies and the rest."""
+        """The wall time as the kernels' card time (K4 and K10 run inside
+        the epochs, so they are not counted apart), epochs, training,
+        history copies and the rest."""
         parts, shown = [], 0.0
-        for key in (names or [k for k in self.events if k != "kde_logprob"]):
+        inside = ("kde_logprob", "kde_logprob_pool", "shared_redraw")
+        for key in (names or [k for k in self.events if k not in inside]):
             k = self.kernel_ms(key) / 1e3
             shown += k
             parts.append(f"{key} {k:.3f} s ({len(self.events.get(key, []))})")
@@ -1639,7 +1679,8 @@ def phase_aglmcmc(tmp):
         "run_aglmcmc_gf05", lambda: mixed_run(
             tmp, 2, "fused", MIXED_CHAINS, "aglmcmc_gf05.csv"),
         only(pool_isir_mixed=steps // 400,
-             kde_logprob=shared_k4(MIXED_CHAINS, steps)))
+             kde_logprob_pool=shared_k4(MIXED_CHAINS, steps),
+             shared_redraw=shared_k4(MIXED_CHAINS, steps)))
     _csv(mixed, "aglmcmc_gf05.csv", ch_m)
     rm = mixed.last_result
     c = rm.counts
@@ -1662,7 +1703,8 @@ def phase_aglmcmc(tmp):
     secs_ms, (scan_m, ch_ms), _ = path(
         "run_aglmcmc_gf05_scan", lambda: mixed_run(
             tmp, 3, "scan", MIXED_SCAN_CHAINS),
-        only(kde_logprob=shared_k4(MIXED_SCAN_CHAINS, steps)))
+        only(kde_logprob_pool=shared_k4(MIXED_SCAN_CHAINS, steps),
+             shared_redraw=shared_k4(MIXED_SCAN_CHAINS, steps)))
     eps_s, g_s, l_s = mixed_stats(scan_m.last_result)
     a_ms = _absmean(ch_ms, 800)
     # bands around the plain path's rates, set from their spread over seeds
@@ -2576,7 +2618,112 @@ def agl_kernel_rows(insts, paths, wide=False):
         "pool_isir_mixed" + sfx, "glabc_tpu_torch/csrc/pool_isir_mixed.cu",
         "glabc_tpu/ops/pallas/pool_isir_mixed_kernel.py:190",
         "pool_isir_mixed" + sfx, paths, gf05, max_abs, ms, plain_ms, b))
+    if not wide:
+        rows.append(shared_redraw_row(insts, paths, gf05))
+        rows.append(kde_logprob_pool_row(insts, paths, gf05))
     return rows
+
+
+def shared_redraw_row(insts, paths, main_path):
+    """K10 at the main path's shape (the gf=0.5 run's last redraw chunk:
+    512 chains x P = 2,000 rows from M = 8,000 candidates, d = 2): time per
+    launch, the plain version's time, theta and x bitwise, dis and prior +
+    log K within 1e-6 max(1, |v|), and the bytes bound of
+    :func:`redraw_bytes`."""
+    kern, a, _ = insts[main_path].last["shared_redraw"]
+    wrapper_ms = median_ms(lambda: kern.run(*a))
+    ms = redraw_device_ms(a)
+    got = kern.run(*a)
+    plain_ms, want = timed(lambda: kern.plain(*a), 1)
+    same = all(_bitwise(g, w)[0] for g, w in zip(got[:2], want[:2]))
+    err = max(float(((g - w).abs() / w.abs().clamp_min(1.0)).max())
+              for g, w in zip(got[2:], want[2:]))
+    max_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(same and err <= 1e-6, f"shared_redraw at the main shape: theta "
+          f"and x bitwise {same}, dis and prior + log K within {err:.3g}")
+    u, z, noise, _ = a
+    (C, M), (P, d) = u.shape, noise.shape[1:]
+    moved = redraw_bytes(*a)
+    b = bound_ms(moved, 0)
+    log(f"[K10] shared_redraw at the main shape, {C:,} chains x P={P} rows "
+        f"from M={M} candidates, d={d}: theta and x bitwise {same}, dis and "
+        f"prior + log K within {err:.3g}; kernel {ms:.4f} ms of device "
+        f"time (a process of its own; {wrapper_ms:.4f} ms a call through "
+        f"the wrapper, whose host time it hides), plain {plain_ms:.1f} ms; "
+        f"{moved / 1e6:.3f} MB -> "
+        f"bound {b[0]:.4f} ms "
+        f"({b[1]}); launches {paths[main_path]['shared_redraw']} "
+        f"(shared_k4 {shared_k4(MIXED_CHAINS, MIXED_ITERS - 1)})")
+    return _agl_row(
+        "shared_redraw", "glabc_tpu_torch/csrc/shared_redraw.cu",
+        "none (the shared epoch's redraw, glabc_tpu/samplers/aglmcmc.py "
+        "_redraw and _pool_from_proposals, fused by XLA)", "shared_redraw",
+        paths, main_path, max_abs, ms, plain_ms, b)
+
+
+def kde_logprob_pool_row(insts, paths, main_path):
+    """K4 with the shared epoch's pool epilogue at the main path's shape
+    (the gf=0.5 run's last redraw chunk: its 512 x 2,000 rows under the
+    1,024-point KDE, d = 2), on copies of that call's rows and log-weights
+    with NaNs put into two rows: time per launch, log q within KDE_TOL of
+    the plain version's (NaN where it is), log w likewise (-inf where it
+    is) and the rows bitwise (NaN rows zeroed), and the bound of K4's work
+    with the epilogue's bytes (log w read and written, the NaN rows'
+    zeros)."""
+    import torch
+
+    kern, a, k = insts[main_path].last["kde_logprob_pool"]
+    x0, rest, lw0 = a[0].clone(), a[1:], k["log_w"].clone()
+    x0[0, 0, 0] = float("nan")
+    x0[0, 7] = float("nan")
+
+    def fresh():
+        return x0.clone(), torch.empty_like(k["out"]), lw0.clone()
+
+    bufs = fresh()
+    ms = median_ms(lambda: kern.run(bufs[0], *rest, out=bufs[1],
+                                    log_w=bufs[2]))
+    got, want = fresh(), fresh()
+    kern.run(got[0], *rest, out=got[1], log_w=got[2])
+    plain_ms, _ = timed(lambda: kern.plain(want[0], *rest, out=want[1],
+                                           log_w=want[2]), 1)
+    x_same = _bitwise([got[0]], [want[0]])[0]
+    zeroed = int(torch.isnan(x0).any(dim=-1).sum())
+    x_same &= zeroed == 2 and not bool(torch.isnan(got[0]).any())
+    errs, max_abs = [], 0.0
+    for g, w in zip(got[1:], want[1:]):
+        fin = torch.isfinite(w)
+        same = bool(torch.equal(fin, torch.isfinite(g))
+                    and torch.equal(torch.isnan(g), torch.isnan(w))
+                    and torch.equal(g[~fin & ~torch.isnan(w)],
+                                    w[~fin & ~torch.isnan(w)]))
+        diff = (g[fin] - w[fin]).abs()
+        errs.append(float((diff / w[fin].abs().clamp_min(1.0)).max())
+                    if same else math.inf)
+        max_abs = max(max_abs, float(diff.max()))
+    neg_inf = int(torch.isneginf(got[2]).sum())
+    check(x_same and max(errs) <= KDE_TOL and neg_inf >= 2,
+          f"kde_logprob_pool at the main shape: rows bitwise {x_same}, log q "
+          f"within {errs[0]:.3g}, log w within {errs[1]:.3g} (limit "
+          f"{KDE_TOL}), {neg_inf} log w at -inf")
+    C, N, d = x0.shape
+    P = rest[0].shape[1]
+    work = C * N * P
+    moved = nbytes(x0, *rest, got[1]) + 2 * nbytes(lw0) + zeroed * d * 4
+    b = bound_ms(moved, work * kde_ops(d), work)
+    log(f"[K4-pool] kde_logprob_pool at the main shape, {N:,} points x "
+        f"P={P} components, d={d}, {zeroed} NaN rows put in: log q within "
+        f"{errs[0]:.3g}, log w within {errs[1]:.3g} ({neg_inf} at -inf), "
+        f"rows bitwise {x_same}; kernel {ms:.4f} ms, plain {plain_ms:.1f} "
+        f"ms; {moved / 1e9:.4f} GB, {work * kde_ops(d):.4g} operations and "
+        f"{work:.4g} exponentials -> bound {b[0]:.4f} ms ({b[1]}); launches "
+        f"{paths[main_path]['kde_logprob_pool']} (shared_k4 "
+        f"{shared_k4(MIXED_CHAINS, MIXED_ITERS - 1)})")
+    return _agl_row(
+        "kde_logprob_pool", "glabc_tpu_torch/csrc/kde_logprob.cu",
+        "glabc_tpu/ops/pallas/kde_logprob_kernel.py:106, with the log-weights "
+        "of glabc_tpu/samplers/aglmcmc.py _pool_from_proposals",
+        "kde_logprob_pool", paths, main_path, max_abs, ms, plain_ms, b)
 
 
 def k4_shared_epoch_line():
@@ -2630,6 +2777,69 @@ def median_ms(fn):
     call, in ms per call."""
     fn()
     return sorted(timed(fn, 3)[0] for _ in range(3))[1]
+
+
+def device_ms(fn, kernel, reps=10):
+    """The device time of the kernel whose name holds ``kernel`` over
+    ``reps`` calls of ``fn`` (``torch.profiler``), in ms per call: for a
+    kernel shorter than its wrapper's host time, which a window of calls
+    timed by events measures instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+             if kernel in e.key)
+    check(us > 0, f"the profiler saw no {kernel} on the device")
+    return us / reps / 1e3
+
+
+def _redraw_device_child(path):
+    """K10's device time (:func:`device_ms`) on the arguments saved at
+    ``path``, in a process of its own: in the long smoke process
+    ``torch.profiler`` drops kernel events in some runs (see
+    :func:`_trace_child`).  Writes ``<path>.json``."""
+    import torch
+    from glabc_tpu_torch.ops.kernels.shared_redraw_kernel import (
+        RedrawInputs, SharedRedraw)
+
+    saved = torch.load(path)
+    u, z, noise = saved["u"], saved["z"], saved["noise"]
+    inputs = RedrawInputs(*saved["inputs"])
+    kern = SharedRedraw()
+    ms = device_ms(lambda: kern.run(u, z, noise, inputs),
+                   "shared_redraw_kernel")
+    with open(path + ".json", "w", encoding="utf-8") as f:
+        json.dump({"ms": ms}, f)
+
+
+def redraw_device_ms(args):
+    """K10's device time a launch on ``args`` (its last call's ``u, z,
+    noise, inputs``), read by :func:`_redraw_device_child` in a spawned
+    process."""
+    import torch
+
+    u, z, noise, inputs = args
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "k10.pt")
+        torch.save({"u": u, "z": z, "noise": noise,
+                    "inputs": list(inputs)}, path)
+        ctx = __import__("multiprocessing").get_context("spawn")
+        child = ctx.Process(target=_redraw_device_child, args=(path,))
+        child.start()
+        child.join(300)
+        if child.is_alive():
+            child.kill()
+            die("the K10 timing child did not finish in 300 s")
+        check(child.exitcode == 0,
+              f"the K10 timing child exited {child.exitcode}")
+        with open(path + ".json", encoding="utf-8") as f:
+            return json.load(f)["ms"]
 
 
 def divergence(tag, make, launch, share_g, ms):
@@ -3755,10 +3965,12 @@ def phase_m13(tmp, card):
         paths[f"m13_{key}"] = counts
         log(f"[m13] example {label}: wall {secs:.2f} s, launches "
             f"{ {k: v for k, v in counts.items() if v} }")
-        if want is None:   # the mixed kernel's program variant only
-            check(counts["pool_isir_mixed_prog"] > 0 and sum(
-                counts.values()) == counts["pool_isir_mixed_prog"],
-                f"{label}: launches {counts}")
+        if want is None:   # the mixed kernel's program variant, and K4
+            # for the shared epoch's density (MA(2) keeps the generic
+            # redraw, so no K10 and no pool epilogue)
+            used = {k for k, v in counts.items() if v}
+            check(used == {"pool_isir_mixed_prog", "kde_logprob"},
+                  f"{label}: launches {counts}")
         else:
             check(counts == want, f"{label}: launches {counts}, expected "
                   f"{want}")
@@ -4054,8 +4266,10 @@ def shape_entry_runs(tmp):
         SHAPE_AGL_ITERS, np.zeros(d), None, 0.5, lp, ip, 5, 200, 0.8, 0.2,
         output_file=None, method="fused", shared_support=1024)),
         only(pool_isir_mixed_wide=launches,
-             kde_logprob_wide=shared_k4(SHAPE_AGL_CHAINS,
-                                        SHAPE_AGL_ITERS - 1)),
+             kde_logprob_pool=shared_k4(SHAPE_AGL_CHAINS,
+                                        SHAPE_AGL_ITERS - 1),
+             shared_redraw=shared_k4(SHAPE_AGL_CHAINS,
+                                     SHAPE_AGL_ITERS - 1)),
         d, SHAPE_AGL_CHAINS,
         SHAPE_AGL_ITERS, ["pool_isir_mixed"])
     c = mixed.last_result.counts

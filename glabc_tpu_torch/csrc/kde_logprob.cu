@@ -66,6 +66,16 @@
 // read 1.4e-3 max(1, |log q|) from the plain version on the AGLMCMC d = 40
 // epoch's densities, against the limit 1e-4.
 // At d > 32 a term is over 33 multiply-adds, so the FP32 lanes bound it.
+//
+// The shared AGLMCMC epoch's pool epilogue (glabc_kde_logprob_pool: its own
+// instantiation, kde_logprob_pool_kernel, up to d = 32, a runtime branch of
+// the wide kernel above; C = 1, the points a redraw chunk's rows as K10
+// drew them, csrc/shared_redraw.cu):
+// log_w holds prior + log K on entry and (prior + log K) - log q on exit, a
+// NaN as -inf; each point's row of x that holds a NaN is set to 0 after the
+// point is read (the pool's theta).  A point is read by one block alone, and
+// every read of the block's points precedes its first barrier, so the
+// writes race with no read.  Per point 8 bytes more, beside C N P terms.
 
 #include <cuda_runtime.h>
 
@@ -91,8 +101,21 @@ struct KdeArgs {
   const float* pre;     // (C, P)
   const float* inv_h2;  // (C, d)
   float* out;           // (C, N)
+  float* log_w;         // (C, N) the pool epilogue's weights, or null
+  float* pool_x;        // x itself, written by the pool epilogue
   int C, N, P, d, rows, tiles_n;
 };
+
+// The pool epilogue of point o (log q lq), whose row holds a NaN when
+// nan_row.
+__device__ __forceinline__ void pool_epilogue(const KdeArgs& a, size_t o,
+                                              float lq, bool nan_row) {
+  const float lw = a.log_w[o] - lq;
+  a.log_w[o] = isnan(lw) ? -INFINITY : lw;
+  if (nan_row) {
+    for (int f = 0; f < a.d; ++f) a.pool_x[o * a.d + f] = 0.0f;
+  }
+}
 
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;
@@ -100,9 +123,12 @@ __device__ __forceinline__ float ex2_approx(float x) {
   return y;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kKdeThreads)
-kde_logprob_kernel(KdeArgs a) {
+// The static kernels' body; kPool: with the pool epilogue, compiled into
+// its own entry point so that the plain kernel keeps its registers (the
+// epilogue cost kde_logprob_kernel<2> a spill and 1.2 % at the per-chain
+// epoch's shape on an H100).
+template <int D, bool kPool>
+__device__ __forceinline__ void kde_logprob_body(const KdeArgs& a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int W = kde_row(D);
   constexpr int kTile = kKdeR * kKdeThreads;
@@ -197,9 +223,28 @@ kde_logprob_kernel(KdeArgs a) {
                       a.inv_h2[static_cast<size_t>(c) * d + f];
       }
     }
-    a.out[static_cast<size_t>(c) * a.N + n] =
-        (m[r] * kLn2 + logf(s[r])) - 0.5f * q2;
+    const size_t o = static_cast<size_t>(c) * a.N + n;
+    const float lq = (m[r] * kLn2 + logf(s[r])) - 0.5f * q2;
+    a.out[o] = lq;
+    if constexpr (kPool) {
+      bool nan_row = false;
+#pragma unroll
+      for (int f = 0; f < D; ++f) nan_row = nan_row || isnan(xv[r][f]);
+      pool_epilogue(a, o, lq, nan_row);
+    }
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kKdeThreads)
+kde_logprob_kernel(KdeArgs a) {
+  kde_logprob_body<D, false>(a);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kKdeThreads)
+kde_logprob_pool_kernel(KdeArgs a) {
+  kde_logprob_body<D, true>(a);
 }
 
 constexpr int kKdeMaxD = 128;
@@ -279,11 +324,16 @@ kde_logprob_wide_kernel(KdeArgs a) {
   }
   if (n >= a.N) return;
   float q2 = 0.0f;
+  bool nan_row = false;
   for (int f = 0; f < d; ++f) {
     const float xf = xs[f * kKdeThreads + threadIdx.x];
     q2 = q2 + (xf * xf) * a.inv_h2[static_cast<size_t>(c) * d + f];
+    nan_row = nan_row || isnan(xf);
   }
-  a.out[static_cast<size_t>(c) * a.N + n] = (m + logf(s)) - 0.5f * q2;
+  const size_t o = static_cast<size_t>(c) * a.N + n;
+  const float lq = (m + logf(s)) - 0.5f * q2;
+  a.out[o] = lq;
+  if (a.log_w != nullptr) pool_epilogue(a, o, lq, nan_row);
 }
 
 int launch_kde_wide(KdeArgs a, cudaStream_t s) {
@@ -312,20 +362,25 @@ int launch_kde(KdeArgs a, cudaStream_t s) {
   a.tiles_n = (a.N + tile - 1) / tile;
   const dim3 grid(static_cast<unsigned>(a.C) * a.tiles_n);
   const size_t smem = static_cast<size_t>(a.rows) * W * sizeof(float);
-  kde_logprob_kernel<D><<<grid, kKdeThreads, smem, s>>>(a);
+  if (a.log_w != nullptr) {
+    kde_logprob_pool_kernel<D><<<grid, kKdeThreads, smem, s>>>(a);
+  } else {
+    kde_logprob_kernel<D><<<grid, kKdeThreads, smem, s>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace glabc
 
-extern "C" int glabc_kde_logprob(const float* x, const float* ms,
-                                 const float* pre, const float* inv_h2,
-                                 float* out, int C, int N, int P, int d,
-                                 void* stream) {
+namespace {
+
+int kde_logprob(float* x, const float* ms, const float* pre,
+                const float* inv_h2, float* out, float* log_w, int C, int N,
+                int P, int d, void* stream) {
   using namespace glabc;
   if (d < 1 || d > kKdeMaxD || P < 1) return -1;
   if (C == 0 || N == 0) return 0;
-  KdeArgs a{x, ms, pre, inv_h2, out, C, N, P, d, 0, 0};
+  KdeArgs a{x, ms, pre, inv_h2, out, log_w, x, C, N, P, d, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 1) return launch_kde<1>(a, s);
   if (d <= 2) return launch_kde<2>(a, s);
@@ -335,4 +390,24 @@ extern "C" int glabc_kde_logprob(const float* x, const float* ms,
   if (d <= 16) return launch_kde<16>(a, s);
   if (d <= kKdeWideD) return launch_kde<32>(a, s);
   return launch_kde_wide(a, s);
+}
+
+}  // namespace
+
+extern "C" int glabc_kde_logprob(const float* x, const float* ms,
+                                 const float* pre, const float* inv_h2,
+                                 float* out, int C, int N, int P, int d,
+                                 void* stream) {
+  // x is only read: the pool epilogue, which writes it, is off
+  return kde_logprob(const_cast<float*>(x), ms, pre, inv_h2, out, nullptr, C,
+                     N, P, d, stream);
+}
+
+// K4 with the shared epoch's pool epilogue: log_w (C, N) in place, x's rows
+// that hold a NaN set to 0
+extern "C" int glabc_kde_logprob_pool(float* x, const float* ms,
+                                      const float* pre, const float* inv_h2,
+                                      float* out, float* log_w, int C, int N,
+                                      int P, int d, void* stream) {
+  return kde_logprob(x, ms, pre, inv_h2, out, log_w, C, N, P, d, stream);
 }

@@ -72,6 +72,12 @@ class ABCProblem:
         """kernel_log_prob(discrepancy(y)), reference ``calculate_log_kernel``."""
         return self.kernel_log_prob(self.discrepancy(y), epsilon)
 
+    def shared_redraw_inputs(self, kde, cutoff: float, nan_dis: float):
+        """The shared AGLMCMC epoch's K10 constants for this problem and
+        ``kde`` (``ops/kernels/shared_redraw_kernel.RedrawInputs``), or
+        None where K10's simulator and prior are not this problem's."""
+        return None
+
     def prior_grad(self, theta: torch.Tensor) -> torch.Tensor:
         """Gradient of the log-prior by autograd."""
         th = torch.as_tensor(theta, dtype=torch.float32).detach()
@@ -113,6 +119,28 @@ class _GaussianAbsProblem(ABCProblem):
         y = torch.as_tensor(y, dtype=torch.float32)
         diff = y - self.y_obs.to(y.device)
         return torch.sqrt(torch.sum(diff * diff, dim=-1))
+
+    def shared_redraw_inputs(self, kde, cutoff: float, nan_dis: float):
+        """K10's constants: the KDE's CDF (``KernelDensity.pick``'s
+        cumulative sum), support and bandwidth, and this problem's
+        constants as its own functions compute them at 0; None where a
+        subclass overrides the simulator, prior, discrepancy or
+        epsilon-kernel that K10 computes."""
+        from ..ops.kernels.shared_redraw_kernel import RedrawInputs
+
+        cls = type(self)
+        if any(getattr(cls, m) is not getattr(_GaussianAbsProblem, m)
+               for m in ("simulate", "prior_log_prob", "discrepancy",
+                         "kernel_log_prob")):
+            return None
+        dev = kde.X.device
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        prior0 = self.prior_log_prob(torch.zeros(kde.dim))
+        return RedrawInputs(
+            torch.cumsum(kde.weights, dim=-1), kde.X.contiguous(),
+            kde.bandwidth.contiguous(), self.y_obs.to(dev),
+            self.kernel_log_prob(zero), float(prior0), cutoff,
+            self._noise_std, self.epsilon, nan_dis)
 
 
 class MixtureProblem(_GaussianAbsProblem):

@@ -60,6 +60,10 @@ SOURCES = {
     },
     "kde_logprob": {
         "glabc_kde_logprob": [_P] * 5 + [_I] * 4 + [_P],
+        "glabc_kde_logprob_pool": [_P] * 6 + [_I] * 4 + [_P],
+    },
+    "shared_redraw": {
+        "glabc_shared_redraw": [_P] * 12 + [_I] * 5 + [_F] * 5 + [_P],
     },
     "pool_isir_mixed": {
         "glabc_pool_isir_mixed": [_P] * 18 + [_I] * 6 + [_F] * 8

@@ -26,7 +26,13 @@ K4 kernel (:func:`batched_kde_log_prob`; its plain version for CPU
 tensors): per chain under each chain's KDE, and in the shared epoch under
 the shared KDE taken as one chain (C = 1) whose points are a redraw chunk's
 draws, up to K4's widest ``d`` (128; ``KernelDensity.log_prob`` above).
-The JAX epoch's ``logprob_backend`` choice is not carried over.
+For the ``|theta| + sigma N(0, I)`` family (``MixtureProblem``,
+``HighDimMixtureProblem``) a shared epoch's chunk is K10
+(``ops/kernels/shared_redraw_kernel.py``: draws, prior check, partition,
+simulation and weights of the rows in one launch) and K4 with its pool
+epilogue, on the same random numbers and to the same pools as the
+sequence they replace, which other problems keep.  The JAX epoch's
+``logprob_backend`` choice is not carried over.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from ..ops.kernels.kde_logprob_kernel import (_MAX_D as _K4_MAX_D,
                                               BatchedMixtureLogProb,
                                               batched_kde_log_prob,
                                               kde_logprob_inputs)
+from ..ops.kernels.shared_redraw_kernel import RedrawInputs, SharedRedraw
 from ..ops.resampling import (categorical_from_log_weights,
                               stable_partition_take, systematic_resample)
 from ..utils.io import carry_path
@@ -305,13 +312,37 @@ def _shared_density(kde: KernelDensity):
     return log_q
 
 
+def _redraw_inputs(problem, kde: KernelDensity):
+    """K10's constants of an epoch (``problem.shared_redraw_inputs``: the
+    ``|theta| + sigma N(0, I)`` family's) where the KDE is within K4's
+    widest ``d``, whose pool epilogue completes K10's rows; None where the
+    shared epoch keeps the generic sequence."""
+    if kde.dim > _K4_MAX_D:
+        return None
+    return problem.shared_redraw_inputs(kde, _PRIOR_CUTOFF, _NAN_DIS)
+
+
 def _redraw_chunks(problem, cfg: AGLMCMCConfig, generator,
                   kde: KernelDensity, num_chains: int, pool_rows: int,
                   chunk: int) -> Pool:
-    """The shared epoch's new pools, ``chunk`` chains at a time: the KDE
-    draws (``glabc.epoch.redraw``), their density (``glabc.epoch.density``,
-    one K4 launch a chunk) and the simulated, weighted pool rows
-    (``glabc.epoch.pool``)."""
+    """The shared epoch's new pools, ``chunk`` chains at a time.
+
+    Where :func:`_redraw_inputs` gives K10's constants, each chunk's draws
+    (``u``, ``z`` and the simulator's noise, drawn up front in the order
+    the steps below once drew them) and K10, which writes the rows' theta,
+    dataset,
+    discrepancy and prior + log K (``glabc.epoch.redraw``, whose ``nbytes``
+    are those rows' bytes), then K4 with its pool epilogue, the density and
+    the log-weights (``glabc.epoch.density``); the rows are written into
+    the epoch's pools in place.  Otherwise the KDE draws, prior check and
+    stable partition (``glabc.epoch.redraw``, ``nbytes`` 0), their density
+    (``glabc.epoch.density``, one K4 launch a chunk) and the simulated,
+    weighted pool rows (``glabc.epoch.pool``).  Both give the same pools
+    from the same generator."""
+    inputs = _redraw_inputs(problem, kde)
+    if inputs is not None:
+        return _shared_redraw_chunks(cfg, generator, kde, inputs,
+                                     num_chains, pool_rows, chunk)
     density = _shared_density(kde)
     parts = []
     for _ in range(0, num_chains, chunk):
@@ -324,6 +355,36 @@ def _redraw_chunks(problem, cfg: AGLMCMCConfig, generator,
             parts.append(_pool_from_proposals(problem, generator, new_theta,
                                               log_q))
     return Pool.cat(parts)
+
+
+def _shared_redraw_chunks(cfg: AGLMCMCConfig, generator, kde: KernelDensity,
+                          inputs: RedrawInputs, num_chains: int,
+                          pool_rows: int, chunk: int) -> Pool:
+    """:func:`_redraw_chunks` through K10 and K4's pool epilogue."""
+    C, P, d = num_chains, pool_rows, kde.dim
+    M, dev = cfg.oversample * P, kde.X.device
+    k4_args = kde_logprob_inputs(KernelDensity(
+        kde.X[None], kde.weights[None], kde.bandwidth[None]))
+    redraw, k4 = SharedRedraw(), BatchedMixtureLogProb()
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                       device=dev)
+    pools = Pool(empty(C, P, d), empty(C, P, d), empty(C, P), empty(C, P),
+                 empty(C, P))
+    draw = dict(generator=generator, dtype=torch.float32, device=dev)
+    nbytes = chunk * P * (2 * d + 2) * 4
+    for c0 in range(0, C, chunk):
+        rows = pools.chains(c0, c0 + chunk)
+        with annotate("glabc.epoch.redraw", nbytes):
+            u = torch.rand((chunk, M), **draw)
+            z = torch.randn((chunk, M, d), **draw)
+            noise = torch.randn((chunk, P, d), **draw)
+            redraw.run(u, z, noise, inputs,
+                       out=(rows.theta, rows.x, rows.dis, rows.log_w))
+        with annotate("glabc.epoch.density"):
+            k4.run(rows.theta.reshape(1, -1, d), *k4_args,
+                   out=rows.log_q.reshape(1, -1),
+                   log_w=rows.log_w.reshape(1, -1))
+    return pools
 
 
 def make_shared_epoch_fn(problem, cfg: AGLMCMCConfig, shared_support: int,

@@ -1303,9 +1303,11 @@ def test_flow_forward_t_and_log_prob_t_through_k7(cuda, d, N):
 @pytest.mark.parametrize("d,attr", [(2, "launches"), (40, "wide_launches")])
 def test_shared_epoch_density_through_k4(cuda, d, attr):
     """One shared epoch at 1,024 chains and ``redraw_chunk`` 256 launches
-    K4 once a chunk (4 launches; the runtime-d variant at d = 40), and its
-    pools' ``log_q`` is within 1e-4 max(1, |log q|) of K4's plain version
-    on the same draws."""
+    K4 once a chunk, each with the pool epilogue (4 ``pool_launches``; the
+    runtime-d variant at d = 40), and never without it (``attr``, the
+    count of that d's kernel without the epilogue), and its pools'
+    ``log_q`` is within 1e-4 max(1, |log q|) of K4's plain version on the
+    same draws."""
     from glabc_tpu_torch import DiagGaussian
     from glabc_tpu_torch.models.kde import KernelDensity
     from glabc_tpu_torch.samplers import aglmcmc as agl
@@ -1315,11 +1317,14 @@ def test_shared_epoch_density_through_k4(cuda, d, attr):
     g = torch.Generator(device=cuda).manual_seed(19)
     pools = agl._init_pools(prob, g, DiagGaussian.create(d, device=cuda),
                             1024, 1000)
-    before = getattr(BatchedMixtureLogProb, attr)
+    before = (getattr(BatchedMixtureLogProb, attr),
+              BatchedMixtureLogProb.pool_launches)
     new, kde, _ = agl._shared_epoch_update(
         prob, cfg, 1024, g, pools, torch.tensor(1e6, device=cuda),
         redraw_chunk=256)
-    assert getattr(BatchedMixtureLogProb, attr) == before + 4
+    assert (getattr(BatchedMixtureLogProb, attr),
+            BatchedMixtureLogProb.pool_launches) == (before[0],
+                                                     before[1] + 4)
     args = kde_logprob_inputs(KernelDensity(
         kde.X[None], kde.weights[None], kde.bandwidth[None]))
     want = BatchedMixtureLogProb().plain(
@@ -1328,3 +1333,88 @@ def test_shared_epoch_density_through_k4(cuda, d, attr):
     assert torch.isfinite(new.log_q).all()
     assert ((new.log_q - want).abs() / want.abs().clamp_min(1.0)).max() \
         <= 1e-4
+
+
+def _cuda_kernels(fn):
+    """The CUDA kernels ``fn()`` launches (``torch.profiler``'s device
+    events, copies excluded)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset")))
+
+
+@pytest.mark.parametrize("d,chunk,P,support", [(2, 512, 2000, 1024),
+                                               (40, 64, 200, 1024),
+                                               (2, 128, 200, 16384),
+                                               (2, 128, 200, 12280),
+                                               (2, 128, 200, 12288)])
+def test_shared_redraw_bitwise_and_launches(cuda, monkeypatch, d, chunk, P,
+                                            support):
+    """K10 at the cell's chunk shape (512 chains x P = 2,000, d = 2; at
+    d = 40, where no candidate passes the prior's cutoff and the fill pass
+    places every row, through the runtime-d kernel and K4's wide pool
+    epilogue; on 12,280 support points, the most whose CDF K10 stages in
+    shared memory beside its static counts, and on 12,288 and 16,384,
+    whose CDF it searches in device memory): theta and x bitwise
+    its plain version on the card, dis and
+    prior + log K within 1e-6 max(1, |v|).  The epoch's chunk path against
+    the sequence K10 replaced (``_redraw``, K4, ``_pool_from_proposals``,
+    the generic path) on the same generator: theta and x bitwise, dis,
+    log q and log w within 1e-6 max(1, |v|).  A chunk launches at most 6
+    kernels (three draws, K10, K4), the replaced sequence more."""
+    from glabc_tpu_torch import DiagGaussian
+    from glabc_tpu_torch.models.kde import KernelDensity
+    from glabc_tpu_torch.ops.kernels.shared_redraw_kernel import SharedRedraw
+    from glabc_tpu_torch.samplers import aglmcmc as agl
+
+    prob = _problem(d)
+    cfg = agl.AGLMCMCConfig(0.5, 5, P // 5, 0.8, 0.2, 4, 0, 0)
+    g = torch.Generator(device=cuda).manual_seed(23)
+    pools = agl._init_pools(prob, g, DiagGaussian.create(d, device=cuda),
+                            chunk, P)
+    kde = KernelDensity.fit(pools.theta.reshape(-1, d)[:support])
+    inputs = agl._redraw_inputs(prob, kde)
+    assert kde.n_samples == support and inputs is not None
+    M = cfg.oversample * P
+    u = torch.rand((chunk, M), generator=g, device=cuda)
+    z = torch.randn((chunk, M, d), generator=g, device=cuda)
+    noise = torch.randn((chunk, P, d), generator=g, device=cuda)
+    before = SharedRedraw.launches
+    got = SharedRedraw().run(u, z, noise, inputs)
+    assert SharedRedraw.launches == before + 1
+    want = SharedRedraw().plain(u, z, noise, inputs)
+    torch.cuda.synchronize()
+    rel = lambda a, b: float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert rel(got[2], want[2]) <= 1e-6 and rel(got[3], want[3]) <= 1e-6
+
+    def chunks(n, generic=False):
+        if generic:
+            monkeypatch.setattr(agl, "_redraw_inputs",
+                                lambda *a: None)
+        gen = torch.Generator(device=cuda).manual_seed(29)
+        out = agl._redraw_chunks(prob, cfg, gen, kde, n * chunk, P, chunk)
+        monkeypatch.undo()
+        return out
+
+    new, old = chunks(1), chunks(1, generic=True)
+    torch.cuda.synchronize()
+    assert torch.equal(new.theta, old.theta) and torch.equal(new.x, old.x)
+    for a, b in ((new.dis, old.dis), (new.log_q, old.log_q),
+                 (new.log_w, old.log_w)):
+        assert bool(torch.isfinite(a).all()) or d == 40
+        fin = torch.isfinite(b)
+        assert torch.equal(fin, torch.isfinite(a))
+        assert rel(a[fin], b[fin]) <= 1e-6
+    per_chunk = [_cuda_kernels(lambda: chunks(2, generic))
+                 - _cuda_kernels(lambda: chunks(1, generic))
+                 for generic in (False, True)]
+    print(f"kernels a chunk: K10 path {per_chunk[0]}, replaced sequence "
+          f"{per_chunk[1]}")
+    assert per_chunk[0] <= 6 < per_chunk[1]

@@ -15,7 +15,8 @@ chunk's draws as its points.  Held here:
   blocks of points and gives the unblocked answer;
 * ``chip_smoke.shared_k4``, the exact launch count the card's smoke run
   expects of a shared-adaptation run, counts the K4 calls of the fused
-  mixed driver and of the plain path.
+  mixed driver and of the plain path, and their K10 calls (the Mixture
+  problem's chunks take K10, ``test_torch_shared_redraw.py``).
 """
 
 import importlib.util
@@ -28,7 +29,7 @@ import torch
 import glabc_tpu_torch.ops.kernels.kde_logprob_kernel as k4
 from glabc_tpu_torch import DiagGaussian, HighDimMixtureProblem, MixtureProblem
 from glabc_tpu_torch.models.kde import KernelDensity
-from glabc_tpu_torch.ops.kernels import BatchedMixtureLogProb
+from glabc_tpu_torch.ops.kernels import BatchedMixtureLogProb, SharedRedraw
 from glabc_tpu_torch.samplers import aglmcmc as agl
 from glabc_tpu_torch.samplers import run_aglmcmc, run_aglmcmc_fused_mixed
 
@@ -59,11 +60,25 @@ def k4_calls(monkeypatch):
     calls = []
     orig = BatchedMixtureLogProb.run
 
-    def run(self, x, *args):
+    def run(self, x, *args, **kw):
         calls.append(tuple(x.shape))
-        return orig(self, x, *args)
+        return orig(self, x, *args, **kw)
 
     monkeypatch.setattr(BatchedMixtureLogProb, "run", run)
+    return calls
+
+
+@pytest.fixture
+def k10_calls(monkeypatch):
+    """One entry for every K10 call (``SharedRedraw.run``)."""
+    calls = []
+    orig = SharedRedraw.run
+
+    def run(self, *args, **kw):
+        calls.append(1)
+        return orig(self, *args, **kw)
+
+    monkeypatch.setattr(SharedRedraw, "run", run)
     return calls
 
 
@@ -87,7 +102,10 @@ def test_shared_log_q_past_k4_width_is_kernel_density(k4_calls):
 @pytest.mark.parametrize("d", [2, 40])
 def test_redraw_chunk_keeps_log_q(d, monkeypatch, k4_calls):
     """The same draws (``_redraw`` replaced by slices of one tensor, taken
-    in order) give the same ``log_q`` in one chunk and in four."""
+    in order) give the same ``log_q`` in one chunk and in four, on the
+    generic chunk path (these problems take K10's otherwise,
+    ``test_torch_shared_redraw.py``)."""
+    monkeypatch.setattr(agl, "_redraw_inputs", lambda *a: None)
     draws = torch.randn((C, P, d), generator=torch.Generator().manual_seed(3))
 
     def run(redraw_chunk):
@@ -136,7 +154,8 @@ def _chip_smoke():
 
 @pytest.mark.parametrize("method", ["fused", "scan"])
 @pytest.mark.parametrize("redraw_chunk", [0, 16, 64])
-def test_chip_smoke_counts_shared_k4_calls(method, redraw_chunk, k4_calls):
+def test_chip_smoke_counts_shared_k4_calls(method, redraw_chunk, k4_calls,
+                                           k10_calls):
     """64 chains, gf 0.5, step 10: segments of 20 steps, 71 states give 4
     segments (the last of 10) and 3 epochs."""
     chains, steps = 64, 70
@@ -157,3 +176,4 @@ def test_chip_smoke_counts_shared_k4_calls(method, redraw_chunk, k4_calls):
     assert want == 3 * (chains // redraw_chunk if redraw_chunk < chains
                         and redraw_chunk else 1)
     assert len(k4_calls) == want
+    assert len(k10_calls) == want

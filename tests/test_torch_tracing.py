@@ -7,9 +7,16 @@ on the CPU.
   ``glabc.run.glmcmc_fused`` span whose ``glabc.io.*`` bytes are those of
   the arrays it moves, worked out from the shapes.
 * ``run_aglmcmc_fused_mixed`` records, per shared epoch, one anneal and
-  one support span, then ``C / redraw_chunk`` of redraw, density and pool
-  in that order under ``glabc.epoch``, then one ``glabc.epoch.pool`` for
-  the driver's repack after the epoch.
+  one support span, then ``C / redraw_chunk`` of redraw and density in
+  that order under ``glabc.epoch`` (the Mixture problem's pools come from
+  K10 and K4's pool epilogue; each redraw span counts the bytes of the
+  pool rows K10 wrote), then one ``glabc.epoch.pool`` for the driver's
+  repack after the epoch: the four phases of ``adapt.*_ms`` all recorded.
+* The shared epoch's chunks (``_redraw_chunks``): for the Mixture
+  problem each ``glabc.epoch.redraw`` counts the bytes of the pool rows
+  K10 wrote and is followed by one density span; MA(2), a problem that
+  overrides its simulator and d past K4's widest keep the generic path,
+  whose redraw spans count 0 bytes, each followed by density and pool.
 * In a 2-rank gloo group, ``glabc.mesh.gather`` counts world times the
   local bytes and ``glabc.mesh.all_sum`` the reduced bytes; a sharded run's
   collectives add up, epoch by epoch, to the gathers of every rank's pool
@@ -25,7 +32,8 @@ import numpy as np
 import pytest
 import torch
 
-from glabc_tpu_torch import DiagGaussian, MixtureProblem
+from glabc_tpu_torch import (DiagGaussian, HighDimMixtureProblem,
+                             MA2Problem, MixtureProblem)
 from glabc_tpu_torch.samplers.aglmcmc_fused import run_aglmcmc_fused_mixed
 from glabc_tpu_torch.samplers.glmcmc_fused import run_glmcmc_fused
 from glabc_tpu_torch.utils import profiling
@@ -148,12 +156,17 @@ def test_aglmcmc_mixed_epoch_phases_in_order(tmp_path):
     assert len(epochs) == AGL_EPOCHS
     chunks = AGL_C // AGL["redraw_chunk"]
     want = (["glabc.epoch.anneal", "glabc.epoch.support"]
-            + ["glabc.epoch.redraw", "glabc.epoch.density",
-               "glabc.epoch.pool"] * chunks)
+            + ["glabc.epoch.redraw", "glabc.epoch.density"] * chunks)
+    seg_len = round(AGL["step_size"] / AGL["global_frequency"])
+    rows = AGL["redraw_chunk"] * seg_len * AGL["batch_size"]
     for e in epochs:
         assert recs[e].parent == run
         inside = [i for i, r in enumerate(recs) if r.parent == e]
         assert [names[i] for i in inside] == want
+        # theta, x, dis and prior + log K of each row, float32
+        assert [recs[i].nbytes for i in inside
+                if names[i] == "glabc.epoch.redraw"] == \
+            [rows * (2 * D + 2) * 4] * chunks
         after = [i for i, r in enumerate(recs)
                  if r.parent == run and i > inside[-1]
                  and names[i].startswith("glabc.epoch")]
@@ -161,10 +174,47 @@ def test_aglmcmc_mixed_epoch_phases_in_order(tmp_path):
     repacks = [r for r in recs if r.name == "glabc.epoch.pool"
                and r.parent == run]
     assert len(repacks) == AGL_EPOCHS
+    assert {n for n in names if n.startswith("glabc.epoch.")} == {
+        f"glabc.epoch.{p}" for p in ("anneal", "support", "redraw",
+                                     "density", "pool")}
     # the per-epoch threshold's copy to the host, beside the run's own
     d2h = [r for r in recs if r.name == "glabc.io.d2h"]
     assert sum(r.parent == run for r in d2h) == len(d2h)
     assert sum(r.nbytes == 4 for r in d2h) >= AGL_EPOCHS
+
+
+class _OwnSimulator(MixtureProblem):
+    def simulate(self, theta, generator=None):
+        return super().simulate(theta, generator)
+
+
+@pytest.mark.parametrize("problem", [
+    MixtureProblem(0.05), MA2Problem(), _OwnSimulator(0.05),
+    HighDimMixtureProblem(130)], ids=["mixture", "ma2", "own", "d130"])
+def test_redraw_span_bytes_show_the_path(problem, tmp_path):
+    from glabc_tpu_torch.models.kde import KernelDensity
+    from glabc_tpu_torch.samplers import aglmcmc as agl
+
+    d, chains, rows, chunk = problem.theta_dim, 8, 30, 4
+    cfg = agl.AGLMCMCConfig(0.5, 5, 6, 0.8, 0.2, 4, 0, 0)
+    # a KDE inside each prior's support (MA(2): the triangle)
+    kde = KernelDensity(torch.full((1, d), 0.2), torch.ones(1),
+                        torch.full((d,), 0.1))
+    with trace(str(tmp_path / "tr")) as prof:
+        pools = agl._redraw_chunks(problem, cfg, _gen(3), kde, chains, rows,
+                                   chunk)
+    spans = [s for s in prof.spans if s.name.startswith("glabc.epoch.")]
+    takes = type(problem) is MixtureProblem
+    assert (agl._redraw_inputs(problem, kde) is not None) == takes
+    phases = ["redraw", "density"] + ([] if takes else ["pool"])
+    assert [s.name for s in spans] == \
+        [f"glabc.epoch.{p}" for p in phases] * (chains // chunk)
+    # theta, x, dis and prior + log K of each row K10 wrote, float32
+    want = chunk * rows * (2 * d + 2) * 4 if takes else 0
+    assert [s.nbytes for s in spans if s.name == "glabc.epoch.redraw"] == \
+        [want] * (chains // chunk)
+    assert pools.theta.shape == (chains, rows, d)
+    assert bool(torch.isfinite(pools.theta).all())
 
 
 # ------------------------------------------------ spans change nothing
