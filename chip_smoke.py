@@ -1402,10 +1402,9 @@ class Instrument:
     def __enter__(self):
         import torch
         import glabc_tpu_torch.samplers.aglmcmc as agl
-        import glabc_tpu_torch.samplers.aglmcmc_fused as fused
         import glabc_tpu_torch.samplers.fused_program as prog
-        import glabc_tpu_torch.samplers.glmala_fused as mala
         import glabc_tpu_torch.samplers.glmcmc_nf_fused as nf
+        from glabc_tpu_torch.samplers._fused_io import FusedRun
 
         self._saved = []
 
@@ -1443,9 +1442,7 @@ class Instrument:
             _o(*a, **k), "train"))
         patch(prog, "program_grad_init",
               self._synced(prog.program_grad_init, "grad"))
-        copy = self._synced(fused._history, "copy")
-        for mod in (fused, mala, nf, prog):
-            patch(mod, "_history", copy)
+        patch(FusedRun, "_history", self._synced(FusedRun._history, "copy"))
         return self
 
     def __exit__(self, *exc):
@@ -3791,7 +3788,7 @@ def checkpoint_resume(device, directory, chains, launches, cut, T=256,
     import numpy as np
     import torch
     from glabc_tpu_torch import MixtureProblem
-    from glabc_tpu_torch.ops.kernels import packed_state_init
+    from glabc_tpu_torch.models.problems import initial_chains
     from glabc_tpu_torch.samplers._shard import ChainShard
     from glabc_tpu_torch.utils import CheckpointManager
 
@@ -3799,9 +3796,12 @@ def checkpoint_resume(device, directory, chains, launches, cut, T=256,
     kern = make_kernel("packed", problem, T)
     shard = ChainShard(chains, mesh)
     g = torch.Generator(device=device).manual_seed(seed)
-    state = packed_state_init(problem, g, np.zeros(2),
-                              shard.local // kern.pack, kern.pack,
-                              device=device, shard=shard.spec)
+    # every chain's state (the generator moves as on one device), the
+    # rank's own packed
+    th, y, logk = (shard.keep(x) for x in initial_chains(
+        problem, g, np.zeros(2), shard.total, device=device))
+    state = (kern.from_chains(th, kern.pack), kern.from_chains(y, kern.pack),
+             kern.from_chains(logk, kern.pack, "logk"))
 
     def run(state, first, mgr=None):
         hist = []

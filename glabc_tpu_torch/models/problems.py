@@ -27,8 +27,11 @@ import math
 import numpy as np
 import torch
 
+from .._device import resolve_device
+from ..utils.profiling import annotate
+
 __all__ = ["ABCProblem", "MixtureProblem", "HighDimMixtureProblem",
-           "GKProblem", "MA2Problem"]
+           "GKProblem", "MA2Problem", "initial_chains"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -97,6 +100,45 @@ class ABCProblem:
 
     def calculate_log_kernel_dis(self, dis, epsilon=None):
         return self.kernel_log_prob(dis, epsilon)
+
+
+def initial_chains(problem, generator, theta0, num_chains: int = 1, y0=None,
+                   device=None):
+    """Every chain's initial ``theta (C, d)``, dataset ``y (C, y_dim)`` and
+    log kernel value ``(C,)``, the first state of every sampler.
+
+    ``theta0`` ``(d,)`` or ``(1, d)`` broadcasts to ``num_chains`` chains,
+    ``(num_chains, d)`` gives each its own.  ``y0`` ``(y_dim,)`` or ``(1,
+    y_dim)`` broadcasts, ``(C, y_dim)`` gives each chain its own; ``None``
+    simulates each chain's from its theta (``Mixture.py:66``).  The upload
+    of ``theta0`` and ``y0`` is a ``glabc.io.h2d`` span with their bytes."""
+    dev = resolve_device(device)
+    theta0 = np.asarray(theta0, np.float32)
+    if y0 is not None:
+        y0 = np.asarray(y0, np.float32)
+    with annotate("glabc.io.h2d",
+                  theta0.nbytes + (0 if y0 is None else y0.nbytes)):
+        theta0 = torch.as_tensor(theta0, device=dev)
+        if y0 is not None:
+            y0 = torch.as_tensor(y0, device=dev)
+    theta = theta0.reshape(-1, theta0.shape[-1])
+    if theta.shape[0] == 1:
+        theta = theta.expand(num_chains, theta.shape[1])
+    if theta.shape[0] != num_chains:
+        raise ValueError(f"theta0 has {theta.shape[0]} rows for "
+                         f"{num_chains} chains")
+    theta = theta.contiguous()
+    if y0 is None:
+        y = problem.simulate(theta, generator)
+    else:
+        y = y0.reshape(-1, problem.y_dim)
+        if y.shape[0] == 1:
+            y = y.expand(num_chains, problem.y_dim)
+        if y.shape[0] != num_chains:
+            raise ValueError(f"y0 has {y.shape[0]} rows for {num_chains} "
+                             "chains")
+        y = y.contiguous()
+    return theta, y, problem.kernel_log_prob(problem.discrepancy(y))
 
 
 class _GaussianAbsProblem(ABCProblem):

@@ -23,7 +23,6 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ...utils.profiling import annotate
 from .philox import gumbel, normal_pair, philox4x32, seed_key, uniform_from_bits
 
 __all__ = ["FusedMixtureGLMCMC", "FusedStats", "fused_state_init",
@@ -453,55 +452,20 @@ class FusedMixtureGLMCMC(_MixtureKernelBase):
 
 def fused_state_init(problem, generator: torch.Generator, theta0,
                      num_chains: int, d_pad: int = _SUB, y0=None,
-                     device=None, shard=None):
+                     device=None):
     """``(d_pad, C)`` padded initial state for the unpacked kernel.
 
     ``y0``: ``(d,)``/``(1, d)`` broadcasts to every chain, ``(C, d)`` gives
-    each its own; ``None`` simulates each chain's from ``theta0``.
-    ``shard``: see :func:`_initial_chains`."""
-    from ..._device import resolve_device
+    each its own; ``None`` simulates each chain's from ``theta0`` (see
+    :func:`~glabc_tpu_torch.models.problems.initial_chains`)."""
+    from ...models.problems import initial_chains
 
-    dev = resolve_device(device)
-    th_all, y_all, logk = _initial_chains(problem, generator, theta0,
-                                          num_chains, y0, dev, shard)
+    th_all, y_all, logk = initial_chains(problem, generator, theta0,
+                                         num_chains, y0, device)
     d = problem.theta_dim
-    theta = torch.zeros((d_pad, num_chains), dtype=torch.float32, device=dev)
+    theta = torch.zeros((d_pad, num_chains), dtype=torch.float32,
+                        device=th_all.device)
     y = torch.zeros_like(theta)
     theta[:d] = th_all.T
     y[:d] = y_all.T
     return theta, y, logk[None, :].contiguous()
-
-
-def _initial_chains(problem, generator, theta0, num_chains, y0, dev,
-                    shard=None):
-    """Per-chain ``theta (C, d)``, ``y (C, d)``, ``logk (C,)``.
-    ``shard=(chain0, total)``: the chains are ``chain0 .. chain0 + C - 1``
-    of ``total``, all of which are drawn (so the generator moves as in a
-    run of ``total`` chains) and ``y0 (total, d)`` may give."""
-    d = problem.theta_dim
-    chain0, total = (0, num_chains) if shard is None else shard
-    theta0 = np.asarray(theta0, np.float32).reshape(-1)
-    if y0 is not None:
-        y0 = np.asarray(y0, np.float32)
-    with annotate("glabc.io.h2d",
-                  theta0.nbytes + (0 if y0 is None else y0.nbytes)):
-        theta0 = torch.as_tensor(theta0, device=dev)
-        if y0 is not None:
-            y0 = torch.as_tensor(y0, device=dev)
-    th_all = theta0.expand(total, d).contiguous()
-    if y0 is None:
-        y_all = problem.simulate(th_all, generator)
-    else:
-        y_all = y0.reshape(-1, problem.y_dim)
-        if y_all.shape[0] == 1:
-            y_all = y_all.expand(total, problem.y_dim)
-        if y_all.shape[0] != total:
-            raise ValueError(f"y0 has {y_all.shape[0]} rows for "
-                             f"{total} chains")
-        y_all = y_all.contiguous()
-    logk = problem.kernel_log_prob(problem.discrepancy(y_all))
-    if shard is None:
-        return th_all, y_all, logk
-    keep = slice(chain0, chain0 + num_chains)
-    return (th_all[keep].contiguous(), y_all[keep].contiguous(),
-            logk[keep].contiguous())

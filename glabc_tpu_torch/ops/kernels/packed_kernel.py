@@ -17,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .mixture_kernel import _MixtureKernelBase, _initial_chains
+from .mixture_kernel import _MixtureKernelBase
 
 __all__ = ["PackedMixtureGLMCMC", "PackedStats", "packed_state_init",
            "unpack_history"]
@@ -54,22 +54,19 @@ class PackedMixtureGLMCMC(_MixtureKernelBase):
 
 
 def packed_state_init(problem, generator: torch.Generator, theta0,
-                      num_cols: int, pack: int, y0=None, device=None,
-                      shard=None):
+                      num_cols: int, pack: int, y0=None, device=None):
     """Packed ``(8, num_cols)`` initial state for ``pack * num_cols`` chains.
 
     ``y0``: ``(d,)``/``(1, d)`` broadcasts to every chain, ``(C, d)`` gives
-    each its own; ``None`` simulates each chain's from ``theta0``.
-    ``shard=(chain0, total)``: these are chains ``chain0 ..`` of ``total``,
-    packed on their own (see ``mixture_kernel._initial_chains``)."""
-    from ..._device import resolve_device
+    each its own; ``None`` simulates each chain's from ``theta0`` (see
+    :func:`~glabc_tpu_torch.models.problems.initial_chains`)."""
+    from ...models.problems import initial_chains
 
-    dev = resolve_device(device)
     d = problem.theta_dim
     if pack * d != _SUB:
         raise ValueError(f"pack * d must be {_SUB}, got {pack} * {d}")
-    th_all, y_all, logk = _initial_chains(problem, generator, theta0,
-                                          pack * num_cols, y0, dev, shard)
+    th_all, y_all, logk = initial_chains(problem, generator, theta0,
+                                         pack * num_cols, y0, device)
 
     def to_packed(x_cd):  # (pack*C, d) -> (8, C)
         return (x_cd.reshape(pack, num_cols, d).permute(0, 2, 1)

@@ -37,8 +37,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-__all__ = ["TileProgram", "mixture_tile_program", "ma2_tile_program",
-           "NEG", "rowsum", "div"]
+__all__ = ["TileProgram", "check_program", "mixture_tile_program",
+           "ma2_tile_program", "NEG", "rowsum", "div"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 NEG = -1.0e30   # -inf stand-in: never wins an argmax, always rejects, and
@@ -130,6 +130,22 @@ class TileProgram:
     def build_key(self) -> tuple:
         """What a kernel's build depends on besides its source."""
         return (self.header, tuple(self.defines))
+
+
+def check_program(problem, program) -> None:
+    """Raise unless ``program`` is a :class:`TileProgram` of ``problem``'s
+    widths: the drivers take the problem's initial states into the
+    program's kernel."""
+    if not isinstance(program, TileProgram):
+        raise TypeError("tile_program must be a glabc_tpu_torch TileProgram "
+                        "(a CUDA header and its torch twin), got "
+                        f"{type(program).__name__}")
+    if program.theta_dim != problem.theta_dim:
+        raise ValueError(f"program.theta_dim {program.theta_dim} != "
+                         f"problem.theta_dim {problem.theta_dim}")
+    if program.y_rows != problem.y_dim:
+        raise ValueError(f"program.y_rows {program.y_rows} != "
+                         f"problem.y_dim {problem.y_dim}")
 
 
 def mixture_tile_program(problem, *, ip_loc=0.0, ip_scale=1.0,

@@ -30,11 +30,6 @@ class ChainShard:
             self.rank, self.world, _ = check_mesh(mesh)
             self.chain0, self.local = chain_range(self.total, mesh)
 
-    @property
-    def spec(self):
-        """``(chain0, total)`` for the state initializers, None unsharded."""
-        return None if self.mesh is None else (self.chain0, self.total)
-
     def keep(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """This rank's chains of a full-width ``x`` along ``dim``
         (contiguous)."""

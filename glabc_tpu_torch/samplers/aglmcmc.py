@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -54,7 +53,6 @@ from ..ops.kernels.kde_logprob_kernel import (_MAX_D as _K4_MAX_D,
 from ..ops.kernels.shared_redraw_kernel import RedrawInputs, SharedRedraw
 from ..ops.resampling import (categorical_from_log_weights,
                               stable_partition_take, systematic_resample)
-from ..utils.io import carry_path
 from ..utils.profiling import annotate
 from ._fused_io import restore_epoch_ckpt, save_epoch_ckpt
 from ._shard import ChainShard
@@ -120,6 +118,18 @@ class Pool(NamedTuple):
     @staticmethod
     def cat(pools) -> "Pool":
         return Pool(*(torch.cat(xs, dim=0) for xs in zip(*pools)))
+
+    def selected(self, problem, sel, y_prev, logk_prev):
+        """The dataset and kernel value of each chain's last selected slot
+        (``sel``: the pool-iSIR kernel's flat slot, -1 when the chain did
+        not move, which keeps ``y_prev`` and ``logk_prev``)."""
+        rows = torch.arange(sel.shape[0], device=sel.device)
+        idx = torch.clamp_min(sel, 0.0).to(torch.int64)
+        moved = sel >= 0.0
+        y_sel = self.x[rows, idx]
+        logk_sel = problem.kernel_log_prob(self.dis[rows, idx])
+        return (torch.where(moved[:, None], y_sel, y_prev),
+                torch.where(moved, logk_sel, logk_prev))
 
 
 class AGLCarry(NamedTuple):
@@ -539,8 +549,7 @@ def run_aglmcmc(problem, generator, num_ite, theta0, local_proposal,
                  **shard.meta}
     checkpoint_path = shard.path(checkpoint_path, resume)
     restored = (restore_epoch_ckpt(checkpoint_path, ckpt_meta)
-                if resume and checkpoint_path is not None
-                and os.path.exists(carry_path(checkpoint_path)) else None)
+                if resume and checkpoint_path is not None else None)
     if restored is None:
         cc = init_chain_carry(problem, generator, theta0, y0, shard.total,
                               dev)

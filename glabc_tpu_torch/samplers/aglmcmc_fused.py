@@ -36,124 +36,25 @@ history, counts and ``hat_eps``; ``kde``, ``final_carry`` and
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
 from .._device import check_generator, resolve_device
 from ..ops.kernels.kde_logprob_kernel import (BatchedMixtureLogProb,
                                               kde_logprob_inputs)
-from ..ops.kernels.mixture_kernel import _initial_chains
 from ..ops.kernels.pool_isir_kernel import (PoolISIR, pack_pool_logw,
                                             pack_pool_theta)
 from ..ops.kernels.pool_isir_mixed_kernel import (PoolISIRMixed,
                                                   resident_from_gaussian,
                                                   resident_from_kde)
-from ..utils.io import carry_path
+from ..ops.kernels.program import check_program
 from ..utils.profiling import annotate
 from . import aglmcmc as _agl
-from ._fused_io import restore_epoch_ckpt, save_epoch_ckpt, to_host
+from ._fused_io import FusedRun, to_host
 from ._shard import ChainShard
-from .aglmcmc import AGLCarry, AGLMCMCConfig, AGLResult, Pool
-from .base import MoveCounts
-from .chain import init_chain_carry
+from .aglmcmc import AGLCarry, AGLMCMCConfig, AGLResult
 
 __all__ = ["run_aglmcmc_fused", "run_aglmcmc_fused_mixed"]
-
-
-class _AsyncBlocks:
-    """Deferred device-to-host history copy.  ``add`` cuts a launch's
-    ``(T, d, C)`` history to the rows kept (``thin``: iterations ``i`` with
-    ``i % thin == 0``, counted across launches), lays it out as
-    ``(C, rows, d)`` and converts it (``dtype``) on the card, then starts a
-    non-blocking copy into pinned host memory, so the card runs the next
-    launch while this one's history streams out.  :meth:`blocks` waits for
-    the copies and returns float32 numpy blocks.  ``gather`` (a
-    ``ChainShard``'s) joins every rank's chains on the card before the
-    copy."""
-
-    def __init__(self, thin: int = 1, dtype=None, gather=None):
-        self._thin = max(1, int(thin))
-        self._dtype = dtype
-        self._gather = gather
-        self._host = []
-        self._event = None
-
-    def add(self, hist: torch.Tensor, take: int, done: int = 0) -> None:
-        """Row ``r`` of ``hist`` is global iteration ``done + 1 + r``."""
-        t = self._thin
-        r0 = (-(done + 1)) % t
-        if r0 >= take:
-            return
-        dev = hist[r0:take:t].permute(2, 0, 1)
-        if self._dtype is not None:
-            dev = dev.to(self._dtype)
-        dev = dev.contiguous()
-        if self._gather is not None:
-            dev = self._gather(dev)
-        if dev.is_cuda:
-            host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
-            with annotate("glabc.io.d2h", dev.numel() * dev.element_size()):
-                host.copy_(dev, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            host = dev
-        self._host.append(host)
-
-    def blocks(self) -> list:
-        if self._event is not None:
-            self._event.synchronize()
-        return [h.to(torch.float32).numpy() for h in self._host]
-
-
-def _history_opts(thin: int, history_dtype, on_segment):
-    """``(thin, torch dtype or None)``; thinning and bfloat16 compress the
-    asynchronous copy and so exclude ``on_segment``, which takes
-    synchronous full-resolution float32 blocks.  bfloat16 histories come
-    back as float32 arrays holding bfloat16 values."""
-    thin = max(1, int(thin))
-    dt = None
-    if history_dtype is not None and history_dtype not in ("float32",
-                                                           torch.float32):
-        if history_dtype not in ("bfloat16", torch.bfloat16):
-            raise ValueError(f"history_dtype must be float32 or bfloat16, "
-                             f"got {history_dtype!r}")
-        dt = torch.bfloat16
-    if on_segment is not None and (thin > 1 or dt is not None):
-        raise ValueError(
-            "thin/history_dtype compress the asynchronous history copy and "
-            "are incompatible with on_segment (which gets synchronous "
-            "full-resolution float32 blocks)")
-    return thin, dt
-
-
-def _history(hist, take, done, on_segment, async_blocks, blocks,
-             gather=None):
-    if on_segment is not None:
-        block = hist[:take].permute(2, 0, 1)
-        if gather is not None:
-            block = gather(block.contiguous())
-        block = to_host(block)
-        on_segment(block, done)
-        blocks.append(block)
-    else:
-        async_blocks.add(hist, take, done)
-
-
-def _finish_history(theta_init_row, blocks, async_blocks, on_segment,
-                    collect_history, C, d, hist_dt):
-    if collect_history and on_segment is None:
-        blocks = async_blocks.blocks()
-    head = [] if theta_init_row is None else [theta_init_row]
-    if hist_dt is not None and head:
-        head = [torch.from_numpy(head[0]).to(hist_dt).float().numpy()]
-    if collect_history and (head or blocks):
-        return np.concatenate(head + blocks, axis=1)
-    if head:
-        return head[0]
-    return np.zeros((C, 0, d), np.float32)
 
 
 def _logw_under_kde(problem, kdes, theta_k, logk):
@@ -164,26 +65,6 @@ def _logw_under_kde(problem, kdes, theta_k, logk):
     ms, pre, inv_h2 = kde_logprob_inputs(kdes)
     logq = BatchedMixtureLogProb().plain(th[:, None, :], ms, pre, inv_h2)
     return (problem.prior_log_prob(th) + logk - logq[:, 0]).contiguous()
-
-
-def _resolve(problem, sp: Pool, sel, y_prev, logk_prev):
-    """The dataset and kernel value of the last selected candidate
-    (``sel``: flat slot in the launch's sub-pool, -1 when the chain did not
-    move)."""
-    rows = torch.arange(sel.shape[0], device=sel.device)
-    idx = torch.clamp_min(sel, 0.0).to(torch.int64)
-    moved = sel >= 0.0
-    y_sel = sp.x[rows, idx]
-    logk_sel = problem.kernel_log_prob(sp.dis[rows, idx])
-    return (torch.where(moved[:, None], y_sel, y_prev),
-            torch.where(moved, logk_sel, logk_prev))
-
-
-def _seed(seed, generator):
-    if seed is not None:
-        return int(seed)
-    return int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
-                             device=generator.device))
 
 
 def run_aglmcmc_fused(problem, generator, num_ite, theta0,
@@ -258,55 +139,41 @@ def run_aglmcmc_fused(problem, generator, num_ite, theta0,
     kern = PoolISIR(d, batch_size=B, steps_per_call=sub_T,
                     collect_history=collect_history, **blk)
     epoch_fn = _agl.make_epoch_fn(problem, cfg, C, epoch_chunk)
-    thin, hist_dt = _history_opts(thin, history_dtype, on_segment)
     ip = initial_isir_proposal.to(dev)
 
-    ckpt_meta = {"sampler": "aglmcmc_fused", "num_chains": shard.total,
-                 "theta_dim": d, "steps_per_call": T, "batch_size": B,
-                 **shard.meta}
-    checkpoint_path = shard.path(checkpoint_path, resume)
-    restored = (restore_epoch_ckpt(checkpoint_path, ckpt_meta)
-                if resume and checkpoint_path is not None
-                and os.path.exists(carry_path(checkpoint_path)) else None)
-    if restored is None:
-        cc = init_chain_carry(problem, generator, theta0, y0, shard.total,
-                              dev)
-        theta_init_row = cc.theta.cpu().numpy()[:, None, :]
+    meta = {"sampler": "aglmcmc_fused", "num_chains": shard.total,
+            "theta_dim": d, "steps_per_call": T, "batch_size": B}
+    run = FusedRun(shard, dev, checkpoint_path, resume, meta,
+                   collect_history=collect_history, on_segment=on_segment,
+                   thin=thin, history_dtype=history_dtype,
+                   counters=("g_acc",))
+    if run.resumed:
+        arrays = run.arrays
+        gen = shard.restore_rngs(arrays, generator)
+        pools, kdes = _agl._pool_from(arrays, dev), _agl._kde_from(arrays,
+                                                                   dev)
+        theta_k, logw_k, y_cur, logk, hat_eps = run.tensors(
+            "theta_k", "logw_k", "y_cur", "logk", "hat_eps")
+        hat_eps_hist = list(arrays["hat_eps_hist"])
+        ep = int(arrays["ep"])
+    else:
+        th_c, y_cur, logk = (shard.keep(x) for x in run.initial_chains(
+            problem, generator, theta0, y0))
         gen = shard.local_generator(generator)
-        th_c, y_cur, logk = (shard.keep(x) for x in (cc.theta, cc.y,
-                                                      cc.log_kernel))
         pools = _agl._init_pools(problem, gen, ip, C, P)
         theta_k = th_c.T.contiguous()
         logw_k = (problem.prior_log_prob(th_c) + logk
                   - ip.log_prob(th_c)).contiguous()
-        seed = _seed(seed, generator)
         kdes = None
         hat_eps = torch.full((C,), 1.0e6, device=dev)
         hat_eps_hist = []
-        g_acc = torch.zeros(C, dtype=torch.float64, device=dev)
-        done = steps_run = ep = 0
-        pending_epoch = False
-    else:
-        arrays, done = restored
-        t = lambda k: torch.as_tensor(arrays[k], device=dev)
-        gen = shard.restore_rngs(arrays, generator)
-        pools, kdes = _agl._pool_from(arrays, dev), _agl._kde_from(arrays,
-                                                                   dev)
-        theta_k, logw_k, y_cur, logk = (t("theta_k"), t("logw_k"),
-                                        t("y_cur"), t("logk"))
-        hat_eps, g_acc = t("hat_eps"), t("g_acc")
-        hat_eps_hist = list(arrays["hat_eps_hist"])
-        steps_run, ep, seed = (int(arrays["steps_run"]), int(arrays["ep"]),
-                               int(arrays["seed"]))
-        theta_init_row = None
-        pending_epoch = True
+        ep = 0
+    seed = run.kernel_seed(seed, generator)
+    pending_epoch = run.resumed
 
-    gather = None if mesh is None else shard.gather
-    async_blocks = _AsyncBlocks(thin, hist_dt, gather)
-    blocks = []
     total = num_ite - 1
     packed = None
-    while done < total:
+    while run.done < total:
         if pending_epoch:
             pools, kdes, hat_eps = epoch_fn(gen, pools, hat_eps)
             hat_eps_hist.append(hat_eps.cpu().numpy())
@@ -314,55 +181,39 @@ def run_aglmcmc_fused(problem, generator, num_ite, theta0,
             packed = None
             logw_k = _logw_under_kde(problem, kdes, theta_k, logk)
             pending_epoch = False
-        j = (done % T) // sub_T
+        j = (run.done % T) // sub_T
         sp = pools if n_sub == 1 else pools.rows(j * sub_T * B,
                                                  (j + 1) * sub_T * B)
         if n_sub > 1 or packed is None:
             packed = (pack_pool_theta(sp.theta, sub_T, B),
                       pack_pool_logw(sp.log_w, sub_T, B))
-        take = min(sub_T, total - done)
+        take = min(sub_T, total - run.done)
         theta_k, logw_k, sel, moved, hist = kern.run(
-            seed, *packed, theta_k, logw_k, step0=done, chain0=shard.chain0)
-        if collect_history:
-            _history(hist, take, done, on_segment, async_blocks, blocks,
-                     gather)
-        y_cur, logk = _resolve(problem, sp, sel, y_cur, logk)
-        g_acc += moved.to(torch.float64) * (take / sub_T)
-        steps_run += take
-        done += take
-        if take == sub_T and done % T == 0:
-            if done < total:
-                pending_epoch = True
-            if checkpoint_path is not None:
+            seed, *packed, theta_k, logw_k, step0=run.done,
+            chain0=shard.chain0)
+        y_cur, logk = sp.selected(problem, sel, y_cur, logk)
+        run.launched(hist, take, sub_T, [moved])
+        if take == sub_T and run.done % T == 0:
+            pending_epoch = run.done < total
+            if run.path is not None:
                 state = {"theta_k": theta_k, "logw_k": logw_k,
-                         "y_cur": y_cur, "logk": logk, "g_acc": g_acc,
-                         "hat_eps": hat_eps, "steps_run": steps_run,
-                         "ep": ep, "seed": seed,
-                         **shard.rng_arrays(generator, gen),
+                         "y_cur": y_cur, "logk": logk, "hat_eps": hat_eps,
+                         "ep": ep, **shard.rng_arrays(generator, gen),
                          "hat_eps_hist": np.asarray(hat_eps_hist,
                                                     np.float32)}
                 state.update(_agl._pool_arrays(pools))
                 state.update(_agl._kde_arrays(kdes))
-                save_epoch_ckpt(checkpoint_path, state, done, sub_T, sub_T,
-                                meta=ckpt_meta)
+                run.save(state)
 
-    Ct = shard.total
-    host = lambda a: shard.gather_host(a, dev)
-    thetas = _finish_history(theta_init_row, blocks, async_blocks,
-                             on_segment, collect_history, Ct, d, hist_dt)
-    counts = MoveCounts(
-        global_attempts=np.full((Ct,), steps_run, np.int32),
-        global_accepts=np.rint(host(g_acc.cpu().numpy())).astype(np.int32),
-        local_attempts=np.zeros((Ct,), np.int32),
-        local_accepts=np.zeros((Ct,), np.int32))
+    thetas, counts = run.finish(theta_k)
     carry = AGLCarry(theta_k.T.contiguous(), y_cur, logk,
                      torch.zeros(C, dtype=torch.int32, device=dev),
                      gen, counts)
     return AGLResult(
         thetas=thetas, counts=counts, final_carry=carry, kde=kdes,
-        hat_eps=host(hat_eps.cpu().numpy()),
-        hat_eps_hist=(host(np.asarray(hat_eps_hist).T).T if hat_eps_hist
-                      else None),
+        hat_eps=run.host(hat_eps),
+        hat_eps_hist=(shard.gather_host(np.asarray(hat_eps_hist).T, dev).T
+                      if hat_eps_hist else None),
         fused_state=(theta_k, y_cur, logk, logw_k))
 
 
@@ -405,8 +256,7 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
     check_generator(generator, dev)
     d = problem.theta_dim
     if tile_program is not None:
-        from .fused_program import _check_program
-        _check_program(problem, tile_program)
+        check_program(problem, tile_program)
         sigma, y_obs = 0.0, None
     else:
         sigma = getattr(problem, "_noise_std", None)
@@ -450,7 +300,6 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
         from ..parallel.sharded import make_sharded_shared_epoch
         epoch_fn = make_sharded_shared_epoch(problem, cfg, shared_support,
                                              mesh, redraw_chunk)
-    thin, hist_dt = _history_opts(thin, history_dtype, on_segment)
     ip = initial_isir_proposal.to(dev)
 
     def pack(pools_):
@@ -460,57 +309,43 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
                 pack_pool_logw(problem.kernel_log_prob(pools_.dis), seg_len,
                                B))
 
-    ckpt_meta = {"sampler": "aglmcmc_fused_mixed",
-                 "num_chains": shard.total, "theta_dim": d,
-                 "seg_len": seg_len, "batch_size": B,
-                 "shared_support": shared_support,
-                 "program": ("" if tile_program is None
-                             else tile_program.name), **shard.meta}
-    checkpoint_path = shard.path(checkpoint_path, resume)
-    restored = (restore_epoch_ckpt(checkpoint_path, ckpt_meta)
-                if resume and checkpoint_path is not None
-                and os.path.exists(carry_path(checkpoint_path)) else None)
-    if restored is None:
-        th_c, y_c, logk_k = _initial_chains(problem, generator, theta0,
-                                            shard.total, y0, dev)
-        theta_init_row = to_host(th_c)[:, None, :]
+    meta = {"sampler": "aglmcmc_fused_mixed", "num_chains": shard.total,
+            "theta_dim": d, "seg_len": seg_len, "batch_size": B,
+            "shared_support": shared_support,
+            "program": "" if tile_program is None else tile_program.name}
+    run = FusedRun(shard, dev, checkpoint_path, resume, meta,
+                   collect_history=collect_history, on_segment=on_segment,
+                   thin=thin, history_dtype=history_dtype)
+    if run.resumed:
+        arrays = run.arrays
+        gen = shard.restore_rngs(arrays, generator)
+        pools, kde = _agl._pool_from(arrays, dev), _agl._kde_from(arrays,
+                                                                  dev)
+        theta_k, y_k, logk_k, hat_eps = run.tensors("theta_k", "y_k",
+                                                    "logk_k", "hat_eps")
+        hat_eps_hist = list(arrays["hat_eps_hist"])
+        ep = int(arrays["ep"])
+    else:
+        th_c, y_c, logk_k = run.initial_chains(problem, generator, theta0,
+                                               y0)
         theta_k, y_k = (shard.keep(x.T, dim=1) for x in (th_c, y_c))
         logk_k = shard.keep(logk_k)
         gen = shard.local_generator(generator)
         pools = _agl._init_pools(problem, gen, ip, C, P)
-        seed = _seed(seed, generator)
         kde = None
         hat_eps = torch.tensor(1.0e6, device=dev)
         hat_eps_hist = []
-        counters = [torch.zeros(C, dtype=torch.float64, device=dev)
-                    for _ in range(3)]
-        done = steps_run = ep = 0
-        pending_epoch = False
-    else:
-        arrays, done = restored
-        t = lambda k: torch.as_tensor(arrays[k], device=dev)
-        gen = shard.restore_rngs(arrays, generator)
-        pools, kde = _agl._pool_from(arrays, dev), _agl._kde_from(arrays,
-                                                                  dev)
-        theta_k, y_k, logk_k = t("theta_k"), t("y_k"), t("logk_k")
-        hat_eps = t("hat_eps")
-        counters = [t("g_att"), t("g_acc"), t("l_acc")]
-        hat_eps_hist = list(arrays["hat_eps_hist"])
-        steps_run, ep, seed = (int(arrays["steps_run"]), int(arrays["ep"]),
-                               int(arrays["seed"]))
-        theta_init_row = None
-        pending_epoch = True
+        ep = 0
+    seed = run.kernel_seed(seed, generator)
+    pending_epoch = run.resumed
     resident = (resident_from_gaussian(to_host(ip.loc),
                                        np.exp(to_host(ip.log_scale)),
                                        device=dev)
                 if kde is None else resident_from_kde(kde))
     packed = pack(pools)
 
-    gather = None if mesh is None else shard.gather
-    async_blocks = _AsyncBlocks(thin, hist_dt, gather)
-    blocks = []
     total = num_ite - 1
-    while done < total:
+    while run.done < total:
         if pending_epoch:
             # the run's generator, alike on every rank: the sharded epoch
             # draws each rank's redraw generator from it
@@ -521,42 +356,24 @@ def run_aglmcmc_fused_mixed(problem, generator, num_ite, theta0,
                 packed = pack(pools)
                 resident = resident_from_kde(kde)
             pending_epoch = False
-        take = min(seg_len, total - done)
+        take = min(seg_len, total - run.done)
         theta_k, y_k, logk_k, gatt, gacc, lacc, hist = kern.run(
-            seed, resident, *packed, theta_k, y_k, logk_k, step0=done,
+            seed, resident, *packed, theta_k, y_k, logk_k, step0=run.done,
             chain0=shard.chain0)
-        if collect_history:
-            _history(hist, take, done, on_segment, async_blocks, blocks,
-                     gather)
-        frac = take / seg_len
-        for acc, inc in zip(counters, (gatt, gacc, lacc)):
-            acc += inc.to(torch.float64) * frac
-        steps_run += take
-        done += take
+        run.launched(hist, take, seg_len, (gatt, gacc, lacc))
         if take == seg_len:
-            if done < total:
-                pending_epoch = True
-            if checkpoint_path is not None:
+            pending_epoch = run.done < total
+            if run.path is not None:
                 state = {"theta_k": theta_k, "y_k": y_k, "logk_k": logk_k,
-                         "g_att": counters[0], "g_acc": counters[1],
-                         "l_acc": counters[2], "hat_eps": hat_eps,
-                         "steps_run": steps_run, "ep": ep, "seed": seed,
+                         "hat_eps": hat_eps, "ep": ep,
                          **shard.rng_arrays(generator, gen),
                          "hat_eps_hist": np.asarray(hat_eps_hist,
                                                     np.float32)}
                 state.update(_agl._pool_arrays(pools))
                 state.update(_agl._kde_arrays(kde))
-                save_epoch_ckpt(checkpoint_path, state, done, take, seg_len,
-                                meta=ckpt_meta)
+                run.save(state)
 
-    thetas = _finish_history(theta_init_row, blocks, async_blocks,
-                             on_segment, collect_history, shard.total, d,
-                             hist_dt)
-    g_att, g_acc, l_acc = (np.rint(to_host(shard.gather(c))).astype(np.int32)
-                           for c in counters)
-    counts = MoveCounts(global_attempts=g_att, global_accepts=g_acc,
-                        local_attempts=(steps_run - g_att).astype(np.int32),
-                        local_accepts=l_acc)
+    thetas, counts = run.finish(theta_k)
     carry = AGLCarry(theta_k.T.contiguous(), y_k.T.contiguous(), logk_k,
                      torch.zeros(C, dtype=torch.int32, device=dev),
                      gen, counts)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .._device import check_generator, resolve_device
+from ..models.problems import initial_chains
 from ..utils.io import carry_path, load_carry, save_carry
 from ._shard import ChainShard
 from .base import MoveCounts, SamplerResult, run_segmented
@@ -54,24 +55,14 @@ def init_chain_carry(problem, generator, theta0, y0=None,
                      num_chains: int = 1, device=None) -> ChainCarry:
     """Batched carry.  ``theta0`` ``(d,)`` broadcasts to every chain, or is
     ``(C, d)``.  ``y0=None`` simulates each chain's initial dataset
-    (``Mixture.py:66``)."""
+    (``Mixture.py:66``); see :func:`~glabc_tpu_torch.models.problems.
+    initial_chains`."""
     dev = resolve_device(device)
     check_generator(generator, dev)
-    theta0 = torch.as_tensor(np.asarray(theta0, np.float32), device=dev)
-    if theta0.dim() == 1:
-        theta0 = theta0.expand(num_chains, theta0.shape[0])
-    theta0 = theta0.contiguous()
-    C = theta0.shape[0]
-    if y0 is None:
-        y0 = problem.simulate(theta0, generator)
-    else:
-        y0 = torch.as_tensor(np.asarray(y0, np.float32),
-                             device=dev).reshape(-1, problem.y_dim)
-        if y0.shape[0] == 1:
-            y0 = y0.expand(C, problem.y_dim).contiguous()
-    log_kernel = problem.kernel_log_prob(problem.discrepancy(y0))
-    return ChainCarry(theta0, y0, log_kernel, generator,
-                      MoveCounts.zeros(C, dev))
+    theta, y, log_kernel = initial_chains(
+        problem, generator, theta0, _num_chains(theta0, num_chains), y0, dev)
+    return ChainCarry(theta, y, log_kernel, generator,
+                      MoveCounts.zeros(theta.shape[0], dev))
 
 
 def sample_with_step(problem, step: Callable, generator, num_ite: int, theta0,

@@ -22,19 +22,14 @@ history and counts: the one-device run's result, bit for bit.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
 from .._device import check_generator, resolve_device
 from ..ops.kernels.glmala_kernel import FusedMixtureGLMALA
-from ..ops.kernels.mixture_kernel import _initial_chains
-from ..utils.io import carry_path
-from ._fused_io import restore_epoch_ckpt, save_epoch_ckpt
+from ._fused_io import FusedRun
 from ._shard import ChainShard
-from .aglmcmc_fused import _AsyncBlocks, _finish_history, _history, _seed
-from .base import MoveCounts, SamplerResult
+from .base import SamplerResult
 from .glmala import synthetic_likelihood_grad
 
 __all__ = ["run_glmala_fused", "grad_init"]
@@ -97,78 +92,41 @@ def run_glmala_fused(problem, generator, num_ite, theta0, *, y0=None,
         prior_scale=prior_scale, ip_loc=ip_loc, ip_scale=ip_scale,
         steps_per_call=steps_per_call, block_chains=block_chains,
         collect_history=collect_history, coin_mode=coin_mode)
-    C, T = shard.local, kern.T
-    ckpt_meta = {"kernel": "glmala", "num_chains": shard.total,
-                 "theta_dim": d, "steps_per_call": T, "num_grad": num_grad,
-                 "coin_mode": coin_mode, **shard.meta}
-    checkpoint_path = shard.path(checkpoint_path, resume)
+    T = kern.T
+    meta = {"kernel": "glmala", "num_chains": shard.total, "theta_dim": d,
+            "steps_per_call": T, "num_grad": num_grad,
+            "coin_mode": coin_mode}
     # restore before the state init, so a resume skips the initial
     # simulations and the gradient batch
-    restored = (restore_epoch_ckpt(checkpoint_path, ckpt_meta)
-                if resume and checkpoint_path is not None
-                and os.path.exists(carry_path(checkpoint_path)) else None)
-    if restored is None:
+    run = FusedRun(shard, dev, checkpoint_path, resume, meta,
+                   collect_history=collect_history, on_segment=on_segment)
+    if run.resumed:
+        theta, y, logk, grad = run.tensors("theta", "y", "logk", "grad")
+    else:
         # every chain's state and gradient: the generator moves as on one
         # device; the rank keeps its own
-        th_c, y_c, logk = _initial_chains(problem, generator, theta0,
-                                          shard.total, y0, dev)
+        th_c, y_c, logk = run.initial_chains(problem, generator, theta0, y0)
         grad = shard.keep(grad_init(problem, generator, th_c, num_grad,
                                     fd_step), dim=1)
-        theta_init_row = th_c.cpu().numpy()[:, None, :]
         theta, y = (shard.keep(x.T, dim=1) for x in (th_c, y_c))
         logk = shard.keep(logk)
-        seed = _seed(seed, generator)
-        counters = [torch.zeros(C, dtype=torch.float64, device=dev)
-                    for _ in range(3)]
-        steps_run = done = call_idx = 0
-    else:
-        arrays, done = restored
-        t = lambda k: torch.as_tensor(arrays[k], device=dev)
-        theta, y, logk, grad = t("theta"), t("y"), t("logk"), t("grad")
-        counters = [t("g_att"), t("g_acc"), t("l_acc")]
-        steps_run, call_idx, seed = (int(arrays["steps_run"]),
-                                     int(arrays["call_idx"]),
-                                     int(arrays["seed"]))
-        theta_init_row = None
+    seed = run.kernel_seed(seed, generator)
     coin_rng = np.random.default_rng(seed)
-    for _ in range(call_idx):        # replay the host coin stream on resume
+    for _ in range(run.done // T):   # replay the host coin stream on resume
         coin_rng.random(T)
 
-    gather = None if mesh is None else shard.gather
-    async_blocks = _AsyncBlocks(gather=gather)
-    blocks = []
     total = num_ite - 1
-    while done < total:
+    while run.done < total:
         coins = torch.from_numpy(
             (coin_rng.random(T) < global_frequency).astype(np.int32))
         theta, y, logk, grad, hist, inc = kern.run(
-            seed, theta, y, logk, grad, coins, step0=call_idx * T,
+            seed, theta, y, logk, grad, coins, step0=run.done,
             chain0=shard.chain0)
-        call_idx += 1
-        take = min(T, total - done)
-        if collect_history:
-            _history(hist, take, done, on_segment, async_blocks, blocks,
-                     gather)
-        frac = take / T   # the kernel always runs T steps
-        for acc, x in zip(counters, inc[1:]):
-            acc += x.to(torch.float64) * frac
-        steps_run += take
-        done += take
-        if checkpoint_path is not None:
-            state = {"theta": theta, "y": y, "logk": logk, "grad": grad,
-                     "g_att": counters[0], "g_acc": counters[1],
-                     "l_acc": counters[2], "steps_run": steps_run,
-                     "call_idx": call_idx, "seed": seed}
-            save_epoch_ckpt(checkpoint_path, state, done, take, T,
-                            meta=ckpt_meta)
-
-    thetas = _finish_history(theta_init_row, blocks, async_blocks,
-                             on_segment, collect_history, shard.total, d,
-                             None)
-    g_att, g_acc, l_acc = (np.rint(shard.gather(c).cpu().numpy())
-                           .astype(np.int32) for c in counters)
-    counts = MoveCounts(global_attempts=g_att, global_accepts=g_acc,
-                        local_attempts=(steps_run - g_att).astype(np.int32),
-                        local_accepts=l_acc)
+        take = min(T, total - run.done)
+        run.launched(hist, take, T, inc[1:])
+        if take == T and run.path is not None:
+            run.save({"theta": theta, "y": y, "logk": logk, "grad": grad,
+                      "call_idx": run.done // T})
+    thetas, counts = run.finish(theta)
     return SamplerResult(thetas=thetas, counts=counts,
                          final_carry=(theta, y, logk, grad))

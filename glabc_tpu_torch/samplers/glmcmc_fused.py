@@ -21,16 +21,13 @@ equals the one-device run's bit for bit.
 
 from __future__ import annotations
 
-import numpy as np
-import torch
-
 from .._device import check_generator, resolve_device
-from ..ops.kernels.mixture_kernel import FusedMixtureGLMCMC, fused_state_init
-from ..ops.kernels.packed_kernel import PackedMixtureGLMCMC, packed_state_init
+from ..ops.kernels.mixture_kernel import FusedMixtureGLMCMC
+from ..ops.kernels.packed_kernel import PackedMixtureGLMCMC
 from ..utils.profiling import annotate
-from ._fused_io import restore_fused_ckpt, save_fused_ckpt, to_host
+from ._fused_io import FusedRun
 from ._shard import ChainShard
-from .base import MoveCounts, SamplerResult
+from .base import SamplerResult
 
 __all__ = ["run_glmcmc_fused", "run_global_mcmc_fused"]
 
@@ -49,7 +46,9 @@ def run_glmcmc_fused(problem, generator, num_ite, theta0, *, y0=None,
                      checkpoint_path: str | None = None,
                      resume: bool = False, device=None) -> SamplerResult:
     """GLMCMC through the fused kernel.  Chains have length ``num_ite``
-    with the initial state at index 0.
+    with the initial state at index 0; at ``collect_history=False``,
+    ``thetas`` is every chain's final state, ``(C, 1, d)``, as in every
+    fused driver (``samplers/_fused_io.FusedRun``).
 
     ``kernel``: ``'packed'`` (``theta_dim | 8`` and ``num_chains`` a
     multiple of ``8/d``), ``'unpacked'``, or ``'auto'`` (packed when
@@ -75,7 +74,7 @@ def run_glmcmc_fused(problem, generator, num_ite, theta0, *, y0=None,
     final carry is ahead of the last recorded state, and the ragged launch's
     counters are scaled pro rata."""
     shard = ChainShard(num_chains, mesh)
-    C_all, num_chains = num_chains, shard.local
+    num_chains = shard.local
     dev = resolve_device(device)
     check_generator(generator, dev)
     d = problem.theta_dim
@@ -91,14 +90,6 @@ def run_glmcmc_fused(problem, generator, num_ite, theta0, *, y0=None,
     if kernel not in ("packed", "unpacked"):
         raise ValueError(f"kernel must be 'auto', 'packed' or 'unpacked', "
                          f"got {kernel!r}")
-
-    ckpt_meta = {"kernel": kernel, "algorithm": algorithm,
-                 "num_chains": C_all, "theta_dim": d,
-                 "steps_per_call": steps_per_call,
-                 "block_chains": block_chains, **shard.meta}
-    checkpoint_path = shard.path(checkpoint_path, resume)
-    restored = (restore_fused_ckpt(checkpoint_path, ckpt_meta, dev)
-                if resume and checkpoint_path is not None else None)
     kwargs = dict(epsilon=problem.epsilon, sigma=sigma,
                   global_frequency=global_frequency, batch_size=batch_size,
                   prior_loc=prior_loc, prior_scale=prior_scale, ip_loc=ip_loc,
@@ -112,83 +103,44 @@ def run_glmcmc_fused(problem, generator, num_ite, theta0, *, y0=None,
             raise ValueError(f"packed kernel needs theta_dim | 8, got {d}")
         if num_chains % pack:
             raise ValueError(f"num_chains must be a multiple of {pack}")
-        num_cols = num_chains // pack
+        num_cols, groups = num_chains // pack, pack
         kern = PackedMixtureGLMCMC(d, y_obs, **kwargs)
-        if restored is None:
-            state = packed_state_init(problem, generator, theta0, num_cols,
-                                      pack, y0=y0, device=dev,
-                                      shard=shard.spec)
 
-        def stats_row(x):   # (8, C) leader-row counters -> (pack*C,)
-            return (x.reshape(pack, d, num_cols)[:, 0, :].reshape(num_chains)
-                    .to(torch.float64))
-
-        def hist_block(hist):   # (take, 8, C) -> (pack*C, take, d)
+        def hist_block(hist):   # (n, 8, C) -> (pack*C, n, d)
             return (hist.reshape(-1, pack, d, num_cols).permute(1, 3, 0, 2)
                     .reshape(num_chains, -1, d))
     else:
-        kern = FusedMixtureGLMCMC(d, y_obs, **kwargs)
-        if restored is None:
-            state = fused_state_init(problem, generator, theta0, num_chains,
-                                     kern.d_pad, y0=y0, device=dev,
-                                     shard=shard.spec)
+        kern, groups = FusedMixtureGLMCMC(d, y_obs, **kwargs), 1
 
-        def stats_row(x):
-            return x[0].to(torch.float64)
-
-        def hist_block(hist):   # (take, d_pad, C) -> (C, take, d)
+        def hist_block(hist):   # (n, d_pad, C) -> (C, n, d)
             return hist[:, :d, :].permute(2, 0, 1)
 
-    def host_block(hist):   # every rank's chains, on the host
-        return to_host(shard.gather(hist_block(hist).contiguous()))
-
-    if restored is not None:
-        (state, counters, steps_run, call_idx, seed, done) = restored
-        g_att, g_acc, l_acc = (torch.as_tensor(c, device=dev)
-                               for c in counters)
+    meta = {"kernel": kernel, "algorithm": algorithm,
+            "num_chains": shard.total, "theta_dim": d,
+            "steps_per_call": steps_per_call, "block_chains": block_chains}
+    run = FusedRun(shard, dev, checkpoint_path, resume, meta,
+                   collect_history=collect_history, on_segment=on_segment,
+                   layout=hist_block)
+    if run.resumed:
+        theta, y, logk = run.tensors("theta", "y", "logk")
     else:
-        if seed is None:
-            seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
-                                     device=generator.device))
-        g_att, g_acc, l_acc = (torch.zeros(num_chains, dtype=torch.float64,
-                                           device=dev) for _ in range(3))
-        steps_run = done = call_idx = 0
-    theta, y, logk = state
-    total = num_ite - 1
-    blocks = [host_block(theta[None])] if (collect_history and done == 0) else []
-    while done < total:
+        th, yy, lk = (shard.keep(x) for x in run.initial_chains(
+            problem, generator, theta0, y0))
+        theta, y = kern.from_chains(th, groups), kern.from_chains(yy, groups)
+        logk = kern.from_chains(lk, groups, "logk")
+    seed = run.kernel_seed(seed, generator)
+    T, total = kern.T, num_ite - 1
+    while run.done < total:
         theta, y, logk, hist, stats = kern.run(seed, theta, y, logk,
-                                               step0=call_idx * kern.T,
+                                               step0=run.done,
                                                chain0=shard.chain0)
-        call_idx += 1
-        take = min(kern.T, total - done)
-        if collect_history:
-            block = host_block(hist[:take])
-            if on_segment is not None:
-                on_segment(block, done)
-            blocks.append(block)
-        frac = take / kern.T   # the kernel always runs T steps
-        g_att += stats_row(stats.global_attempts) * frac
-        g_acc += stats_row(stats.global_accepts) * frac
-        l_acc += stats_row(stats.local_accepts) * frac
-        steps_run += take
-        done += take
-        if checkpoint_path is not None:
-            save_fused_ckpt(checkpoint_path, (theta, y, logk),
-                            (g_att, g_acc, l_acc), steps_run, call_idx, seed,
-                            done, take, kern.T, meta=ckpt_meta)
-
-    thetas = (np.concatenate(blocks, axis=1) if blocks
-              else host_block(theta[None]))
-    g_att, g_acc, l_acc = (to_host(shard.gather(c))
-                           for c in (g_att, g_acc, l_acc))
-    g_att_i = np.rint(g_att).astype(np.int32)
-    counts = MoveCounts(
-        global_attempts=g_att_i,
-        global_accepts=np.rint(g_acc).astype(np.int32),
-        local_attempts=(steps_run - g_att_i).astype(np.int32),
-        local_accepts=np.rint(l_acc).astype(np.int32),
-    )
+        take = min(T, total - run.done)
+        run.launched(hist, take, T, [kern.to_chains(x, groups, aux=True)
+                                     for x in stats[1:]])
+        if take == T and run.path is not None:
+            run.save({"theta": theta, "y": y, "logk": logk,
+                      "call_idx": run.done // T})
+    thetas, counts = run.finish(theta)
     return SamplerResult(thetas=thetas, counts=counts,
                          final_carry=(theta, y, logk))
 

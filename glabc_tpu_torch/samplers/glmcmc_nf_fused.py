@@ -58,14 +58,11 @@ from .._device import check_generator, resolve_device
 from ..ops.kernels.pool_isir_kernel import (PoolISIR, pack_pool_logw,
                                             pack_pool_theta)
 from ..ops.resampling import categorical_from_log_weights, systematic_resample
-from ._fused_io import restore_epoch_ckpt, save_epoch_ckpt
+from ._fused_io import FusedRun
 from ._shard import ChainShard
 from .aglmcmc import (AGLCarry, Pool, _pool_arrays, _pool_from,
                       _pool_from_proposals, default_pool_slack)
-from .aglmcmc_fused import (_AsyncBlocks, _finish_history, _history,
-                            _history_opts, _resolve, _seed)
 from .base import MoveCounts, _select, local_rw_move
-from .chain import init_chain_carry
 from .glmcmc_nf import (GLMCMCNFConfig, NFResult, adam_step,
                         flow_state_arrays, flow_state_from_arrays,
                         make_optimizer, new_flow)
@@ -245,52 +242,41 @@ def run_glmcmc_nf_pooled(problem, generator, num_ite, theta0, local_proposal,
         pool_slices = step_size + pool_slack
     C, d = shard.local, problem.theta_dim
     local_proposal = local_proposal.to(dev)
-    thin, hist_dt = _history_opts(thin, history_dtype, on_segment)
     pool_fn = make_nf_pool_fn(problem, C, pool_slices, batch_size)
     train = make_pool_trainer(cfg, shard.total, max_train, mesh)
 
-    ckpt_meta = {"sampler": "glmcmc_nf_pooled", "num_chains": shard.total,
-                 "theta_dim": d, "seg_len": seg_len,
-                 "pool_slices": pool_slices, "batch_size": batch_size,
-                 "n_layers": n_layers, "hidden": hidden, "cadence": cadence,
-                 **shard.meta}
-    checkpoint_path = shard.path(checkpoint_path, resume)
-    restored = (restore_epoch_ckpt(checkpoint_path, ckpt_meta)
-                if resume and checkpoint_path is not None else None)
-    if restored is None:
-        flow = new_flow(problem, generator, base, n_layers, hidden, flow, dev)
-        opt = make_optimizer(flow, cfg)
-        cc = init_chain_carry(problem, generator, theta0, y0, shard.total,
-                              dev)
-        theta_init_row = cc.theta.cpu().numpy()[:, None, :]
-        gen = shard.local_generator(generator)
-        carry = AGLCarry(shard.keep(cc.theta), shard.keep(cc.y),
-                         shard.keep(cc.log_kernel),
-                         torch.zeros(C, dtype=torch.int32, device=dev),
-                         gen, MoveCounts.zeros(C, dev))
-        pools = pool_fn(flow, gen)
-        losses, num_train, done = [], 0, 0
-        pending_epoch = False
-    else:
-        arrays, done = restored
-        t_ = lambda k: torch.as_tensor(arrays[k], device=dev)
+    meta = {"sampler": "glmcmc_nf_pooled", "num_chains": shard.total,
+            "theta_dim": d, "seg_len": seg_len, "pool_slices": pool_slices,
+            "batch_size": batch_size, "n_layers": n_layers,
+            "hidden": hidden, "cadence": cadence}
+    run = FusedRun(shard, dev, checkpoint_path, resume, meta,
+                   collect_history=collect_history, on_segment=on_segment,
+                   thin=thin, history_dtype=history_dtype, counters=())
+    if run.resumed:
+        arrays = run.arrays
         flow, opt = flow_state_from_arrays(arrays, cfg, dev)
         gen = shard.restore_rngs(arrays, generator)
         pools = _pool_from(arrays, dev)
-        carry = AGLCarry(t_("theta"), t_("y"), t_("log_kernel"), t_("kk"),
-                         gen,
-                         MoveCounts(*(t_(f"counts.{k}")
-                                      for k in MoveCounts._fields)))
+        carry = AGLCarry(*run.tensors("theta", "y", "log_kernel", "kk"),
+                         gen, MoveCounts(*run.tensors(
+                             *(f"counts.{k}" for k in MoveCounts._fields))))
         losses = [float(x) for x in np.asarray(arrays["losses"]).ravel()]
         num_train = int(arrays["num_train"])
-        theta_init_row = None
-        pending_epoch = True
+    else:
+        flow = new_flow(problem, generator, base, n_layers, hidden, flow, dev)
+        opt = make_optimizer(flow, cfg)
+        th, y, logk = (shard.keep(x) for x in run.initial_chains(
+            problem, generator, theta0, y0))
+        gen = shard.local_generator(generator)
+        carry = AGLCarry(th, y, logk,
+                         torch.zeros(C, dtype=torch.int32, device=dev),
+                         gen, MoveCounts.zeros(C, dev))
+        pools = pool_fn(flow, gen)
+        losses, num_train = [], 0
+    pending_epoch = run.resumed
 
-    gather = None if mesh is None else shard.gather
-    async_blocks = _AsyncBlocks(thin, hist_dt, gather)
-    blocks = []
     total = num_ite - 1
-    while done < total:
+    while run.done < total:
         if pending_epoch:
             # pool exhausted: train on it, then redraw from the updated flow
             # (GLMCMC_NFs.py:112-140; the redraw goes on after Train_step)
@@ -300,34 +286,26 @@ def run_glmcmc_nf_pooled(problem, generator, num_ite, theta0, local_proposal,
             pools = pool_fn(flow, gen)
             carry = carry._replace(kk=torch.zeros_like(carry.kk))
             pending_epoch = False
-        take = min(seg_len, total - done)
+        take = min(seg_len, total - run.done)
         hist = (torch.empty((take, d, C), dtype=torch.float32, device=dev)
                 if collect_history else None)
         carry = _pooled_segment(problem, local_proposal, cfg, flow, pools,
                                 carry, take, pool_slices, shared_coin,
                                 cadence, hist, generator)
-        if collect_history:
-            _history(hist, take, done, on_segment, async_blocks, blocks,
-                     gather)
-        done += take
+        run.launched(hist, take, seg_len)
         if take == seg_len:
-            if done < total:
-                pending_epoch = True
-            if checkpoint_path is not None:
+            pending_epoch = run.done < total
+            if run.path is not None:
                 state = _nf_arrays(flow, opt, pools, num_train, losses)
                 state.update(shard.rng_arrays(generator, gen))
                 state.update(theta=carry.theta, y=carry.y,
                              log_kernel=carry.log_kernel, kk=carry.kk)
                 state.update({f"counts.{k}": v
                               for k, v in carry.counts._asdict().items()})
-                save_epoch_ckpt(checkpoint_path, state, done, take, seg_len,
-                                meta=ckpt_meta)
+                run.save(state)
 
-    thetas = _finish_history(theta_init_row, blocks, async_blocks,
-                             on_segment, collect_history, shard.total, d,
-                             hist_dt)
-    counts = MoveCounts(*(shard.gather_host(c.cpu().numpy(), dev)
-                          for c in carry.counts))
+    thetas, _ = run.finish(carry.theta.T)
+    counts = MoveCounts(*(run.host(c) for c in carry.counts))
     return NFResult(thetas=thetas, counts=counts,
                     final_carry=carry, flow=flow,
                     loss_hist=np.asarray([float(x) for x in losses]))
@@ -367,7 +345,6 @@ def run_glmcmc_nf_fused(problem, generator, num_ite, theta0,
                     collect_history=collect_history)
     pool_fn = make_nf_pool_fn(problem, C, T, B)
     train = make_pool_trainer(cfg, shard.total, max_train, mesh)
-    thin, hist_dt = _history_opts(thin, history_dtype, on_segment)
 
     def state_logw(flow_, theta_k, logk):
         """The carried log-weight under the current flow: the reference's
@@ -378,49 +355,38 @@ def run_glmcmc_nf_fused(problem, generator, num_ite, theta0,
         return (problem.prior_log_prob(th) + logk
                 - flow_.log_prob(th)).contiguous()
 
-    ckpt_meta = {"sampler": "glmcmc_nf_fused", "num_chains": shard.total,
-                 "theta_dim": d, "steps_per_call": T, "batch_size": B,
-                 "n_layers": n_layers, "hidden": hidden, **shard.meta}
-    checkpoint_path = shard.path(checkpoint_path, resume)
-    restored = (restore_epoch_ckpt(checkpoint_path, ckpt_meta)
-                if resume and checkpoint_path is not None else None)
-    if restored is None:
-        flow = new_flow(problem, generator, base, n_layers, hidden, flow, dev)
-        opt = make_optimizer(flow, cfg)
-        cc = init_chain_carry(problem, generator, theta0, y0, shard.total,
-                              dev)
-        theta_init_row = cc.theta.cpu().numpy()[:, None, :]
-        gen = shard.local_generator(generator)
-        pools = pool_fn(flow, gen)
-        theta_k = shard.keep(cc.theta.T, dim=1)
-        y_cur, logk = shard.keep(cc.y), shard.keep(cc.log_kernel)
-        logw_k = state_logw(flow, theta_k, logk)
-        seed = _seed(seed, generator)
-        g_acc = torch.zeros(C, dtype=torch.float64, device=dev)
-        losses, num_train = [], 0
-        done = steps_run = 0
-        pending_epoch = False
-    else:
-        arrays, done = restored
-        t_ = lambda k: torch.as_tensor(arrays[k], device=dev)
+    meta = {"sampler": "glmcmc_nf_fused", "num_chains": shard.total,
+            "theta_dim": d, "steps_per_call": T, "batch_size": B,
+            "n_layers": n_layers, "hidden": hidden}
+    run = FusedRun(shard, dev, checkpoint_path, resume, meta,
+                   collect_history=collect_history, on_segment=on_segment,
+                   thin=thin, history_dtype=history_dtype,
+                   counters=("g_acc",))
+    if run.resumed:
+        arrays = run.arrays
         flow, opt = flow_state_from_arrays(arrays, cfg, dev)
         gen = shard.restore_rngs(arrays, generator)
         pools = _pool_from(arrays, dev)
-        theta_k, logw_k, y_cur, logk = (t_("theta_k"), t_("logw_k"),
-                                        t_("y_cur"), t_("logk"))
-        g_acc = t_("g_acc")
-        steps_run, seed = int(arrays["steps_run"]), int(arrays["seed"])
+        theta_k, logw_k, y_cur, logk = run.tensors("theta_k", "logw_k",
+                                                   "y_cur", "logk")
         losses = [float(x) for x in np.asarray(arrays["losses"]).ravel()]
         num_train = int(arrays["num_train"])
-        theta_init_row = None
-        pending_epoch = True
+    else:
+        flow = new_flow(problem, generator, base, n_layers, hidden, flow, dev)
+        opt = make_optimizer(flow, cfg)
+        th, y_cur, logk = (shard.keep(x) for x in run.initial_chains(
+            problem, generator, theta0, y0))
+        gen = shard.local_generator(generator)
+        pools = pool_fn(flow, gen)
+        theta_k = th.T.contiguous()
+        logw_k = state_logw(flow, theta_k, logk)
+        losses, num_train = [], 0
+    seed = run.kernel_seed(seed, generator)
+    pending_epoch = run.resumed
 
-    gather = None if mesh is None else shard.gather
-    async_blocks = _AsyncBlocks(thin, hist_dt, gather)
-    blocks = []
     total = num_ite - 1
     packed = None
-    while done < total:
+    while run.done < total:
         if pending_epoch:
             if num_train < train_steps:
                 losses.append(train(flow, opt, pools, gen))
@@ -432,37 +398,22 @@ def run_glmcmc_nf_fused(problem, generator, num_ite, theta0,
         if packed is None:
             packed = (pack_pool_theta(pools.theta, T, B),
                       pack_pool_logw(pools.log_w, T, B))
-        take = min(T, total - done)
+        take = min(T, total - run.done)
         theta_k, logw_k, sel, moved, hist = kern.run(
-            seed, *packed, theta_k, logw_k, step0=done, chain0=shard.chain0)
-        if collect_history:
-            _history(hist, take, done, on_segment, async_blocks, blocks,
-                     gather)
-        y_cur, logk = _resolve(problem, pools, sel, y_cur, logk)
-        g_acc += moved.to(torch.float64) * (take / T)
-        steps_run += take
-        done += take
+            seed, *packed, theta_k, logw_k, step0=run.done,
+            chain0=shard.chain0)
+        y_cur, logk = pools.selected(problem, sel, y_cur, logk)
+        run.launched(hist, take, T, [moved])
         if take == T:
-            if done < total:
-                pending_epoch = True
-            if checkpoint_path is not None:
+            pending_epoch = run.done < total
+            if run.path is not None:
                 state = _nf_arrays(flow, opt, pools, num_train, losses)
                 state.update(shard.rng_arrays(generator, gen))
                 state.update(theta_k=theta_k, logw_k=logw_k, y_cur=y_cur,
-                             logk=logk, g_acc=g_acc, steps_run=steps_run,
-                             seed=seed)
-                save_epoch_ckpt(checkpoint_path, state, done, take, T,
-                                meta=ckpt_meta)
+                             logk=logk)
+                run.save(state)
 
-    Ct = shard.total
-    thetas = _finish_history(theta_init_row, blocks, async_blocks,
-                             on_segment, collect_history, Ct, d, hist_dt)
-    g_acc = shard.gather(g_acc).cpu().numpy()
-    counts = MoveCounts(
-        global_attempts=np.full((Ct,), steps_run, np.int32),
-        global_accepts=np.rint(g_acc).astype(np.int32),
-        local_attempts=np.zeros((Ct,), np.int32),
-        local_accepts=np.zeros((Ct,), np.int32))
+    thetas, counts = run.finish(theta_k)
     carry = AGLCarry(theta_k.T.contiguous(), y_cur, logk,
                      torch.zeros(C, dtype=torch.int32, device=dev),
                      gen, counts)

@@ -161,8 +161,10 @@ def test_traced_run_spans_and_bytes(tmp_path, name, collect_history):
     h2d = [r for r in recs if r.name == "glabc.io.h2d"]
     d2h = [r for r in recs if r.name == "glabc.io.d2h"]
     assert [r.nbytes for r in h2d] == [d * f32 + y0.nbytes]   # theta0, y0
-    # one row of states (the first with the history, whose blocks stay on
-    # the CPU, else the last) and three float64 counters
-    assert sorted(r.nbytes for r in d2h) == sorted([16 * d * f32]
+    # one row of states (the first with the history, else the last), the
+    # history's blocks (12 steps in launches of 4) and three float64
+    # counters
+    blocks = [16 * 4 * d * f32] * 3 if collect_history else []
+    assert sorted(r.nbytes for r in d2h) == sorted([16 * d * f32] + blocks
                                                    + [16 * f64] * 3)
     assert all(r.parent == runs[0] for r in h2d + d2h)

@@ -8,7 +8,8 @@ the plain ``run_glmcmc`` path and ``MCMCRunner``.
     smaller size keeps the XLA CPU run cheap; the Monte-Carlo error of the
     difference is about 0.01).
 (g) Structure: bitwise determinism across ``steps_per_call``,
-    ``block_chains`` and layout; checkpoint/resume; the runner's CSV; the
+    ``block_chains`` and layout; checkpoint/resume, also from a file in
+    the fused loop's first checkpoint layout; the runner's CSV; the
     package imports no JAX; entry points need a device.
 """
 
@@ -32,6 +33,7 @@ from glabc_tpu_torch import (DiagGaussian, HighDimMixtureProblem, MCMCRunner,
                              run_glmcmc_fused)
 from glabc_tpu_torch.ops.kernels import (FusedMixtureGLMCMC,
                                          PackedMixtureGLMCMC)
+from glabc_tpu_torch.utils.io import save_carry
 
 torch.set_num_threads(1)
 
@@ -184,6 +186,37 @@ def test_fused_checkpoint_resume(tmp_path):
         run_glmcmc_fused(PROB, gen(5), 161, np.zeros(2), checkpoint_path=ck,
                          resume=True, num_chains=128, steps_per_call=64,
                          device="cpu")
+
+
+@pytest.mark.parametrize("kernel", ["packed", "unpacked"])
+def test_fused_checkpoint_of_the_first_layout_resumes(tmp_path, kernel):
+    """A checkpoint in the layout the fused GLMCMC loop wrote before the
+    fused drivers shared one checkpoint writer (the state, three float64
+    counters, ``steps_run``, ``call_idx``, ``seed`` and the configuration
+    as ``meta.*``) resumes bit for bit."""
+    kw = dict(num_chains=128, steps_per_call=32, block_chains=32, seed=77,
+              kernel=kernel, device="cpu")
+    full = run_glmcmc_fused(PROB, gen(5), 161, np.zeros(2), **kw)
+    part = run_glmcmc_fused(PROB, gen(5), 97, np.zeros(2), **kw)
+    (theta, y, logk), c = part.final_carry, part.counts
+    arrays = {"theta": theta, "y": y, "logk": logk,
+              "g_att": c.global_attempts.astype(np.float64),
+              "g_acc": c.global_accepts.astype(np.float64),
+              "l_acc": c.local_accepts.astype(np.float64),
+              "steps_run": 96, "call_idx": 3, "seed": 77}
+    meta = {"kernel": kernel, "algorithm": "glmcmc", "num_chains": 128,
+            "theta_dim": 2, "steps_per_call": 32, "block_chains": 32,
+            "world_size": 1}
+    arrays.update({f"meta.{k}": v for k, v in meta.items()})
+    ck = str(tmp_path / "first_layout")
+    save_carry(ck, arrays, step=96)
+    rest = run_glmcmc_fused(PROB, gen(99), 161, np.zeros(2),
+                            checkpoint_path=ck, resume=True, **kw)
+    np.testing.assert_array_equal(rest.thetas, full.thetas[:, 97:])
+    for a, b in zip(rest.counts, full.counts):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(rest.final_carry, full.final_carry):
+        assert torch.equal(a, b)
 
 
 def test_scan_checkpoint_resume(tmp_path):

@@ -326,5 +326,7 @@ def test_mesh_epoch_collective_bytes_reckoned(ranks, rank):
     # the weights' gather (float64), the support's sum (float32)
     want = 8 + rows * 4 + rows * 8 + AGL["shared_support"] * D * 4
     assert list(r["epoch_mesh_bytes"]) == [want] * AGL_EPOCHS
-    # the run's end: three counters (float64) gathered over the ranks
-    assert int(r["run_mesh_bytes"]) == AGL_EPOCHS * want + 3 * AGL_C * 8
+    # the run's end: every chain's final state (float32) and three
+    # counters (float64) gathered over the ranks
+    assert int(r["run_mesh_bytes"]) == (AGL_EPOCHS * want + AGL_C * D * 4
+                                        + 3 * AGL_C * 8)
