@@ -88,6 +88,10 @@ Phases, each reported on its own lines:
    gf=0.5 run's shared-epoch density (32,768,000 points, 1,024
    components) in one launch, beside ``KernelDensity.log_prob`` in the
    epoch's chunks of 512 chains (what the epoch computed before K4).
+   K11, the radix select, at the mesh cell's shard of 32,768,000 values
+   (run after phase 3): every pass's histograms and picks bitwise their
+   plain versions, the values ``torch.sort``'s order statistics, 3 + 3
+   launches a select, each kernel's device time beside the bytes bound.
    Phase 2 prints K1's and K4's static SASS split by instruction class,
    and K8's and K7-bf16's registers as ptxas reports them;
 11. sharded (``mesh=``, run after phase 9 and before phase 10): every
@@ -98,9 +102,14 @@ Phases, each reported on its own lines:
    join to the whole launch's bits; then ``run_glmcmc_fused`` at 65,536
    chains x 1,025 with ``mesh=make_mesh()`` over a one-rank NCCL group
    must equal the ``mesh=None`` run bit for bit (its launches counted as
-   a path, its wall printed beside the unsharded one), and two ranks on
-   the one card (gloo over CUDA tensors, two processes) must each return
-   the one-rank run of 16,384 chains x 129;
+   a path, its wall printed beside the unsharded one); on the same group
+   ``distributed_quantile`` (K11) and ``distributed_systematic_resample``
+   at the mesh cell's shard (32,768,000 values) must equal ``quantile``
+   and ``systematic_resample`` bit for bit, with their launch counts, and
+   the anneal's and the resample's host time is printed beside their
+   stream and kernel time (:func:`mesh_select`); and two ranks on the one
+   card (gloo over CUDA tensors, two processes) must each return the
+   one-rank run of 16,384 chains x 129;
 12. m13 (run after phase 9 and before phase 11): the native chain writer
    (built with g++) under ``MCMCRunner(use_native_io=True,
    write_chains='all').run_glmcmc(method='fused')`` at 65,536 chains x
@@ -133,7 +142,8 @@ Phases, each reported on its own lines:
    the hashes equal).
 
 ``python3 chip_smoke.py --shapes [--parent DIR]`` runs only phases 1, 2
-and 13.  ``python3 chip_smoke.py --seed-spread N [agl] [glmala] [nf] [ma2]
+and 13.  ``python3 chip_smoke.py --mesh-select`` runs only phases 1 and 2,
+K11's row and :func:`mesh_select` on a one-rank NCCL group.  ``python3 chip_smoke.py --seed-spread N [agl] [glmala] [nf] [ma2]
 [glmala_prog] [agl_prog]`` runs only phase 1 and the compared paths of
 phases 6-9 over N seeds each and prints the spread of the statistics those
 phases compare.
@@ -144,6 +154,7 @@ without a CUDA device, or without ``glabc_tpu_torch`` beside this file, the
 script fails at once.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -789,7 +800,8 @@ def _wrappers():
                                              GenericFusedGLMALA,
                                              GenericFusedGLMCMC,
                                              PackedMixtureGLMCMC, PoolISIR,
-                                             PoolISIRMixed, SharedRedraw)
+                                             PoolISIRMixed, RadixSelect,
+                                             SharedRedraw)
 
     out = {"packed": PackedMixtureGLMCMC, "unpacked": FusedMixtureGLMCMC,
            "pool_isir": PoolISIR, "kde_logprob": BatchedMixtureLogProb,
@@ -801,6 +813,8 @@ def _wrappers():
     out = {k: (cls, "launches") for k, cls in out.items()}
     out["pool_isir_mixed_prog"] = (PoolISIRMixed, "program_launches")
     out["kde_logprob_pool"] = (BatchedMixtureLogProb, "pool_launches")
+    out["radix_select"] = (RadixSelect, "launches")
+    out["radix_select_pick"] = (RadixSelect, "pick_launches")
     out["flow_push_bf16"] = (FlowPush, "bf16_launches")
     out["flow_pull_bf16"] = (FlowPull, "bf16_launches")
     # the variants past the static shapes (phase 13)
@@ -1415,7 +1429,7 @@ class Instrument:
 
         for key, (cls, attr) in _wrappers().items():
             if (key in ("packed", "unpacked") and not self.mixture
-                    or attr != "launches"):
+                    or attr != "launches" or not hasattr(cls, "run")):
                 continue
 
             def run(kern, *a, _orig=cls.run, _key=key, **k):
@@ -2839,6 +2853,236 @@ def redraw_device_ms(args):
             return json.load(f)["ms"]
 
 
+# the mesh cell's shard: 16,384 chains x 2,000 pool rows a rank
+RADIX_N = 32_768_000
+MESH_SUPPORT = 1024      # its KDE support points an epoch
+
+
+def radix_input(n, seed):
+    """``n`` half-normal float32 values on the card, 1 % of them at the NaN
+    rows' sentinel ``_NAN_DIS``: pool discrepancies in kind."""
+    import torch
+    from glabc_tpu_torch.samplers.aglmcmc import _NAN_DIS
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn(n, generator=g, device=DEVICE).abs()
+    x[::100] = _NAN_DIS
+    return x
+
+
+def radix_select_checked(x, k):
+    """``radix_select(x, k)`` with every histogram pass and every pick
+    checked bit for bit against its plain version on the same inputs (the
+    pass's histograms from the same zeros; the state, and the values where
+    asked, that the pick writes).  Returns ``(values, checks)``, one
+    ``(step, digit bits, same)`` a call."""
+    import torch
+    from glabc_tpu_torch.ops.kernels.radix_select_kernel import (
+        RadixSelect, key_values, radix_select)
+
+    checks = []
+    hist, pick = RadixSelect.hist, RadixSelect.pick
+
+    def checked_hist(kern, x, state, shift, bits, out):
+        want = kern.plain_hist(x, state, shift, bits, out.clone())
+        got = hist(kern, x, state, shift, bits, out)
+        checks.append(("hist", bits, bool(torch.equal(got, want))))
+        return got
+
+    def checked_pick(kern, h, state, bits, values=None):
+        want = kern.plain_pick(h, state.clone(), bits)
+        got = pick(kern, h, state, bits, values)
+        same = bool(torch.equal(got, want))
+        if values is not None:
+            same &= bool(torch.equal(values.view(torch.int32),
+                                     key_values(want[:2]).view(torch.int32)))
+        checks.append(("pick", bits, same))
+        return got
+
+    RadixSelect.hist, RadixSelect.pick = checked_hist, checked_pick
+    try:
+        return radix_select(x, k), checks
+    finally:
+        RadixSelect.hist, RadixSelect.pick = hist, pick
+
+
+def radix_select_row():
+    """K11 at the mesh cell's shard (RADIX_N values of
+    :func:`radix_input`): a select at the ranks of the 0.05 quantile, whose
+    prefixes agree, and one at ranks n/10 and n - 1, in different top
+    digits; each with the launch counts set to 0 just before it, every
+    pass checked against the plain versions
+    (:func:`radix_select_checked`), the values against ``torch.sort``'s
+    order statistics (as keys), 3 histogram and 3 pick launches.  Then each
+    kernel's device time a launch (``torch.profiler``), a plain histogram
+    pass's time, the sort-based one-device quantile's, and the bytes bound
+    of a pass (4 B a value read once)."""
+    import torch
+    from glabc_tpu_torch.ops.kernels.radix_select_kernel import (
+        DIGITS, RadixSelect, order_keys, radix_select)
+    from glabc_tpu_torch.samplers.aglmcmc import quantile, quantile_position
+
+    x = radix_input(RADIX_N, 23)
+    n = x.numel()
+    xs = torch.sort(x).values
+    lo, hi, _, _ = quantile_position(0.05, n, DEVICE)
+    selects = {"q0.05": torch.stack([lo, hi]),
+               "split": torch.tensor([n // 10, n - 1], device=DEVICE)}
+    by_select = {}
+    for label, k in selects.items():
+        (got, checks), counts = counted(lambda: radix_select_checked(x, k))
+        same = len(checks) == 2 * len(DIGITS) and all(c[2] for c in checks)
+        exact = bool(torch.equal(order_keys(got), order_keys(xs[k])))
+        log(f"[K11] radix select of {n:,} values at ranks "
+            f"{k.tolist()} ({label}): every pass's histograms and picks "
+            f"{'bitwise' if same else 'DIFFER from'} the plain versions "
+            f"({checks}); the values {got.tolist()} "
+            f"{'are' if exact else 'are NOT'} torch.sort's; launches "
+            f"{counts['radix_select']} + {counts['radix_select_pick']}")
+        check(same and exact, f"K11 at ranks {k.tolist()}: passes {checks}, "
+              f"values equal to torch.sort's {exact}")
+        check(counts == only(radix_select=len(DIGITS),
+                             radix_select_pick=len(DIGITS)),
+              f"K11 select launches {counts}")
+        by_select[label] = counts["radix_select"]
+    del xs
+    k = selects["q0.05"]
+    hist_ms = device_ms(lambda: radix_select(x, k),
+                        "radix_select_hist") / len(DIGITS)
+    pick_ms = device_ms(lambda: radix_select(x, k),
+                        "radix_select_pick") / len(DIGITS)
+    select_ms = median_ms(lambda: radix_select(x, k))
+    q = torch.tensor(0.05, device=DEVICE)
+    sort_ms = median_ms(lambda: quantile(x, q))
+    state = torch.zeros(4, dtype=torch.int64, device=DEVICE)
+    out = torch.zeros(2, 1 << DIGITS[0], dtype=torch.int64, device=DEVICE)
+    plain_ms, _ = timed(lambda: RadixSelect().plain_hist(
+        x, state, 32 - DIGITS[0], DIGITS[0], out), 1)
+    b = bound_ms(nbytes(x), 0)
+    log(f"[K11] radix_select_hist at {n:,} values: {hist_ms:.4f} ms of "
+        f"device time a pass (torch.profiler), bound {b[0]:.4f} ms "
+        f"({b[1]}: {nbytes(x) / 1e6:.1f} MB a pass), plain "
+        f"{plain_ms:.2f} ms a pass; radix_select_pick {pick_ms:.4f} ms; "
+        f"the select {select_ms:.4f} ms a call (CUDA events, host "
+        f"included) against the sort-based quantile's {sort_ms:.4f} ms")
+    return dict(name="radix_select_hist", route="cuda",
+                source="glabc_tpu_torch/csrc/radix_select.cu",
+                replaces="none (the JAX package's quantile is jnp.sort "
+                "under XLA)", launches=len(DIGITS), max_abs_err=0.0,
+                ms=hist_ms, plain_ms=plain_ms, bound_ms=b[0],
+                bound_by=b[1], library_ms=None, pick_ms=pick_ms,
+                launches_by_path=by_select)
+
+
+def _device_busy_ms(prof):
+    """The union of the device intervals (kernels, copies, sets) that
+    ``prof`` recorded, in ms, and their number."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3, len(spans)
+
+
+def select_times(fn, reps=10):
+    """``fn``'s host time (from the call to its return, the stream idle
+    before it), its stream time (CUDA events around it: what an untraced
+    span on the device clock reads), and its device busy time and number
+    of device operations (``torch.profiler``), in ms a call, medians over
+    ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    host, stream = [], []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        host.append(1e3 * (time.perf_counter() - t))
+        torch.cuda.synchronize()
+        stream.append(e0.elapsed_time(e1))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy, ops = _device_busy_ms(prof)
+    med = lambda v: sorted(v)[len(v) // 2]
+    return med(host), med(stream), busy / reps, ops / reps
+
+
+def mesh_select(mesh):
+    """The mesh epoch's select on ``mesh`` (a one-rank NCCL group) at the
+    mesh cell's shard: ``distributed_quantile`` of RADIX_N values of
+    :func:`radix_input` and ``distributed_systematic_resample`` of as many
+    float64 weights (every 97th 0) onto MESH_SUPPORT points, each with the
+    launch counts set to 0 just before it, against the one-device
+    ``quantile`` and ``systematic_resample`` bit for bit.  Then the
+    anneal (``sharded_hat_eps_update``'s update, the ``glabc.epoch.anneal``
+    span's call) and the resample, each by :func:`select_times`: whether
+    the host or the device sets their pace.  Returns the launch counts."""
+    import torch
+    from glabc_tpu_torch.ops.resampling import systematic_resample
+    from glabc_tpu_torch.parallel import (distributed_quantile,
+                                          distributed_systematic_resample,
+                                          sharded_hat_eps_update)
+    from glabc_tpu_torch.samplers.aglmcmc import quantile
+
+    x = radix_input(RADIX_N, 29)
+    g = torch.Generator(device=DEVICE).manual_seed(31)
+    w = torch.rand(RADIX_N, generator=g, dtype=torch.float64, device=DEVICE)
+    w[::97] = 0.0
+    q = torch.tensor(0.05, device=DEVICE)
+    gen = lambda: torch.Generator(device=DEVICE).manual_seed(4)
+    got_q, q_counts = counted(lambda: distributed_quantile(x, q, mesh))
+    want_q = quantile(x, q)
+    got_i, r_counts = counted(lambda: distributed_systematic_resample(
+        w, MESH_SUPPORT, mesh, gen(), replicated=True))
+    want_i = systematic_resample(w / w.sum(), MESH_SUPPORT, gen())
+    same_q = bool(torch.equal(got_q, want_q))
+    same_i = bool(torch.equal(got_i, want_i))
+    log(f"[sharded] distributed_quantile of {RADIX_N:,} values on one NCCL "
+        f"rank: {float(got_q)!r} {'bitwise equal to' if same_q else 'DIFFERS from'}"
+        f" quantile's {float(want_q)!r}; launches K11 "
+        f"{q_counts['radix_select']} + {q_counts['radix_select_pick']}; "
+        f"distributed_systematic_resample onto {MESH_SUPPORT:,} points: "
+        f"indices {'bitwise equal to' if same_i else 'DIFFER from'} "
+        f"systematic_resample's, no kernel of ours launched")
+    check(same_q and q_counts == only(radix_select=3, radix_select_pick=3),
+          f"distributed_quantile: equal {same_q}, launches {q_counts}")
+    check(same_i and r_counts == only(),
+          f"distributed_systematic_resample: equal {same_i}, launches "
+          f"{r_counts}")
+    anneal = sharded_hat_eps_update(0.8, 0.2, mesh)
+    hat = torch.tensor(1.0e6, device=DEVICE)
+    rs = gen()
+    for name, fn in (("anneal", lambda: anneal(x, hat)),
+                     ("resample", lambda: distributed_systematic_resample(
+                         w, MESH_SUPPORT, mesh, rs, replicated=True))):
+        host, stream, busy, ops = select_times(fn)
+        pace = ("pace not measured (the profiler saw no device operation)"
+                if ops == 0 else "paced by the "
+                + ("host" if host >= busy else "device"))
+        log(f"[sharded] the mesh select's {name} at {RADIX_N:,} a rank, one "
+            f"NCCL rank: host {host:.3f} ms a call, stream {stream:.3f} ms "
+            f"(CUDA events), device busy {busy:.3f} ms in {ops:.0f} device "
+            f"operations (torch.profiler): {pace}")
+    return {"mesh_select": q_counts}
+
+
 def divergence(tag, make, launch, share_g, ms):
     """The launch ``launch(kern)`` with every coin global (``make(1.0)``)
     and every coin local (``make(0.0)``) on the same inputs, beside the
@@ -3671,14 +3915,13 @@ def phase_sharded(card):
     chains.  Then ``run_glmcmc_fused`` at the GLMCMC entry-run shape with
     ``mesh=make_mesh()`` over a one-rank NCCL group (a ``FileStore`` in a
     temporary directory) must equal the ``mesh=None`` run bit for bit:
-    history and counts.  Last, two ranks share the card
+    history and counts; on that group the mesh epoch's select
+    (:func:`mesh_select`).  Last, two ranks share the card
     (:func:`two_ranks_one_card`).  No scaling number: the machine has one
     card."""
     import numpy as np
     import torch
-    import torch.distributed as dist
     from glabc_tpu_torch import MixtureProblem, run_glmcmc_fused
-    from glabc_tpu_torch.parallel import initialize_distributed, make_mesh
 
     for C in (SPLIT_CHAINS, SPLIT_RAGGED):
         for name, run in split_cases(DEVICE, C, SPLIT_T, seed=C):
@@ -3698,14 +3941,9 @@ def phase_sharded(card):
                                 num_chains=CHAINS, mesh=mesh)
 
     secs_ref, ref = wall(lambda: run(None))
-    with tempfile.TemporaryDirectory() as tmp:
-        store = dist.FileStore(os.path.join(tmp, "store"), 1)
-        initialize_distributed("nccl", store=store, rank=0, world_size=1)
-        try:
-            mesh = make_mesh()
-            (secs, got), counts = counted(lambda: wall(lambda: run(mesh)))
-        finally:
-            dist.destroy_process_group()
+    with one_rank_mesh() as mesh:
+        (secs, got), counts = counted(lambda: wall(lambda: run(mesh)))
+        select_counts = mesh_select(mesh)
     check(counts == only(packed=(ITERS - 1) // 256),
           f"run_glmcmc_fused(mesh=): launches {counts}")
     same = (np.array_equal(got.thetas, ref.thetas)
@@ -3718,7 +3956,23 @@ def phase_sharded(card):
     check(same, "run_glmcmc_fused with a one-rank mesh differs from "
           "mesh=None")
     two_ranks_one_card()
-    return {"run_glmcmc_mesh": counts}
+    return {"run_glmcmc_mesh": counts, **select_counts}
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A one-rank NCCL group on the card (a ``FileStore`` in a temporary
+    directory) and its ``make_mesh()``; the group is destroyed after."""
+    import torch.distributed as dist
+    from glabc_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        initialize_distributed("nccl", store=store, rank=0, world_size=1)
+        try:
+            yield make_mesh()
+        finally:
+            dist.destroy_process_group()
 
 
 def _two_rank_worker(rank, store_path, out_dir):
@@ -4571,6 +4825,16 @@ def main():
             json.dump(ab_hashes(), fh)
         return
     parent = _option("--parent")
+    if "--mesh-select" in sys.argv[1:]:
+        name, card = phase_device()
+        phase_build()
+        rows = [radix_select_row()]
+        with one_rank_mesh() as mesh:
+            mesh_select(mesh)
+        log(f"[done] {time.perf_counter() - t0:.1f} s")
+        log(card)
+        print(json.dumps({"kernels": rows}), flush=True)
+        return
     if "--shapes" in sys.argv[1:]:
         name, card = phase_device()
         phase_build()
@@ -4590,6 +4854,7 @@ def main():
     phase_mala_flow_kernels_vs_plain()
     phase_flow_bf16_vs_plain()
     phase_generic_kernels_vs_plain()
+    radix_row = radix_select_row()
 
     # each path runs with the launch counts set to 0 just before it
     bench = phase_main_bench(card)
@@ -4619,6 +4884,7 @@ def main():
     rows += shape_flow_rows(shape_insts, paths)
     rows += agl_kernel_rows(shape_insts, paths, wide=True)
     del shape_insts
+    rows.append(radix_row)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

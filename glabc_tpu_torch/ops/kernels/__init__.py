@@ -13,6 +13,7 @@ from .pool_isir_kernel import PoolISIR, pack_pool_logw, pack_pool_theta
 from .pool_isir_mixed_kernel import (PoolISIRMixed, ResidentProposal,
                                      resident_from_gaussian, resident_from_kde)
 from .program import TileProgram, ma2_tile_program, mixture_tile_program
+from .radix_select_kernel import RadixSelect, radix_select
 from .shared_redraw_kernel import RedrawInputs, SharedRedraw
 
 __all__ = [
@@ -43,6 +44,8 @@ __all__ = [
     "TileProgram",
     "ma2_tile_program",
     "mixture_tile_program",
+    "RadixSelect",
+    "radix_select",
     "RedrawInputs",
     "SharedRedraw",
 ]

@@ -45,6 +45,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _F = ctypes.c_float
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_L = ctypes.c_longlong
 _P = ctypes.c_void_p
 
 # source stem -> C signatures of its extern "C" functions
@@ -85,6 +86,10 @@ SOURCES = {
     "coupling_flow_wide": {
         "glabc_coupling_flow_wide": [_P] * 4 + [_I] * 8 + [_P],
         "glabc_coupling_flow_wide_layer_floats": [_I] * 3,
+    },
+    "radix_select": {
+        "glabc_radix_select_hist": [_P, _L, _P, _P, _I, _I, _P],
+        "glabc_radix_select_pick": [_P, _P, _I, _P, _P],
     },
 }
 

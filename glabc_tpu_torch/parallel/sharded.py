@@ -6,10 +6,12 @@ rank's tensors and the mesh's process group, called by every rank alike
 
 * :func:`distributed_quantile` / :func:`sharded_hat_eps_update`: the
   AGLMCMC epsilon-annealing quantile (``AGLMCMC.py:174-196``) over every
-  rank's pool discrepancies;
+  rank's pool discrepancies, by a radix select that sums digit histograms
+  over the group;
 * :func:`distributed_systematic_resample`: systematic resampling over a
   rank-sharded weight vector, on the global float64 CDF and one shared
-  ``u0``;
+  ``u0``, each rank searching its own part of the CDF from the ranks'
+  weight totals;
 * :func:`make_sharded_shared_epoch`: the shared adaptation epoch, every
   rank fitting the identical KDE;
 * :func:`make_sharded_flow_trainer` / :func:`make_sharded_chain_state_trainer`:
@@ -50,51 +52,99 @@ def rank_generator(generator: torch.Generator, mesh) -> torch.Generator:
     return g
 
 
-def _all_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+def _all_sum(x: torch.Tensor, mesh, *, inplace: bool = False
+             ) -> torch.Tensor:
+    """The sum of every rank's ``x``, into ``x`` itself where ``inplace``."""
     _, _, group = check_mesh(mesh)
-    x = x.clone()
+    if not inplace:
+        x = x.clone()
     with annotate("glabc.mesh.all_sum", x.numel() * x.element_size()):
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
 
 
 def distributed_quantile(x_local: torch.Tensor, q, mesh) -> torch.Tensor:
-    """Quantile ``q`` of the global array whose rank shard is ``x_local``:
-    the shards are gathered and the quantile taken as ``jnp.quantile``
-    takes it (sort, linear interpolation at ``q (n - 1)``, float32;
-    :func:`~glabc_tpu_torch.samplers.aglmcmc.quantile`).  Exact: the pools
-    are far below a sketch's size."""
-    from ..samplers.aglmcmc import quantile
+    """Quantile ``q`` (a scalar) of the global array whose rank shard is
+    ``x_local`` (equal shards), as ``jnp.quantile`` takes it: linear
+    interpolation between the order statistics at ``floor`` and ``ceil`` of
+    ``q (n - 1)``, float32
+    (:func:`~glabc_tpu_torch.samplers.aglmcmc.quantile`).
 
-    return quantile(gather_chains(x_local.reshape(-1), mesh), q)
+    Exact, and no rank sees another's values: a radix select
+    (:func:`~glabc_tpu_torch.ops.kernels.radix_select_kernel.
+    radix_select`, K11 on the card), whose digit histograms (``2 x 2^bits``
+    int64 a pass, ``len(DIGITS)`` passes) are summed over the group.  The
+    result equals the quantile of the gathered array bit for bit, but that a
+    zero reads as +0.0.  Only float32 shards are taken (the pools'
+    discrepancies); another dtype raises ``TypeError``."""
+    from ..ops.kernels.radix_select_kernel import radix_select
+    from ..samplers.aglmcmc import quantile_position
+
+    x_local = x_local.reshape(-1)
+    if x_local.dtype != torch.float32:
+        raise TypeError(f"distributed_quantile takes float32 shards, got "
+                        f"{x_local.dtype}")
+    n = x_local.shape[0] * check_mesh(mesh)[1]
+    lo_i, hi_i, lw, hw = quantile_position(q, n, x_local.device)
+    v = radix_select(x_local, torch.stack([lo_i, hi_i]),
+                     combine=lambda h: _all_sum(h, mesh, inplace=True))
+    return v[0] * lw + v[1] * hw
+
+
+def _owned_indices(w: torch.Tensor, u: torch.Tensor, mesh):
+    """``(owned, idx)`` of the grid ``u`` on this rank's cleaned float64
+    weights ``w``: the points of ``u`` that fall in this rank's part of
+    the global CDF (``P_r <= u < P_{r+1}``, ``P`` the normalized prefix of
+    the ranks' totals; the first rank owns what lies below, the last what
+    lies above) and, for those, the global index of the row they pick, by
+    ``searchsorted`` on ``P_r + cumsum(w / S)`` clamped to the rank's last
+    row.  The ranks' totals are the only exchange (one float64 each)."""
+    rank, world, _ = check_mesh(mesh)
+    mine = torch.zeros(world, dtype=torch.float64, device=w.device)
+    mine[rank] = torch.sum(w)
+    totals = _all_sum(mine, mesh, inplace=True)   # one term a slot: exact
+    total = torch.sum(totals)
+    ends = torch.cumsum(totals / total, dim=0)
+    owner = torch.searchsorted(ends[:-1].contiguous(), u, right=True)
+    start = ends[rank - 1] if rank else torch.zeros_like(total)
+    c = start + torch.cumsum(w / total, dim=-1)
+    idx = torch.clamp(torch.searchsorted(c, u, right=True), 0,
+                      w.shape[0] - 1) + rank * w.shape[0]
+    return owner == rank, idx
 
 
 def distributed_systematic_resample(w_local: torch.Tensor, num: int, mesh,
                                     generator: torch.Generator, *,
                                     replicated: bool = False
                                     ) -> torch.Tensor:
-    """Systematic resampling over a weight vector sharded by rank.
+    """Systematic resampling over a weight vector sharded by rank (equal
+    shards).
 
-    The global CDF is the float64 cumulative sum of the gathered shards
-    (NaNs and negatives count as 0), normalized; ``u0`` is one draw of the
-    shared ``generator``, the same on every rank.  ``replicated=False``:
-    the grid has ``num x world`` points and this rank keeps its ``num``,
-    slots ``rank num ..``; joined in rank order they are
+    The global CDF is the float64 cumulative sum of the joined shards (NaNs
+    and negatives count as 0), normalized; ``u0`` is one draw of the shared
+    ``generator``, the same on every rank.  ``replicated=False``: the grid
+    has ``num x world`` points and this rank keeps its ``num``, slots
+    ``rank num ..``; joined in rank order they are
     :func:`~glabc_tpu_torch.ops.resampling.systematic_resample`'s indices
-    on the global weights.  ``replicated=True``: every rank evaluates the
-    whole grid of ``num`` points.  Indices are global (into the ranks'
-    shards joined in rank order)."""
+    on the global weights.  ``replicated=True``: every rank gets the whole
+    grid of ``num`` points.  Indices are global (into the ranks' shards
+    joined in rank order).
+
+    No rank sees another's weights: the ranks sum their totals, each finds
+    the grid points in its own part of the CDF (:func:`_owned_indices`),
+    and a sum over the group of the indices, 0 where not owned, joins them.
+    The indices equal the gathered CDF's but where a grid point lies within
+    float64 rounding of a row's boundary."""
     rank, world, _ = check_mesh(mesh)
-    w = gather_chains(w_local.reshape(-1).to(torch.float64), mesh)
+    w = w_local.reshape(-1).to(torch.float64)
     w = torch.where(torch.isnan(w) | (w < 0), torch.zeros_like(w), w)
-    c = torch.cumsum(w / torch.sum(w), dim=-1)
     N, offset = (num, 0) if replicated else (num * world, rank * num)
     u0 = torch.rand((), generator=generator, dtype=torch.float64,
                     device=w.device)
-    slots = torch.arange(offset, offset + num, dtype=torch.float64,
-                         device=w.device)
-    idx = torch.searchsorted(c, (u0 + slots) / N, right=True)
-    return torch.clamp(idx, 0, w.shape[0] - 1)
+    u = (u0 + torch.arange(N, dtype=torch.float64, device=w.device)) / N
+    owned, idx = _owned_indices(w, u, mesh)
+    idx = _all_sum(torch.where(owned, idx, 0), mesh, inplace=True)
+    return idx[offset:offset + num]
 
 
 def sharded_hat_eps_update(alpha: float, hat_eps_T: float, mesh):

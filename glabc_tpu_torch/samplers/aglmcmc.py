@@ -151,6 +151,21 @@ class AGLResult(SamplerResult):
 
 
 # ------------------------------------------------------------------ epochs
+def quantile_position(q, n: int, device):
+    """``(lo_i, hi_i, lw, hw)`` of ``jnp.quantile``'s 'linear' method over
+    ``n`` values: the order statistics at ``floor`` and ``ceil`` of ``pos
+    = q (n - 1)`` and their weights ``1 - (pos - floor)`` and ``pos -
+    floor``, in float32 as JAX computes them."""
+    q = torch.as_tensor(q, dtype=torch.float32, device=device)
+    pos = q * torch.tensor(float(n - 1), dtype=torch.float32)
+    low = torch.floor(pos)
+    hw = pos - low
+    lw = 1.0 - hw
+    lo_i = torch.clamp(low, 0, n - 1).to(torch.int64)
+    hi_i = torch.clamp(torch.ceil(pos), 0, n - 1).to(torch.int64)
+    return lo_i, hi_i, lw, hw
+
+
 def quantile(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """``jnp.quantile(x, q)`` over the last axis, 'linear' method, with
     ``q`` broadcast to ``x.shape[:-1]``: sort, then interpolate between
@@ -158,13 +173,7 @@ def quantile(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     computed in float32 as JAX does."""
     n = x.shape[-1]
     xs = torch.sort(x, dim=-1).values
-    q = torch.as_tensor(q, dtype=torch.float32, device=x.device)
-    pos = q * torch.tensor(float(n - 1), dtype=torch.float32)
-    low = torch.floor(pos)
-    hw = pos - low
-    lw = 1.0 - hw
-    lo_i = torch.clamp(low, 0, n - 1).to(torch.int64)
-    hi_i = torch.clamp(torch.ceil(pos), 0, n - 1).to(torch.int64)
+    lo_i, hi_i, lw, hw = quantile_position(q, n, x.device)
     shape = x.shape[:-1]
     lo_v = torch.gather(xs, -1, lo_i.expand(shape)[..., None])[..., 0]
     hi_v = torch.gather(xs, -1, hi_i.expand(shape)[..., None])[..., 0]

@@ -1418,3 +1418,91 @@ def test_shared_redraw_bitwise_and_launches(cuda, monkeypatch, d, chunk, P,
     print(f"kernels a chunk: K10 path {per_chunk[0]}, replaced sequence "
           f"{per_chunk[1]}")
     assert per_chunk[0] <= 6 < per_chunk[1]
+
+
+def _radix_input(name, device):
+    """The mesh cell's shard of pool discrepancies in size (32,768,000
+    positive values, 1 % at the NaN rows' sentinel), or small arrays with
+    bulk ties, NaN, inf and signed zeros."""
+    from glabc_tpu_torch.samplers.aglmcmc import _NAN_DIS
+
+    g = torch.Generator(device=device).manual_seed(11)
+    if name == "cell":
+        x = torch.randn(32_768_000, generator=g, device=device).abs()
+        x[::100] = _NAN_DIS
+        return x
+    x = torch.randn(4099, generator=g, device=device)
+    if name == "ties":
+        x[::2] = _NAN_DIS
+        x[1::4] = 0.25
+    else:
+        x[::5] = float("nan")
+        x[1::7] = float("inf")
+        x[2::9] = -0.0
+        x[3::9] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("name", ["cell", "ties", "nan"])
+def test_radix_select_bitwise_and_launches(cuda, name):
+    """K11 against its plain versions, bitwise, on every pass of selects at
+    ranks whose prefixes agree and differ: the histograms, and the state
+    and values each pick writes (``chip_smoke.radix_select_checked``, which
+    patches ``RadixSelect.hist`` and ``pick`` for the select); the select's
+    values against ``torch.sort``'s order statistics (as keys: a zero's sign
+    and a NaN's payload aside, bitwise); a select launches one histogram
+    and one pick a pass."""
+    from glabc_tpu_torch.ops.kernels.radix_select_kernel import (
+        DIGITS, RadixSelect, order_keys)
+
+    x = _radix_input(name, cuda)
+    n = x.numel()
+    xs = torch.sort(x).values
+    ranks = [(0, 0), (n // 2, n // 2 + 1), (n // 10, n - 1), (n - 2, n - 1),
+             (1, n // 3)]
+    for k in ranks:
+        k = torch.tensor(k, device=cuda)
+        before = (RadixSelect.launches, RadixSelect.pick_launches)
+        got, checks = _smoke().radix_select_checked(x, k)
+        assert [c[:2] for c in checks] == [
+            (step, b) for b in DIGITS for step in ("hist", "pick")]
+        assert all(c[2] for c in checks), (k, checks)
+        assert (RadixSelect.launches, RadixSelect.pick_launches) == (
+            before[0] + len(DIGITS), before[1] + len(DIGITS))
+        assert torch.equal(order_keys(got), order_keys(xs[k])), k
+
+
+def test_mesh_select_makes_no_host_sync(cuda, tmp_path):
+    """``distributed_quantile`` (K11) and ``distributed_systematic_resample``
+    on a one-rank NCCL group raise nothing under
+    ``torch.cuda.set_sync_debug_mode("error")``, and equal the one-device
+    ``quantile`` and ``systematic_resample``."""
+    import torch.distributed as dist
+    from glabc_tpu_torch.ops.resampling import systematic_resample
+    from glabc_tpu_torch.parallel import (distributed_quantile,
+                                          distributed_systematic_resample,
+                                          initialize_distributed, make_mesh)
+    from glabc_tpu_torch.samplers.aglmcmc import quantile
+
+    x = _radix_input("ties", cuda)
+    w = torch.rand(1 << 16, dtype=torch.float64, device=cuda)
+    q = torch.tensor(0.3, device=cuda)
+    gen = lambda: torch.Generator(device=cuda).manual_seed(4)
+    initialize_distributed("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        select = lambda: (distributed_quantile(x, q, mesh),
+                          distributed_systematic_resample(
+                              w, 1024, mesh, gen(), replicated=True))
+        select()                      # the communicator, the library
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got_q, got_i = select()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got_q, quantile(x, q))
+    assert torch.equal(got_i, systematic_resample(w / w.sum(), 1024, gen()))

@@ -19,9 +19,13 @@ any JAX module was loaded.  A child that hangs fails the module after
   checkpoints are one file a rank, resume bitwise, and a resume on
   another world size raises; so do ``CheckpointManager(mesh=)``'s.
 * Collectives: ``distributed_quantile`` against JAX's under ``shard_map``
-  on a 2-device mesh (float32, rtol 1e-6); ``sharded_hat_eps_update`` and
-  ``distributed_systematic_resample`` against the one-device rules on the
-  joined inputs (exact); the data-parallel Adam step against one step on
+  on a 2-device mesh (float32, rtol 1e-6) and, through its radix select,
+  against ``quantile`` of the joined shards (exact, on ties, NaN, inf,
+  signed zeros, one value a rank, order statistics on two ranks);
+  ``sharded_hat_eps_update`` and ``distributed_systematic_resample``
+  against the one-device rules on the joined inputs (exact; the resample
+  also with a rank of no weight, NaN and negative weights, all weight on
+  one rank, and one owner a grid point); the data-parallel Adam step against one step on
   the whole batch (1e-6); the shared epoch's KDE the same on both ranks.
 * In distribution only: AGLMCMC (per-chain and shared adaptation, plain
   and fused) and GLMCMC-NF (plain, pooled, fused) under ``mesh=`` run,
@@ -63,6 +67,50 @@ def _quantile_input():
 
 def _weights_input():
     return np.random.default_rng(1).uniform(size=(WORLD, 32))
+
+
+def _radix_inputs():
+    """Each case's shards ``(WORLD, m)`` float32 for the radix-select
+    quantile: ``split_ranks`` puts ``lo_i`` (q = 0.5) at rank 0's largest
+    value and ``hi_i`` at rank 1's smallest, in other top digits."""
+    from glabc_tpu_torch.samplers.aglmcmc import _NAN_DIS
+
+    rng = np.random.default_rng(5)
+    ties = rng.exponential(size=(WORLD, 256))
+    ties[:, ::2] = _NAN_DIS
+    nan_inf = rng.normal(size=(WORLD, 128))
+    nan_inf[:, ::5] = np.nan
+    nan_inf[:, 1::7] = np.inf
+    zeros = np.tile([0.0, -0.0, 1.5, -0.0, -2.0, 0.0], (WORLD, 8))
+    split = rng.uniform(1.0, 2.0, size=(WORLD, 64))
+    split[1:] *= 1000.0
+    cases = {"normal": _quantile_input(), "bulk_ties": ties,
+             "all_equal": np.full((WORLD, 64), 0.25),
+             "nan_inf": nan_inf, "signed_zeros": zeros,
+             "one_a_rank": rng.normal(size=(WORLD, 1)),
+             "split_ranks": split}
+    return {k: v.astype(np.float32) for k, v in cases.items()}
+
+
+def _resample_inputs():
+    """Each case's weight shards ``(WORLD, 32)``: a rank with no weight,
+    NaN and negative weights, all the weight on the last rank."""
+    rng = np.random.default_rng(6)
+    zero_rank = rng.uniform(size=(WORLD, 32))
+    zero_rank[0] = 0.0
+    nan_neg = rng.uniform(size=(WORLD, 32))
+    nan_neg[:, ::3] = np.nan
+    nan_neg[:, 1::5] = -1.0
+    one_rank = np.zeros((WORLD, 32))
+    one_rank[-1] = rng.uniform(size=32)
+    return {"uniform": _weights_input(), "zero_rank": zero_rank,
+            "nan_negative": nan_neg, "one_rank": one_rank}
+
+
+def _same(a, b):
+    """Equal values (a zero of either sign equal), or both NaN."""
+    return bool(torch.equal(a, b) or (torch.isnan(a).all()
+                                      and torch.isnan(b).all()))
 
 
 def _split_names():
@@ -243,6 +291,7 @@ def _collectives(rank, mesh, out, tmp):
                                           distributed_systematic_resample,
                                           make_sharded_chain_state_trainer,
                                           make_sharded_shared_epoch,
+                                          sharded,
                                           sharded_hat_eps_update)
     from glabc_tpu_torch.samplers import aglmcmc as agl
     from glabc_tpu_torch.samplers.glmcmc_nf import (GLMCMCNFConfig,
@@ -260,6 +309,19 @@ def _collectives(rank, mesh, out, tmp):
         want = agl._anneal(x.abs().reshape(-1), hat, cfg)
         out[f"anneal.{h}"] = bool(torch.equal(got, want))
 
+    # the radix select against the quantile of the joined shards, with no
+    # gather of the values
+    gather = sharded.gather_chains
+    sharded.gather_chains = None
+    try:
+        for case, xs in _radix_inputs().items():
+            xs = torch.from_numpy(xs)
+            out[f"radix.{case}"] = np.array([_same(
+                distributed_quantile(xs[rank], q, mesh),
+                agl.quantile(xs.reshape(-1), q)) for q in QS])
+    finally:
+        sharded.gather_chains = gather
+
     w = torch.from_numpy(_weights_input())
     for replicated in (False, True):
         got = distributed_systematic_resample(
@@ -270,6 +332,36 @@ def _collectives(rank, mesh, out, tmp):
             want = want[16 * rank:16 * (rank + 1)]
         out[f"resample.replicated={replicated}"] = bool(
             torch.equal(got, want))
+    # the rank-local CDF against the gathered one: indices, and one owner
+    # for every grid point
+    for case, ws in _resample_inputs().items():
+        ws = torch.from_numpy(ws)
+        joined = ws.reshape(-1)
+        joined = torch.where(torch.isnan(joined) | (joined < 0),
+                             torch.zeros_like(joined), joined)
+        for replicated in (False, True):
+            key = f"{case}.replicated={replicated}"
+            got = distributed_systematic_resample(
+                ws[rank], 16, mesh, _gen(8), replicated=replicated)
+            n = 16 if replicated else 16 * WORLD
+            want = systematic_resample(joined / joined.sum(), n, _gen(8))
+            if not replicated:
+                want = want[16 * rank:16 * (rank + 1)]
+            out[f"local_cdf.{key}"] = bool(torch.equal(got, want))
+            # the grid and u = 0, which lies on a boundary of the CDF when
+            # the first rank has no weight
+            u = (torch.rand((), generator=_gen(8), dtype=torch.float64)
+                 + torch.arange(n, dtype=torch.float64)) / n
+            u = torch.cat([u, torch.zeros(1, dtype=torch.float64)])
+            local = torch.nan_to_num(ws[rank], nan=0.0).clamp_min(0.0)
+            owned, idx = sharded._owned_indices(local, u, mesh)
+            owners = sharded._all_sum(owned.to(torch.int64), mesh)
+            idx = sharded._all_sum(torch.where(owned, idx, 0), mesh)
+            c = torch.cumsum(joined / joined.sum(), dim=0)
+            want = torch.clamp(torch.searchsorted(c, u, right=True), 0,
+                               joined.numel() - 1)
+            out[f"owners.{key}"] = bool((owners == 1).all()
+                                        and torch.equal(idx, want))
 
     # the data-parallel Adam step against one step on the whole batch
     cfg_nf = GLMCMCNFConfig(n_layers=2, hidden=16)
@@ -492,6 +584,108 @@ def test_distributed_quantile_matches_jax(ranks, qi):
     for r in ranks:
         np.testing.assert_allclose(r["quantile"][qi], want, rtol=1e-6,
                                    atol=0)
+
+
+RADIX_CASES = ("normal", "bulk_ties", "all_equal", "nan_inf", "signed_zeros",
+               "one_a_rank", "split_ranks")
+RESAMPLE_CASES = ("uniform", "zero_rank", "nan_negative", "one_rank")
+
+
+@pytest.mark.parametrize("case", RADIX_CASES)
+def test_distributed_quantile_radix_select_is_exact(ranks, case):
+    """The radix select over the ranks' digit histograms equals
+    ``quantile`` of the joined shards at every q of ``QS`` (0 and 1
+    included), bit for bit but for the sign of a zero, NaN for NaN; no
+    rank gathered a value (``gather_chains`` was unset in the children)."""
+    for r in ranks:
+        assert r[f"radix.{case}"].all(), r[f"radix.{case}"]
+
+
+def test_split_ranks_case_splits_the_order_statistics():
+    """``split_ranks``' q = 0.5 reads rank 0's largest and rank 1's
+    smallest value, whose first digits (the keys' top 11 bits) differ."""
+    from glabc_tpu_torch.ops.kernels.radix_select_kernel import order_keys
+    from glabc_tpu_torch.samplers.aglmcmc import quantile_position
+
+    xs = torch.from_numpy(_radix_inputs()["split_ranks"])
+    lo_i, hi_i, _, _ = quantile_position(0.5, xs.numel(), "cpu")
+    m = xs.shape[1]
+    assert (int(lo_i), int(hi_i)) == (m - 1, m)
+    lo, hi = order_keys(torch.stack([xs[0].max(), xs[1].min()]))
+    assert int(lo) >> 21 != int(hi) >> 21
+
+
+@pytest.mark.parametrize("case", RADIX_CASES)
+def test_plain_radix_select_matches_sort(case):
+    """The plain radix select at 64 random pairs of ranks equals
+    ``torch.sort``'s order statistics (as keys: a zero's sign and a NaN's
+    payload aside, bitwise), and the kernels' counters do not move."""
+    from glabc_tpu_torch.ops.kernels.radix_select_kernel import (
+        RadixSelect, order_keys, radix_select)
+
+    x = torch.from_numpy(_radix_inputs()[case]).reshape(-1)
+    xs = torch.sort(x).values
+    before = RadixSelect.launches + RadixSelect.pick_launches
+    rng = np.random.default_rng(9)
+    for k in rng.integers(0, x.numel(), size=(64, 2)):
+        k = torch.from_numpy(k)
+        assert torch.equal(order_keys(radix_select(x, k)), order_keys(xs[k]))
+    assert RadixSelect.launches + RadixSelect.pick_launches == before
+
+
+@pytest.mark.parametrize("fault", [None, "hist", "pick"])
+def test_chip_smoke_radix_checker_sees_every_pass(monkeypatch, fault):
+    """``chip_smoke.radix_select_checked``, which holds K11 to its plain
+    versions on the card, records one check a histogram pass and a pick,
+    in order, all equal on the plain path, and catches a histogram or a
+    pick that differs from its plain version."""
+    from glabc_tpu_torch.ops.kernels.radix_select_kernel import (
+        DIGITS, RadixSelect, order_keys)
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    if fault == "hist":
+        monkeypatch.setattr(RadixSelect, "hist", lambda kern, x, st, sh, b,
+                            out: kern.plain_hist(x, st, sh, b, out).add_(
+                                b == DIGITS[-1]))
+    elif fault == "pick":
+        def pick(kern, h, st, b, values=None):
+            out = kern.plain_pick(h, st, b, values)
+            return out.sub_(torch.tensor([0, 0, 0, int(b == DIGITS[0])]))
+        monkeypatch.setattr(RadixSelect, "pick", pick)
+    x = torch.from_numpy(_radix_inputs()["bulk_ties"]).reshape(-1)
+    k = torch.tensor([3, x.numel() // 2])
+    got, checks = chip_smoke.radix_select_checked(x, k)
+    assert [c[:2] for c in checks] == [
+        (step, b) for b in DIGITS for step in ("hist", "pick")]
+    want = {None: set(), "hist": {("hist", DIGITS[-1])},
+            "pick": {("pick", DIGITS[0])}}[fault]
+    assert {c[:2] for c in checks if not c[2]} == want
+    if fault is None:
+        assert torch.equal(order_keys(got),
+                           order_keys(torch.sort(x).values[k]))
+
+
+def test_distributed_quantile_takes_float32_only():
+    """A shard of another dtype raises before any exchange."""
+    from glabc_tpu_torch.parallel import distributed_quantile
+
+    with pytest.raises(TypeError, match="float32"):
+        distributed_quantile(torch.zeros(8, dtype=torch.float64), 0.5, None)
+
+
+@pytest.mark.parametrize("replicated", [False, True])
+@pytest.mark.parametrize("case", RESAMPLE_CASES)
+def test_rank_local_resample_equals_gathered(ranks, case, replicated):
+    """Each rank's indices from its own part of the CDF equal the gathered
+    CDF's (``systematic_resample`` on the joined, cleaned weights), and
+    every grid point, and u = 0, has exactly one owner, whose index is the
+    gathered CDF's."""
+    key = f"{case}.replicated={replicated}"
+    for r in ranks:
+        assert bool(r[f"local_cdf.{key}"])
+        assert bool(r[f"owners.{key}"])
 
 
 @pytest.mark.parametrize("hat", ["1000000.0", "1.5", "0.1"])

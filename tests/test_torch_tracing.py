@@ -319,12 +319,15 @@ def test_mesh_gather_counts_world_times_local_bytes(ranks, rank):
 
 @pytest.mark.parametrize("rank", range(WORLD))
 def test_mesh_epoch_collective_bytes_reckoned(ranks, rank):
+    from glabc_tpu_torch.ops.kernels.radix_select_kernel import DIGITS
+
     r = ranks[rank]
-    P = 10 * AGL["batch_size"]                  # seg_len * batch_size rows
-    rows = AGL_C * P                            # every rank's pool rows
-    # the anneal's count (int64) and gather of discrepancies (float32),
-    # the weights' gather (float64), the support's sum (float32)
-    want = 8 + rows * 4 + rows * 8 + AGL["shared_support"] * D * 4
+    # the anneal's count (int64) and its radix select's two int64
+    # histograms a pass; the resample's weight totals (float64, one a
+    # rank) and support indices (int64); the support's sum (float32).  No
+    # pool row is exchanged.
+    want = (8 + sum(2 * 8 * (1 << b) for b in DIGITS) + WORLD * 8
+            + AGL["shared_support"] * 8 + AGL["shared_support"] * D * 4)
     assert list(r["epoch_mesh_bytes"]) == [want] * AGL_EPOCHS
     # the run's end: every chain's final state (float32) and three
     # counters (float64) gathered over the ranks
